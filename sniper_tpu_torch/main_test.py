@@ -1,0 +1,174 @@
+"""SNIPER inference / evaluation CLI on one CUDA device.
+
+Port of main_test.py:52-79,137-163,174-280 (``make_forward``,
+``_scale_post_nms``, ``run_detection``), single device only: multi-scale
+detection over TEST.SCALES with the per-scale post-NMS roi counts of a
+list-valued TEST.N_PROPOSAL_PER_SCALE, aggregation with per-scale valid
+ranges and soft-NMS, then the dataset's evaluation.
+
+  python -m sniper_tpu_torch.main_test --cfg configs/sniper_res101_e2e.yml \\
+      --weights model.pt
+
+``--weights`` is a ``torch.save``d state_dict of the port's detector (for a
+flax checkpoint: ``sniper_tpu_torch.convert.convert``). AutoFocus chips,
+proposal extraction and multi-device inference are later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+
+import torch
+
+from sniper_tpu_torch.data.test_loader import (
+    TestChipIterator,
+    init_inference_crops,
+)
+from sniper_tpu_torch.infer.tester import Tester, device_normalize
+
+
+def make_forward(model, state, device, pixel_means, post_nms_top_n=None):
+    """Inference forward on ``device``. ``state`` (a state_dict, or None
+    when ``model`` already holds its weights) is loaded first. Batches
+    arrive as uint8 RGB canvases and are mean-subtracted on the device
+    (device_normalize); fp32 input passes through. Returns the detector's
+    output dict of device tensors (launches are asynchronous: the Tester
+    copies them to the host one batch later)."""
+    if state is not None:
+        model.load_state_dict(state)
+    model.to(device).eval()
+
+    @torch.inference_mode()
+    def forward(data, im_info):
+        data = torch.as_tensor(data)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32)
+        if torch.device(device).type == "cuda":
+            data = data.pin_memory()
+        data = data.to(device, non_blocking=True)
+        im_info = im_info.to(device)
+        data = device_normalize(data, im_info, pixel_means)
+        return model(data, im_info, post_nms_top_n=post_nms_top_n)
+
+    return forward
+
+
+def _scale_post_nms(cfg, s, model):
+    """Per-scale post-NMS roi count for test scale ``s``: a list-valued
+    TEST.N_PROPOSAL_PER_SCALE gives one count per scale (finest ->
+    coarsest); a scalar keeps the model's global count."""
+    n = getattr(cfg.TEST, "N_PROPOSAL_PER_SCALE", None)
+    if isinstance(n, (list, tuple)):
+        if len(n) <= s:
+            raise ValueError(
+                f"TEST.N_PROPOSAL_PER_SCALE has {len(n)} entries but "
+                f"scale index {s} was requested — list it once per "
+                "TEST.SCALES entry (finest->coarsest)"
+            )
+        return int(n[s])
+    return int(model.post_nms_top_n)
+
+
+def _per_scale(value, s):
+    return value[s] if isinstance(value, (list, tuple)) else value
+
+
+def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
+                  image_loader=None):
+    """Detect at every TEST.SCALES entry, aggregate, evaluate. Returns
+    ``dataset.evaluate_detections``'s result. ``image_loader`` replaces
+    cv2.imread (tests and synthetic runs inject one)."""
+    if cfg.TEST.AUTO_FOCUS:
+        raise NotImplementedError(
+            "AutoFocus inference is not ported yet (ROADMAP.md Queue 1 "
+            "item 8)")
+    init_inference_crops(roidb)
+    if state is not None:
+        model.load_state_dict(state)
+    testers: dict = {}
+
+    def get_tester(post_nms):
+        if post_nms not in testers:
+            testers[post_nms] = Tester(
+                make_forward(model, None, device, cfg.network.PIXEL_MEANS,
+                             post_nms_top_n=post_nms),
+                cfg, dataset.num_classes,
+            )
+        return testers[post_nms]
+
+    loader_kw = {} if image_loader is None else {"image_loader": image_loader}
+    scale_dets = []
+    for s in range(len(cfg.TEST.SCALES)):
+        cache_file = os.path.join(out_dir, f"dets_scale{s}.pkl")
+        if _per_scale(cfg.TEST.USE_CACHE, s) and os.path.exists(cache_file):
+            with open(cache_file, "rb") as f:
+                all_boxes = pickle.load(f)["dets"]
+            print(f"scale {s}: loaded from cache {cache_file}")
+        else:
+            tester = get_tester(_scale_post_nms(cfg, s, model))
+            batches = TestChipIterator(
+                roidb, cfg, s, _per_scale(cfg.TEST.BATCH_IMAGES, s),
+                **loader_kw)
+            all_boxes = tester.get_detections(
+                iter(batches), roidb,
+                do_pruning=bool(_per_scale(cfg.TEST.DO_PRUNING, s)))
+            print(f"scale {s}: done")
+            # atomic: USE_CACHE treats existence as "scale done"
+            tmp = f"{cache_file}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                pickle.dump({"dets": all_boxes, "maps": None}, f)
+            os.replace(tmp, cache_file)
+        scale_dets.append(all_boxes)
+
+    tester = (next(iter(testers.values())) if testers
+              else Tester(None, cfg, dataset.num_classes))
+    final = tester.aggregate(scale_dets, len(roidb))
+    return dataset.evaluate_detections(final, roidb)
+
+
+def build_test_dataset(cfg):
+    # The dataset readers and the COCO evaluator are the JAX package's
+    # NumPy host plane (they import no jax); only this CLI loads them.
+    name = cfg.dataset.dataset
+    if name == "coco":
+        from sniper_tpu.data.coco import COCODataset
+
+        return COCODataset(str(cfg.dataset.test_image_set),
+                           cfg.dataset.root_path, cfg.dataset.dataset_path)
+    if name == "PascalVOC":
+        from sniper_tpu.data.pascal_voc import PascalVOC
+
+        return PascalVOC(str(cfg.dataset.test_image_set),
+                         cfg.dataset.root_path, cfg.dataset.dataset_path)
+    raise KeyError(f"unknown dataset {name!r}")
+
+
+def main(argv=None):
+    from sniper_tpu_torch.config import config_name, load_config
+    from sniper_tpu_torch.models.registry import get_model
+
+    p = argparse.ArgumentParser(description="Test a SNIPER detector (torch)")
+    p.add_argument("--cfg", required=True)
+    p.add_argument("--weights", required=True,
+                   help="torch.save'd state_dict of the port's detector")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--set", dest="overrides", nargs="*", default=[])
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.cfg, args.overrides)
+    out_dir = os.path.join(cfg.output_path or "./output",
+                           config_name(args.cfg),
+                           str(cfg.dataset.test_image_set))
+    os.makedirs(out_dir, exist_ok=True)
+    dataset = build_test_dataset(cfg)
+    roidb = dataset.gt_roidb()
+    model = get_model(cfg)
+    state = torch.load(args.weights, map_location="cpu")
+    stats = run_detection(cfg, model, state, roidb, dataset, out_dir,
+                          torch.device(args.device))
+    print(f"evaluation: {stats}")
+
+
+if __name__ == "__main__":
+    main()

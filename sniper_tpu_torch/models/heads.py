@@ -1,0 +1,75 @@
+"""Detection heads for inference: RPN and the fused deformable R-CNN head.
+
+Port of sniper_tpu/models/heads.py:52-160. Parameter names follow the flax
+tree; the ``_Lin`` param holders become ``nn.Linear`` ([out, in] weights).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sniper_tpu_torch.models.resnet import conv
+from sniper_tpu_torch.ops.deform import rcnn_head_fused
+
+
+class RPNHead(nn.Module):
+    """3x3 conv 512 -> ReLU -> 1x1 cls (2A) and 1x1 bbox (4A), in the
+    compute dtype; outputs cast to fp32."""
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.num_anchors = num_anchors
+        self.rpn_conv_3x3 = nn.Conv2d(in_channels, 512, 3, padding=1)
+        self.rpn_cls_score = nn.Conv2d(512, 2 * num_anchors, 1)
+        self.rpn_bbox_pred = nn.Conv2d(512, 4 * num_anchors, 1)
+
+    def forward(self, feat: torch.Tensor):
+        """feat [B,C,H,W]. Returns cls logits [B,H,W,2,A] fp32 (bg block,
+        then fg block) and bbox deltas [B,4A,H,W] fp32 (channel a*4+k)."""
+        h = torch.relu(conv(self.rpn_conv_3x3, feat))
+        cls = conv(self.rpn_cls_score, h).float()
+        bbox = conv(self.rpn_bbox_pred, h).float()
+        b, _, fh, fw = cls.shape
+        cls = cls.permute(0, 2, 3, 1).reshape(b, fh, fw, 2, self.num_anchors)
+        return cls, bbox.contiguous()
+
+
+class RCNNHead(nn.Module):
+    """Two-pass deformable PSROI pool (offset FC between the passes) ->
+    2x FC -> class scores and class-agnostic box deltas."""
+
+    def __init__(self, num_classes: int, *, in_channels: int = 256,
+                 pooled_size: int = 7, spatial_scale: float = 0.0625,
+                 fc_dim: int = 1024, margin_bins: int = 1,
+                 trans_std: float = 0.1):
+        super().__init__()
+        P = pooled_size
+        self.pooled_size = P
+        self.spatial_scale = spatial_scale
+        self.margin_bins = margin_bins
+        self.trans_std = trans_std
+        # offset FC output: the first P*P are dy, the next P*P dx
+        self.offset = nn.Linear(P * P * in_channels, 2 * P * P)
+        self.fc_new_1 = nn.Linear(P * P * in_channels, fc_dim)
+        self.fc_new_2 = nn.Linear(fc_dim, fc_dim)
+        self.cls_score = nn.Linear(fc_dim, num_classes)
+        self.bbox_pred = nn.Linear(fc_dim, 4)
+
+    def forward(self, roi_feat_map: torch.Tensor, rois: torch.Tensor):
+        """roi_feat_map [B,H,W,C] fp32, image-contiguous rois [R,5] (roi i
+        belongs to image i // (R/B), as multi_proposal emits them).
+        Returns (cls_score [R, num_classes], bbox_pred [R, 4]) fp32."""
+        B = roi_feat_map.shape[0]
+        if rois.shape[0] % B:
+            raise NotImplementedError(
+                "RCNNHead takes image-contiguous rois only (R a multiple of "
+                "B); the general batch-index path is the JAX package's test "
+                "oracle and is not ported")
+        params = tuple((m.weight, m.bias) for m in (
+            self.offset, self.fc_new_1, self.fc_new_2, self.cls_score,
+            self.bbox_pred))
+        return rcnn_head_fused(
+            roi_feat_map, rois, params, rois_per_image=rois.shape[0] // B,
+            pooled_size=self.pooled_size, spatial_scale=self.spatial_scale,
+            trans_std=self.trans_std, margin_bins=self.margin_bins)

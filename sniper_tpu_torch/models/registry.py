@@ -1,0 +1,59 @@
+"""Model registry: config symbol -> detector constructor.
+
+Port of the ``resnet_mx_101_e2e`` and ``resnet_mx_50_e2e`` entries of
+sniper_tpu/models/registry.py:73-115,149-156. ``TRAIN.bf16`` selects the
+trunk's compute dtype, as in the JAX package. ``network.POOL_KERNEL`` is
+not read: its einsum/pallas/fused choice exists only for the TPU, and here
+the device of the tensors decides between a kernel and its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sniper_tpu_torch.models.detector import SNIPERDetector
+
+
+def _resnet(units):
+    def build(cfg, **overrides):
+        kw = dict(
+            num_classes=cfg.dataset.NUM_CLASSES,
+            num_anchors=cfg.network.NUM_ANCHORS,
+            anchor_ratios=tuple(cfg.network.ANCHOR_RATIOS),
+            anchor_scales=tuple(cfg.network.ANCHOR_SCALES),
+            feat_stride=cfg.network.RPN_FEAT_STRIDE,
+            units=units,
+            autofocus=bool(cfg.TRAIN.AUTO_FOCUS or cfg.TEST.AUTO_FOCUS),
+            with_mask=bool(cfg.TRAIN.WITH_MASK),
+            rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL),
+            dtype=torch.bfloat16 if cfg.TRAIN.bf16 else torch.float32,
+            bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
+            bbox_means=tuple(cfg.TRAIN.BBOX_MEANS),
+            pre_nms_top_n=int(cfg.TEST.RPN_PRE_NMS_TOP_N),
+            post_nms_top_n=int(cfg.TEST.RPN_POST_NMS_TOP_N),
+            nms_thresh=float(cfg.TEST.RPN_NMS_THRESH),
+            rpn_min_size=float(cfg.TEST.RPN_MIN_SIZE),
+            head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
+        )
+        kw.update(overrides)
+        return SNIPERDetector(**kw)
+
+    return build
+
+
+_REGISTRY = {
+    "resnet_mx_101_e2e": _resnet((3, 4, 23, 3)),
+    "resnet_mx_50_e2e": _resnet((3, 4, 6, 3)),
+}
+
+
+def list_models():
+    return sorted(_REGISTRY)
+
+
+def get_model(cfg, **overrides):
+    name = cfg.symbol
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model symbol {name!r}; the port has "
+                       f"{list_models()}")
+    return _REGISTRY[name](cfg, **overrides)

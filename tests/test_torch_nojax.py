@@ -1,0 +1,56 @@
+"""The port imports without jax: with jax (and flax) blocked in
+``sys.modules``, every module of sniper_tpu_torch imports, and of
+sniper_tpu only the pure-Python config tree comes along."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "sniper_tpu_torch")
+
+
+def _modules():
+    import sniper_tpu_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(
+        sniper_tpu_torch.__path__, "sniper_tpu_torch."))
+
+
+_PROBE = """
+import sys
+for name in [m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]:
+    del sys.modules[name]
+sys.modules['jax'] = None
+sys.modules['flax'] = None
+import importlib
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.startswith('sniper_tpu.')
+                and not m.startswith('sniper_tpu.config'))
+print('LEAKED', leaked)
+"""
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "sniper_tpu_torch.main_test" in mods
+    assert "sniper_tpu_torch.ops.deform" in mods
+    res = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "LEAKED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+    if f.endswith(".py")))
+def test_no_jax_import_in_source(path):
+    with open(path) as f:
+        src = f.read()
+    assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path

@@ -1,0 +1,113 @@
+"""The port's jax-free host plane (Tester, test-time batches, on-device
+normalization) against the JAX package's, on the same inputs: the copies
+must give identical results."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sniper_tpu.config import default_config
+from sniper_tpu.data import test_loader as jloader
+from sniper_tpu.infer import tester as jtester
+from sniper_tpu_torch.data import test_loader as tloader
+from sniper_tpu_torch.infer import tester as ttester
+from sniper_tpu_torch.main_test import _scale_post_nms
+from conftest import random_boxes
+
+
+def _loader(name):
+    rng = np.random.RandomState(int(name[2:]))
+    return rng.randint(0, 255, (90 + 7 * int(name[2:]), 130, 3), np.uint8)
+
+
+def _roidb(n):
+    return [{"image": f"im{i}", "width": 130, "height": 90 + 7 * i,
+             "flipped": bool(i % 2)} for i in range(n)]
+
+
+def test_device_normalize_matches_jax(rng):
+    data = rng.randint(0, 255, (2, 16, 24, 3)).astype(np.uint8)
+    info = np.array([[16, 24, 1.0], [11, 17, 1.0]], np.float32)
+    means = [103.939, 116.779, 123.68]
+    want = jtester.device_normalize(jnp.asarray(data), jnp.asarray(info),
+                                    means)
+    got = ttester.device_normalize(torch.from_numpy(data),
+                                   torch.from_numpy(info), means)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("scale", [0, 1])
+def test_test_chip_iterator_matches_jax(scale):
+    cfg = default_config()
+    cfg.TEST.SCALES = [(-1, 192), (96, 160)]
+    cfg.network.PIXEL_MEANS = [103.939, 116.779, 123.68]
+    r1, r2 = _roidb(5), _roidb(5)
+    jloader.init_inference_crops(r1)
+    tloader.init_inference_crops(r2)
+    a = list(jloader.TestChipIterator(r1, cfg, scale, 2,
+                                      image_loader=_loader))
+    b = list(tloader.TestChipIterator(r2, cfg, scale, 2,
+                                      image_loader=_loader))
+    assert len(a) == len(b) == 3
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_aggregate_matches_jax(rng):
+    cfg = default_config()
+    cfg.TEST.VALID_RANGES = [(-1, 90), (32, -1)]
+    cfg.TEST.NMS = -1
+    cfg.TEST.NMS_SIGMA = 0.55
+    cfg.TEST.MAX_PER_IMAGE = 25
+    ncls, nimg = 4, 3
+    scale_dets = [[[[random_boxes(rng, int(rng.randint(0, 30)))]
+                    for _ in range(nimg)] for _ in range(ncls)]
+                  for _ in range(2)]
+    want = jtester.Tester(None, cfg, ncls).aggregate(scale_dets, nimg)
+    got = ttester.Tester(None, cfg, ncls).aggregate(scale_dets, nimg)
+    for c in range(ncls):
+        for i in range(nimg):
+            np.testing.assert_array_equal(got[c][i], want[c][i])
+
+
+def test_get_detections_matches_jax(rng):
+    """The same forward outputs through both Testers' decode, class
+    filter and chip-border pruning give the same per-chip detections."""
+    cfg = default_config()
+    cfg.TEST.NMS = -1
+    n, ncls = 12, 4
+    roidb = _roidb(2)
+    tloader.init_inference_crops(roidb)
+    rois = np.concatenate([np.zeros((2, n, 1), np.float32), np.stack(
+        [random_boxes(rng, n, hw=(80, 120))[:, :4] for _ in range(2)])], -1)
+    probs = rng.dirichlet(np.ones(ncls), (2, n)).astype(np.float32)
+    out = {"rois": rois, "cls_prob": probs,
+           "bbox_pred": (rng.randn(2, n, 4) * 0.1).astype(np.float32),
+           "roi_valid": np.arange(n)[None].repeat(2, 0) < 10}
+    batch = {"data": None, "im_info": np.array([[80, 120, 1.0]] * 2,
+                                               np.float32),
+             "im_scales": np.array([1.0, 1.3], np.float32),
+             "im_ids": np.array([0, 1]), "chip_ids": np.array([0, 0]),
+             "valid": np.array([True, True])}
+    kw = dict(do_pruning=True)
+    want, _ = jtester.Tester(lambda d, i: out, cfg, ncls).get_detections(
+        [batch], roidb, **kw)
+    got = ttester.Tester(
+        lambda d, i: {k: torch.from_numpy(np.asarray(v)) for k, v in
+                      out.items()}, cfg, ncls).get_detections([batch],
+                                                              roidb, **kw)
+    for c in range(ncls):
+        for i in range(2):
+            np.testing.assert_array_equal(got[c][i][0], want[c][i][0])
+
+
+def test_scale_post_nms():
+    cfg = default_config()
+    cfg.TEST.N_PROPOSAL_PER_SCALE = [300, 200, 100]
+    assert [_scale_post_nms(cfg, s, None) for s in range(3)] == [300, 200,
+                                                                  100]
+    with pytest.raises(ValueError):
+        _scale_post_nms(cfg, 3, None)
