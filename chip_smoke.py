@@ -6,18 +6,32 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   whether PyYAML and OpenCV are present, and the kernels' build time (the
-   kernels are built from csrc/ at first use, into build/sniper_tpu_torch/).
+   whether PyYAML, OpenCV and the native chip set-cover library are
+   present, and the kernels' build time (the kernels are built from csrc/
+   at first use, one nvcc per source in parallel, into
+   build/sniper_tpu_torch/).
 2. Each hand-written kernel against its plain torch version on the card,
-   at the shapes the main path gives it at each test scale (canvas, batch
-   and roi count from the config), in the same dtype, with TF32 off: the
-   errors, the kernel's and the plain version's times.
-3. End to end at full R101 width (configs/sniper_res101_e2e.yml) with
-   seeded random weights: (a) the kernel path against the plain path on a
-   small input, (b) the port's run_detection over a few synthetic 640x480
-   images, with the kernels' launch counters zeroed just before and read
-   just after, (c) per-scale forward times on the host clock: a smoke
-   reading (median and spread over E2E_REPS passes), not a benchmark.
+   in the same dtype, with TF32 off: the forward kernels at the shapes the
+   inference path gives them at each test scale and at the training
+   shapes of configs/sniper_res101_e2e.yml, the two backward kernels
+   (pool and DCN im2col) at the training shapes, at zero offsets (every sample on a kink)
+   and at random offsets: the errors, the kernel's and the plain version's
+   times.
+3. Inference end to end at full R101 width with seeded random weights:
+   (a) the kernel path against the plain path on a small input, (b) the
+   port's run_detection over a few synthetic 640x480 images, with the
+   kernels' launch counters zeroed just before and read just after, (c)
+   per-scale forward times on the host clock: a smoke reading (median and
+   spread over E2E_REPS passes), not a benchmark.
+4. Training at full R101 width: (a) one step's losses and named gradients,
+   kernel path against plain path, on 2 chips of 256x256 with an fp32
+   trunk; (b) the port's
+   run_training from its ChipLoader over synthetic images at
+   BATCH_IMAGES 16 and 512x512 chips, WARMUP_STEPS then TIMED_STEPS steps,
+   with the counters zeroed just before and read after the warm-up and at
+   the end: every step's losses, the step times on the host clock (a smoke
+   reading), chips per second, peak memory, the loader's own time per
+   batch and the launches of all five kernels over the timed steps.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -42,6 +56,8 @@ CONFIG = "configs/sniper_res101_e2e.yml"
 N_IMAGES = 8
 IM_W, IM_H = 640, 480
 E2E_REPS = 15  # timed passes over each scale's batches in phase 3 (c)
+N_TRAIN_IMAGES = 40  # synthetic roidb of phase 4 (b), before flips
+WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
 def card_line() -> str:
@@ -83,6 +99,11 @@ def environment() -> str:
             print(f"{mod}: present ({m.__version__})")
         except ImportError:
             print(f"{mod}: absent")
+    from sniper_tpu_torch.chips import _native
+
+    native = _native.load() is not None
+    print(f"native chip set-cover {_native._SO}: "
+          f"{'loaded' if native else 'absent (the NumPy set-cover runs)'}")
     t0 = time.perf_counter()
     path = cuda.build()
     cuda.library()
@@ -232,7 +253,117 @@ def check_pool(dev, sh):
     return ok, worst, ms, plain_ms
 
 
+def train_shapes(cfg) -> dict:
+    """The training path's shapes: a batch of chips at stride 16, the
+    sampled rois per chip, conv_new_1's 256 channels, the C5 mid width."""
+    return dict(label="training", B=int(cfg.TRAIN.BATCH_IMAGES),
+                H=cfg.TRAIN.CHIP_SIZE // cfg.network.RPN_FEAT_STRIDE,
+                W=cfg.TRAIN.CHIP_SIZE // cfg.network.RPN_FEAT_STRIDE,
+                rois=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+                pre_nms=int(cfg.TRAIN.RPN_PRE_NMS_TOP_N), C=256, C5=512,
+                M=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)) * 4,
+                chip=int(cfg.TRAIN.CHIP_SIZE))
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def check_pool_bwd(dev, sh):
+    """The transposed pool, both modes, at the training shapes: window
+    starts from a zero offset FC (every start on an integer, the kinks) and
+    from a random one."""
+    from sniper_tpu_torch.ops import deform
+
+    B, rpi, C, H, W, M = sh["B"], sh["rois"], sh["C"], sh["H"], sh["W"], sh["M"]
+    P, S = 7, 4
+    R = B * rpi
+    g = torch.Generator().manual_seed(5)
+    feat = torch.randn(B, H, W, C, generator=g).to(dev)
+    rois = torch.zeros(R, 5)
+    rois[:, 0] = torch.arange(B).repeat_interleave(rpi).float()
+    xy = torch.rand(R, 2, generator=g) * (sh["chip"] + 60) - 30
+    wh = torch.exp(torch.rand(R, 2, generator=g) * math.log(60.0)) * 8.0
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + wh
+    rois = rois.to(dev)
+    gout = torch.randn(R, P * P, C, generator=g).to(dev)
+    geom, roi_h, roi_w, sub_h, sub_w = deform.pool_geometry(
+        rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+    kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
+    ok, worst, parts = True, 0.0, []
+    for label, scale in (("zero offsets", 0.0), ("random offsets", 0.3)):
+        off = (torch.randn(R, 2 * P * P, generator=g) * scale).to(dev)
+        pypx = deform.window_starts(off, roi_h, roi_w, sub_h, sub_w, P=P,
+                                    S=S, M=M, trans_std=0.1)
+        for mode, bins in (("pass B", pypx), ("pass A", None)):
+            dk, pk = deform.pool_pass_bwd(feat, geom, bins, gout, **kw)
+            dp, pp = deform.pool_pass_bwd_plain(feat, geom, bins, gout, **kw)
+            torch.cuda.synchronize()
+            errs = [rel_err(dk, dp)] + ([] if bins is None
+                                        else [rel_err(pk, pp)])
+            ok &= all(e <= POOL_BWD_REL for e in errs)
+            worst = max(worst, float((dk - dp).abs().max()),
+                        0.0 if bins is None else float((pk - pp).abs().max()))
+            parts.append(f"{label} {mode}: dfeat {errs[0]:.2e}"
+                         + ("" if bins is None else f", d(py,px) {errs[1]:.2e}"))
+    ms = (time_ms(lambda: deform.pool_pass_bwd(feat, geom, pypx, gout, **kw),
+                  5)
+          + time_ms(lambda: deform.pool_pass_bwd(feat, geom, None, gout, **kw),
+                    5))
+    plain_ms = (
+        time_ms(lambda: deform.pool_pass_bwd_plain(feat, geom, pypx, gout,
+                                                   **kw), 2)
+        + time_ms(lambda: deform.pool_pass_bwd_plain(feat, geom, None, gout,
+                                                     **kw), 2))
+    print(f"fused_pool_bwd [training]: B={B} rpi={rpi} C={C} map {H}x{W}; "
+          f"max |err| / max |ref|: {'; '.join(parts)}; kernel (pass B + "
+          f"pass A) {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return ok, worst, ms, plain_ms
+
+
+def check_im2col_bwd(dev, sh):
+    """The DCN im2col's VJP at the C5 training shapes, bf16, at zero and at
+    random offsets (+-6 px: many samples clamp onto the border)."""
+    from sniper_tpu_torch.ops import deform
+
+    B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], sh["C5"], 4, 3, 2
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
+    gcol = torch.randn(B, H, W, K * K, C, generator=g).to(dev, torch.bfloat16)
+    kw = dict(num_groups=G, kernel_size=K, dilation=d)
+    ok, worst, parts = True, 0.0, []
+    for label, scale in (("zero offsets", 0.0), ("offsets +-6 px", 6.0)):
+        off = ((torch.rand(B, H, W, G * K * K * 2, generator=g) * 2 - 1)
+               * scale).to(dev)
+        gx, goff = deform.deform_im2col_bwd(x, off, gcol, **kw)
+        px, poff = deform.deform_im2col_bwd_plain(x, off, gcol, **kw)
+        torch.cuda.synchronize()
+        e_off = rel_err(goff, poff)
+        # gx: fp32 sums in another order, each rounded once to bf16; where
+        # the sum cancels to near zero the order's own error (the fp32
+        # floor) exceeds a bf16 step of the result
+        floor = IM2COL_BWD_REL * float(px.float().abs().max())
+        steps = (((gx.float() - px.float()).abs() - floor).clamp_min(0.0)
+                 / (px.float().abs() * 2.0 ** -8).clamp_min(1e-30))
+        n_steps = float(steps.max())
+        ok &= e_off <= IM2COL_BWD_REL and n_steps <= 2.0
+        worst = max(worst, float((goff - poff).abs().max()),
+                    float((gx.float() - px.float()).abs().max()))
+        parts.append(f"{label}: goff {e_off:.2e}, gx within {n_steps:.2f} "
+                     "bf16 steps")
+    ms = time_ms(lambda: deform.deform_im2col_bwd(x, off, gcol, **kw), 10)
+    plain_ms = time_ms(lambda: deform.deform_im2col_bwd_plain(x, off, gcol,
+                                                              **kw), 2)
+    print(f"deform_im2col_bwd [training]: x [{B},{H},{W},{C}] bf16, G={G}, "
+          f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    return ok, worst, ms, plain_ms
+
+
 POOL_ATOL, POOL_RTOL = 1e-4, 1e-4
+POOL_BWD_REL = IM2COL_BWD_REL = 1e-4
 TOLERANCES = {
     "nms": "identical keep lists (the IoU is computed in nms_jax's fp32 "
            "order, without FMA contraction)",
@@ -240,24 +371,36 @@ TOLERANCES = {
                      "fp32 in the same order and round once",
     "fused_pool": f"atol={POOL_ATOL} rtol={POOL_RTOL}: fp32 sums over up to "
                   "~100 taps in another order",
+    "deform_im2col_bwd": f"goff within {IM2COL_BWD_REL} * max|ref| (fp32 "
+                         "channel sums in another order); gx within two bf16 "
+                         f"steps plus {IM2COL_BWD_REL} * max|ref| (fp32 "
+                         "atomics in another order, then one rounding)",
+    "fused_pool_bwd": f"dfeat and d(py,px) within {POOL_BWD_REL} * max|ref| "
+                      "(fp32 atomics and block sums in another order)",
 }
 
 
 def kernel_phase(dev, cfg) -> tuple[bool, list]:
-    """Each kernel against its plain version at every test scale's shapes
-    (scale 0 first: its times go into the JSON line)."""
+    """Each kernel against its plain version: the forward kernels at every
+    test scale's shapes and at the training shapes (scale 0 first: its
+    times go into the JSON line), the backward kernels at the training
+    shapes."""
     from sniper_tpu_torch.ops import cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    shapes = main_path_shapes(cfg)
+    both = main_path_shapes(cfg) + [train_shapes(cfg)]
+    train = [train_shapes(cfg)]
     results: list = []
     ok = True
-    for kernel, check in ((cuda.NMS, check_nms),
-                          (cuda.DEFORM_IM2COL, check_im2col),
-                          (cuda.FUSED_POOL, check_pool)):
+    for kernel, check, at in (
+            (cuda.NMS, check_nms, both),
+            (cuda.DEFORM_IM2COL, check_im2col, both),
+            (cuda.FUSED_POOL, check_pool, both),
+            (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train),
+            (cuda.POOL_BWD, check_pool_bwd, train)):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
-        runs = [check(dev, sh) for sh in shapes]
+        runs = [check(dev, sh) for sh in at]
         torch.cuda.synchronize()
         good = all(r[0] for r in runs)
         print(f"{kernel.name}: {'PASS' if good else 'FAIL'}")
@@ -308,14 +451,18 @@ def plain_versions():
     hold the kernel path against it (restored on exit)."""
     from sniper_tpu_torch.ops import deform, nms, proposals
 
-    saved = (deform.deform_im2col, deform.pool_pass, proposals.nms)
+    saved = (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
+             deform.pool_pass_bwd, proposals.nms)
     deform.deform_im2col = deform.deform_im2col_plain
     deform.pool_pass = deform.pool_pass_plain
+    deform.deform_im2col_bwd = deform.deform_im2col_bwd_plain
+    deform.pool_pass_bwd = deform.pool_pass_bwd_plain
     proposals.nms = nms.nms_plain
     try:
         yield
     finally:
-        deform.deform_im2col, deform.pool_pass, proposals.nms = saved
+        (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
+         deform.pool_pass_bwd, proposals.nms) = saved
 
 
 def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
@@ -383,7 +530,8 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
                               out_dir, dev, image_loader=synth_image)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in cuda.KERNELS}
+    launches = {k.name: k.launches
+                for k in (cuda.NMS, cuda.DEFORM_IM2COL, cuda.FUSED_POOL)}
     good = stats["detections"] > 0 and all(launches.values())
     print(f"e2e (b) run_detection (cv2 canvases, injected image loader, "
           f"counting dataset) over {N_IMAGES} synthetic {IM_W}x{IM_H} "
@@ -434,6 +582,295 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SIZES = ((480, 640), (640, 480), (600, 800), (375, 500), (768, 1024),
+               (512, 512), (800, 600), (427, 640))
+
+
+def synth_train_image(name: str) -> np.ndarray:
+    """A deterministic BGR image for roidb entry 't<i>:<h>x<w>'."""
+    i, hw = name.split(":")
+    h, w = (int(v) for v in hw.split("x"))
+    rng = np.random.RandomState(2000 + int(i.removeprefix("t")))
+    im = rng.randint(40, 200, (h, w, 3), np.uint8)
+    for _ in range(8):
+        x, y = rng.randint(0, w - 40), rng.randint(0, h - 40)
+        im[y:y + rng.randint(10, 200), x:x + rng.randint(10, 200)] = (
+            rng.randint(0, 255, 3, np.uint8))
+    return im
+
+
+class SynthTrainDataset:
+    """Stands in for a dataset reader: N_TRAIN_IMAGES images of mixed sizes
+    with GT boxes small, medium and large, so that every training scale's
+    valid range holds some (the chip generator sees them all)."""
+
+    name = "synth_train"
+    num_classes = 81
+
+    def gt_roidb(self):
+        rng = np.random.RandomState(7)
+        roidb = []
+        for i in range(N_TRAIN_IMAGES):
+            h, w = TRAIN_SIZES[i % len(TRAIN_SIZES)]
+            side = np.concatenate([
+                rng.uniform(12, 40, 3), rng.uniform(50, 140, 3),
+                rng.uniform(160, 0.8 * min(h, w), 2)])
+            asp = rng.uniform(0.6, 1.6, side.size)
+            bw, bh = side * np.sqrt(asp), side / np.sqrt(asp)
+            bw, bh = np.minimum(bw, w - 2), np.minimum(bh, h - 2)
+            x1, y1 = rng.uniform(0, w - bw - 1), rng.uniform(0, h - bh - 1)
+            cls = rng.randint(1, self.num_classes, side.size)
+            ov = np.zeros((side.size, self.num_classes), np.float32)
+            ov[np.arange(side.size), cls] = 1.0
+            roidb.append({
+                "image": f"t{i}:{h}x{w}", "width": w, "height": h,
+                "boxes": np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+                .astype(np.float32),
+                "gt_classes": cls.astype(np.int32), "gt_overlaps": ov,
+                "max_overlaps": np.ones(side.size, np.float32),
+                "max_classes": cls, "flipped": False,
+            })
+        return roidb
+
+    def write_proposals(self, path: str, roidb) -> None:
+        """RPN proposals for negative-chip mining, as a proposal file."""
+        import pickle
+
+        rng = np.random.RandomState(8)
+        boxes = []
+        for r in roidb:
+            n = 300
+            w, h = r["width"], r["height"]
+            s = np.exp(rng.uniform(np.log(16), np.log(0.7 * min(w, h)), n))
+            x1, y1 = rng.uniform(0, w - s - 1), rng.uniform(0, h - s - 1)
+            boxes.append(np.stack([x1, y1, x1 + s, y1 + s, rng.rand(n)], 1)
+                         .astype(np.float32))
+        with open(path, "wb") as f:
+            pickle.dump({"boxes": boxes}, f)
+
+
+def train_cfg(cfg):
+    """The yml's training settings at full width, with this run's cuts: one
+    epoch, no pretrained weights (their import is not ported), proposals
+    from ``proposal_path`` set by the caller."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg.network.pretrained = ""
+    cfg.TRAIN.begin_epoch, cfg.TRAIN.end_epoch = 0, 1
+    return cfg
+
+
+# leaves whose gradients phase 4 (a) compares, kernel path against plain
+# path: the head, and trunk leaves that the backward kernels feed
+HEAD_LEAVES = ("rcnn.offset.weight", "rcnn.offset.bias",
+               "rcnn.fc_new_1.weight", "rcnn.cls_score.weight")
+TRUNK_LEAVES = ("conv_new_1.weight", "trunk.stage4_unit3.offset.weight",
+                "trunk.stage4_unit1.conv2_weight",
+                "trunk.stage3_unit23.conv1.weight",
+                "trunk.stage2_unit1.bn1.weight")
+# fixed bounds for an fp32 trunk with TF32 off, where the two paths differ
+# only in the order of fp32 sums (the pool's taps, the backward kernels'
+# atomics): the trunk's forward is identical in both, so no ReLU or
+# rounding decision flips and the error stays at fp32 rounding
+STEP_LOSS_REL, HEAD_GRAD_REL, TRUNK_GRAD_REL = 1e-5, 1e-4, 1e-4
+
+
+def train_step_check(dev, cfg) -> bool:
+    """(a) One training forward and backward on 2 chips of 256x256 at full
+    width, once through the kernels and once through their plain versions
+    on the card, from the same weights, batch and sampler priorities. The
+    trunk runs in fp32 here, so that a fixed bound holds: in bf16 one
+    rounding step apart early in the backward decorrelates every later
+    bf16 rounding of the trunk's gradients (phase 2 holds each kernel
+    against its plain version in bf16, and (b) trains in bf16)."""
+    import copy
+
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.losses import total_loss
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.optimizer import is_fixed
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.bf16 = False
+    model = init_detector(get_model(cfg), seed=0).to(dev).train()
+    for name, p in model.named_parameters():
+        p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
+    B, S, G = 2, 256, 6
+    g = torch.Generator().manual_seed(9)
+    A, fh = cfg.network.NUM_ANCHORS, S // 16
+    gt = torch.full((B, G, 5), -1.0)
+    xy = torch.rand(B, G - 1, 2, generator=g) * 150
+    wh = 20 + torch.rand(B, G - 1, 2, generator=g) * 90
+    gt[:, :G - 1, :2], gt[:, :G - 1, 2:4] = xy, xy + wh
+    gt[:, :G - 1, 4] = torch.randint(1, 81, (B, G - 1), generator=g).float()
+    pids = torch.stack([torch.randperm(A * fh * fh, generator=g)[:256]
+                        for _ in range(B)])
+    batch = {
+        "data": torch.randn(B, S, S, 3, generator=g) * 40,
+        "im_info": torch.tensor([[S, S, 1.0]] * B),
+        "gt_boxes": gt, "valid_ranges": torch.tensor([[0.0, 1e5]] * B),
+        "rpn_pids": pids.int(),
+        "rpn_label_vals": (torch.rand(B, 256, generator=g) < 0.3).float(),
+        "fg_pids": pids[:, :32].int(),
+        "fg_targets": torch.randn(B, 32, 4, generator=g) * 0.2,
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    n_cand = model.train_kw["post_nms"] + G
+    pri = (torch.rand(B, n_cand, generator=g).to(dev),
+           torch.rand(B, n_cand, generator=g).to(dev))
+    params = dict(model.named_parameters())
+
+    def one_step():
+        model.zero_grad(set_to_none=True)
+        out = model(batch["data"], batch["im_info"], batch["gt_boxes"],
+                    batch["valid_ranges"], train=True, priorities=pri)
+        _, m = total_loss(out, batch, B, cfg.TRAIN.RPN_BATCH_SIZE)
+        m["loss"].backward()
+        torch.cuda.synchronize()
+        return ({k: float(v.detach()) for k, v in m.items()},
+                {k: params[k].grad.float().clone()
+                 for k in HEAD_LEAVES + TRUNK_LEAVES})
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        mk, gk = one_step()
+        with plain_versions():
+            mp, gp = one_step()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ok = all(math.isfinite(v) for v in mk.values())
+    loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mk)
+    ok &= loss_err <= STEP_LOSS_REL
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    parts = []
+    for names, base in ((HEAD_LEAVES, HEAD_GRAD_REL),
+                        (TRUNK_LEAVES, TRUNK_GRAD_REL)):
+        for k in names:
+            e = rel(gk[k], gp[k])
+            ok &= e <= base and float(gp[k].norm()) > 0
+            parts.append(f"{k} {e:.2e}")
+    print(f"train (a) 2 chips of {S}x{S}, fp32 trunk, one forward and "
+          f"backward, kernel path vs plain path on the card: losses {mk}; "
+          f"max relative loss error {loss_err:.2e} (tolerance "
+          f"{STEP_LOSS_REL}); gradients, relative L2 error, tolerance "
+          f"{HEAD_GRAD_REL} (head) and {TRUNK_GRAD_REL} (trunk leaves): "
+          f"{'; '.join(parts)}: {'PASS' if ok else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
+def loader_ms_per_batch(roidb, cfg, n=4) -> float:
+    """The chip loader's own time per batch: a fresh loader's epoch
+    re-roll aside, n batches assembled on the host, no device."""
+    import copy
+
+    from sniper_tpu_torch.data.loader import ChipLoader
+
+    loader = ChipLoader(copy.deepcopy(roidb), cfg, cfg.TRAIN.BATCH_IMAGES,
+                        image_loader=synth_train_image, seed=1)
+    loader.reset()
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
+    """Returns (ok, {kernel name: launches in run_training})."""
+    from sniper_tpu_torch.data.loader import ChipLoader
+    from sniper_tpu_torch.main_train import build_roidb, run_training
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+
+    cfg = train_cfg(cfg)
+    ok = train_step_check(dev, cfg)
+
+    # (b) run_training from the port's ChipLoader
+    ds = SynthTrainDataset()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.proposal_path = tmp
+        ds.write_proposals(os.path.join(tmp, f"{ds.name}_rpn.pkl"),
+                           ds.gt_roidb())
+        roidb = build_roidb(cfg, lambda m: print(f"train (b) {m}"),
+                            datasets=[ds])
+    bs = cfg.TRAIN.BATCH_IMAGES
+    print(f"train (b) loader: {loader_ms_per_batch(roidb, cfg):.1f} ms per "
+          f"batch of {bs} chips of {cfg.TRAIN.CHIP_SIZE}x"
+          f"{cfg.TRAIN.CHIP_SIZE} on the host (NUM_THREAD "
+          f"{cfg.TRAIN.NUM_THREAD})")
+    loader = ChipLoader(roidb, cfg, bs, image_loader=synth_train_image,
+                        seed=0)
+    model = init_detector(get_model(cfg), seed=0)
+    print(f"train (b) {CONFIG}: units {model.trunk.units}, "
+          f"{cfg.dataset.NUM_CLASSES} classes, {cfg.network.NUM_ANCHORS} "
+          f"anchors, BATCH_IMAGES {bs}, chips {cfg.TRAIN.CHIP_SIZE}, "
+          f"pre/post-NMS {cfg.TRAIN.RPN_PRE_NMS_TOP_N}/"
+          f"{cfg.TRAIN.RPN_POST_NMS_TOP_N}, {model.num_rois} rois per chip, "
+          f"FG_FRACTION {cfg.TRAIN.FG_FRACTION}, trunk dtype {model.dtype}, "
+          f"FIXED_PARAMS {list(cfg.network.FIXED_PARAMS)}; seeded random "
+          f"weights (the offset convs and the head's offset FC at zero, as "
+          f"the flax init)")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    times, snaps, losses = [], [], []
+    t_last = [0.0]
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - t_last[0]) * 1e3)
+        t_last[0] = now
+        snaps.append({k.name: k.launches for k in cuda.KERNELS})
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m)
+        print(f"train (b) step {step}: " + ", ".join(
+            f"{k} {m[k]:.5f}" for k in sorted(m)))
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_last[0] = time.perf_counter()
+    res = run_training(cfg, model, loader, dev,
+                       log=lambda m: print(f"train (b) {m}"),
+                       max_steps=n_steps, step_hook=hook)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    timed = times[WARMUP_STEPS:]
+    base = snaps[WARMUP_STEPS - 1]
+    over_timed = {n: launches[n] - base[n] for n in launches}
+    every_step = all(
+        snaps[i][n] > (snaps[i - 1][n] if i else 0)
+        for i in range(len(snaps))
+        for n in (cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name))
+    finite = all(math.isfinite(v) for m in losses for v in m.values())
+    good = (res["step"] == n_steps and len(timed) == TIMED_STEPS and finite
+            and all(over_timed.values()) and every_step)
+    srt = sorted(timed)
+    med = srt[len(srt) // 2]
+    print(f"train (b) run_training, {n_steps} steps ({WARMUP_STEPS} warm-up, "
+          f"{TIMED_STEPS} timed): median {med:.1f} ms per step (min "
+          f"{srt[0]:.1f}, max {srt[-1]:.1f}), {bs * 1e3 / med:.1f} chips/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]; host clock around steps that end in a synchronize, "
+          f"random weights and synthetic images: a smoke reading, not a "
+          f"benchmark. Launches over the timed steps {over_timed}, over the "
+          f"whole run {launches}; pool and DCN backward every step "
+          f"{every_step}; losses finite {finite}: "
+          f"{'PASS' if good else 'FAIL'}")
+    return ok and good, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -447,17 +884,25 @@ def main() -> int:
     card = environment()
     ok_k, results = kernel_phase(dev, cfg)
     torch.cuda.synchronize()
-    ok_e, launches = e2e_phase(dev, cfg, card)
+    ok_e, launches_infer = e2e_phase(dev, cfg, card)
     torch.cuda.synchronize()
+    ok_t, launches_train = train_phase(dev, cfg, card)
+    torch.cuda.synchronize()
+    # "launches": the training run, the path of this slice, which runs all
+    # five kernels; the inference run's counts stand beside it
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
-        "launches": launches[r["kernel"].name],
+        "launches": launches_train[r["kernel"].name],
+        "launches_by_path": {
+            "inference": launches_infer.get(r["kernel"].name, 0),
+            "training": launches_train[r["kernel"].name]},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"],
     } for r in results]
-    if not (ok_k and ok_e):
-        print(f"chip_smoke: FAILED (kernels {ok_k}, end to end {ok_e})")
+    if not (ok_k and ok_e and ok_t):
+        print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
+              f"training {ok_t})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,179 @@
+"""Generate the fixture that holds the port's training step against the JAX
+package's.
+
+Three steps of sniper_tpu.train.trainer.make_train_step on a one-device CPU
+mesh: the tiny detector of tests/torch_port.py (units 1,1,1,1, 64x64
+chips, B=2, fp32, the fused pool with its hand-written backward in
+interpret mode), its flax init (every C5 offset conv and the head's offset
+FC at zero, so step 1 runs on the kinks), the recipe's SGD with warm-up and
+FIXED_PARAMS. The sampler takes every live candidate (num_rois = post-NMS
+count + GT rows, fg_fraction 1.0), so the draws of the two frameworks'
+generators cannot decide the result. The fixture keeps the per-step
+metrics, a few parameter leaves after the three steps and some BatchNorm
+running statistics; tests/test_torch_train_step.py runs the port's step
+from the same variables and batch and compares.
+
+The JAX steps take about 50 s here with their compile, which is why their
+outputs are frozen. Regenerate (only after an intentional change of the
+semantics):
+    python scripts/gen_torch_train_golden.py
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+# generation runs under the test suite's environment (tests/conftest.py):
+# the same backend and host-device count, hence the same XLA reductions
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=8").strip()
+import jax  # noqa: E402
+
+if jax.config.jax_platforms and \
+        jax.config.jax_platforms.split(",")[0] != "cpu":
+    jax.config.update("jax_platforms", "cpu")
+
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_train_golden.json")
+
+B, H, W = 2, 64, 64
+G = 4  # GT rows per chip, the last one padding
+N_STEPS = 3
+INIT_KEY = 2
+FIXED = ["conv0", "bn0", "stage1", "bn_data"]
+METRICS = ("loss", "rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
+           "rcnn_bbox_loss", "rcnn_acc", "rcnn_fg_frac", "offset_max",
+           "offset_clamp_frac", "dcn_offset_max")
+# (collection, flax path) of the leaves the fixture keeps
+LEAVES = (
+    ("params", "rcnn/bbox_pred/bias"),
+    ("params", "rcnn/cls_score/bias"),
+    ("params", "rcnn/offset/bias"),
+    ("params", "rpn/rpn_cls_score/bias"),
+    ("params", "conv_new_1/bias"),
+    ("params", "trunk/stage4_unit1/offset/bias"),
+    ("params", "trunk/stage2_unit1/bn1/scale"),
+    ("params", "trunk/stage3_unit1/bn3/bias"),
+    ("params", "trunk/stage1_unit1/bn1/scale"),  # frozen
+    ("batch_stats", "trunk/stage2_unit1/bn1/mean"),
+    ("batch_stats", "trunk/stage2_unit1/bn1/var"),
+    ("batch_stats", "trunk/stage4_unit1/bn2/var"),
+    ("batch_stats", "trunk/stage1_unit1/bn2/mean"),  # frozen
+)
+
+
+def make_cfg():
+    from sniper_tpu.config import default_config
+
+    cfg = default_config()
+    cfg.TRAIN.lr = 0.01
+    cfg.TRAIN.warmup = True
+    cfg.TRAIN.warmup_lr = 0.001
+    cfg.TRAIN.warmup_step = 2
+    cfg.TRAIN.lr_step = "1.0"
+    cfg.TRAIN.wd = 0.0005
+    cfg.network.FIXED_PARAMS = list(FIXED)
+    return cfg
+
+
+def model_kwargs():
+    from torch_port import TINY
+
+    return dict(num_rois=TINY["post_nms_top_n"] + G, fg_fraction=1.0,
+                train_pre_nms=TINY["pre_nms_top_n"],
+                train_post_nms=TINY["post_nms_top_n"])
+
+
+def make_batch():
+    """Unit-noise chips (the random RPN's scores stay spread, far from
+    ties), GT boxes of three sizes, sparse RPN targets."""
+    rng = np.random.RandomState(21)
+    A = 9
+    n = A * (H // 16) * (W // 16)
+    gt = np.full((B, G, 5), -1.0, np.float32)
+    gt[0, :3] = [[4, 6, 40, 44, 1], [20, 10, 60, 30, 2], [8, 30, 24, 50, 3]]
+    gt[1, :3] = [[10, 12, 50, 58, 4], [2, 2, 22, 20, 1], [30, 20, 62, 40, 2]]
+    S, F = 32, 8
+    pids = np.stack([rng.permutation(n)[:S] for _ in range(B)])
+    pids[:, -4:] = -1
+    fg = np.stack([rng.permutation(n)[:F] for _ in range(B)])
+    fg[:, -2:] = -1
+    return {
+        "data": rng.randn(B, H, W, 3).astype(np.float32),
+        "im_info": np.array([[H, W, 1.0], [H - 8, W - 4, 1.0]], np.float32),
+        "gt_boxes": gt,
+        "valid_ranges": np.array([[0.0, 1e5], [0.0, 40.0]], np.float32),
+        "rpn_pids": pids.astype(np.int32),
+        "rpn_label_vals": rng.choice([0.0, 1.0], (B, S), p=[0.7, 0.3])
+        .astype(np.float32),
+        "fg_pids": fg.astype(np.int32),
+        "fg_targets": (rng.randn(B, F, 4) * 0.2).astype(np.float32),
+    }
+
+
+def initial_variables():
+    from torch_port import tiny_jax_detector
+
+    _, variables = tiny_jax_detector(INIT_KEY, **model_kwargs())
+    return variables
+
+
+def leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def run_jax():
+    import jax.numpy as jnp
+
+    from sniper_tpu.models.detector import SNIPERDetector
+    from sniper_tpu.parallel.mesh import make_mesh, shard_batch
+    from sniper_tpu.train.optimizer import make_optimizer
+    from sniper_tpu.train.trainer import TrainState, make_train_step
+    from torch_port import TINY
+
+    cfg = make_cfg()
+    model = SNIPERDetector(**dict(TINY, dtype=jnp.float32,
+                                  pool_kernel="fused", **model_kwargs()))
+    variables = initial_variables()
+    tx, _ = make_optimizer(cfg, epoch_size=100, params=variables["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32),
+                       params=jax.tree.map(jnp.asarray, variables["params"]),
+                       batch_stats=jax.tree.map(jnp.asarray,
+                                                variables["batch_stats"]),
+                       opt_state=tx.init(variables["params"]))
+    mesh = make_mesh(1)
+    step = make_train_step(model, tx, mesh, B, pixel_means=(0.0, 0.0, 0.0))
+    batch = shard_batch(mesh, make_batch())
+    metrics = []
+    for i in range(N_STEPS):
+        state, m = step(state, batch, jax.random.PRNGKey(i))
+        metrics.append({k: float(m[k]) for k in METRICS})
+    final = {"params": state.params, "batch_stats": state.batch_stats}
+    return metrics, {f"{c}/{p}": leaf(final[c], p).tolist()
+                     for c, p in LEAVES}
+
+
+def main():
+    metrics, leaves = run_jax()
+    with open(FIXTURE, "w") as f:
+        json.dump({"steps": N_STEPS, "metrics": metrics, "leaves": leaves},
+                  f, indent=1)
+        f.write("\n")
+    print(f"wrote {FIXTURE}")
+    for i, m in enumerate(metrics):
+        print(i, m)
+
+
+if __name__ == "__main__":
+    main()

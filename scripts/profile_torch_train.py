@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the time goes in one training step of the port.
+
+Runs sniper_tpu_torch's R101 detector (configs/sniper_res101_e2e.yml at
+full width, seeded random weights with the flax init's zero offsets) through
+make_train_step on a synthetic batch that already lies on the device:
+BATCH_IMAGES uint8 chips of CHIP_SIZE with GT boxes and sparse RPN targets.
+After warm-up steps it profiles a few steps with torch.profiler and prints
+the host-clock time per step, the device-busy time (sum of kernel times)
+and its share, the device time by kernel group (the five hand-written
+kernels, convolutions, GEMMs, BatchNorm, the optimizer, the rest), then the
+top kernels. The chip loader is left out: it runs on the host, in its own
+threads. Needs one CUDA device.
+
+    python3 scripts/profile_torch_train.py [--steps 3] [--warmup 2]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+GROUPS = (
+    ("kernel:fused_pool_bwd", ("pool_pass_bwd_kernel",)),
+    ("kernel:deform_im2col_bwd", ("deform_im2col_bwd_kernel",)),
+    ("kernel:fused_pool", ("pool_pass_kernel",)),
+    ("kernel:deform_im2col", ("deform_im2col_kernel",)),
+    ("kernel:nms", ("nms_mask_kernel", "nms_scan_kernel")),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_")),
+    ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
+                      "wgrad")),
+    ("gemm (cuBLAS)", ("gemm", "cutlass", "sm90_")),
+    ("optimizer (SGD)", ("multi_tensor", "foreach")),
+    ("sort/topk", ("sort", "Sort", "radix", "topk")),
+)
+
+
+def group_of(name: str) -> str:
+    for g, keys in GROUPS:
+        if any(k in name for k in keys):
+            return g
+    return "other (elementwise, reductions, copies)"
+
+
+def synthetic_batch(cfg, dev, gen):
+    B, S = cfg.TRAIN.BATCH_IMAGES, cfg.TRAIN.CHIP_SIZE
+    A, fh = cfg.network.NUM_ANCHORS, S // cfg.network.RPN_FEAT_STRIDE
+    G = cfg.TRAIN.MAX_GT_BOXES
+    gt = torch.full((B, G, 5), -1.0)
+    n = 12
+    xy = torch.rand(B, n, 2, generator=gen) * (S - 100)
+    wh = 12 + torch.rand(B, n, 2, generator=gen) * 200
+    gt[:, :n, :2] = xy
+    gt[:, :n, 2:4] = (xy + wh).clamp_max(S - 1)
+    gt[:, :n, 4] = torch.randint(1, cfg.dataset.NUM_CLASSES, (B, n),
+                                 generator=gen).float()
+    pids = torch.stack([torch.randperm(A * fh * fh, generator=gen)[:256]
+                        for _ in range(B)])
+    batch = {
+        "data": torch.randint(0, 255, (B, S, S, 3), generator=gen,
+                              dtype=torch.uint8),
+        "data_extent": torch.full((B, 2), float(S)),
+        "im_info": torch.tensor([[S, S, 1.0]] * B),
+        "gt_boxes": gt, "valid_ranges": torch.tensor([[0.0, 1e5]] * B),
+        "rpn_pids": pids.int(),
+        "rpn_label_vals": (torch.rand(B, 256, generator=gen) < 0.25).float(),
+        "fg_pids": pids[:, :64].int(),
+        "fg_targets": torch.randn(B, 64, 4, generator=gen) * 0.2,
+    }
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--warmup", type=int, default=2)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: needs a CUDA device")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sniper_tpu_torch.config import load_config
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.optimizer import make_optimizer
+    from sniper_tpu_torch.train.trainer import make_train_step
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    print(card)
+    dev = torch.device("cuda", 0)
+    cfg = load_config(os.path.join(ROOT, "configs", "sniper_res101_e2e.yml"))
+    model = init_detector(get_model(cfg), seed=0).to(dev)
+    opt, sched, _ = make_optimizer(cfg, 1000, model)
+    step = make_train_step(
+        model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
+        rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
+        pixel_means=cfg.network.PIXEL_MEANS,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    batch = synthetic_batch(cfg, dev, torch.Generator().manual_seed(0))
+    for _ in range(args.warmup):
+        step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    per_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / args.steps
+    busy = sum(per_kernel.values())
+    groups = collections.Counter()
+    for name, ms in per_kernel.items():
+        groups[group_of(name)] += ms
+    print(f"train step: {cfg.TRAIN.BATCH_IMAGES} chips of "
+          f"{cfg.TRAIN.CHIP_SIZE}x{cfg.TRAIN.CHIP_SIZE}: {wall:.2f} ms/step "
+          f"(host clock, profiler on), device busy {busy:.2f} ms "
+          f"({busy / wall:.0%}), idle {max(0.0, 1 - busy / wall):.0%} "
+          f"[{card}]")
+    for g, ms in groups.most_common():
+        print(f"  {g:40s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    for name, ms in per_kernel.most_common(12):
+        print(f"    {ms:9.3f} ms  {name[:100]}")
+
+
+if __name__ == "__main__":
+    main()

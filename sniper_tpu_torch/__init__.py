@@ -3,21 +3,29 @@
 The port of ``sniper_tpu`` (JAX on a TPU), which stays beside it as the
 reference: a ported piece is done when it gives the JAX output on the same
 weights and inputs. This package imports torch and never jax; from
-``sniper_tpu`` it uses only the (pure Python) config tree.
+``sniper_tpu`` it uses only the (pure Python) config tree, and its CLIs load
+the dataset readers.
 
-The slice ported so far is the flagship R101 detector's serving path
-(``configs/sniper_res101_e2e.yml``): multi-scale inference through
-``main_test.run_detection`` -> ``infer.tester.Tester`` -> ``aggregate``.
+The slices ported so far, for the flagship R101 detector
+(``configs/sniper_res101_e2e.yml``) on one device: multi-scale inference
+(``main_test.run_detection`` -> ``infer.tester.Tester`` -> ``aggregate``)
+and SNIPER training (``main_train.run_training``).
 
 Package layout (the names of ``sniper_tpu``'s modules):
-  config.py  the config tree (sniper_tpu.config)
-  convert.py flax variables -> the port's state_dict
-  ops/       boxes, anchors, NMS, proposals, deformable conv + ROI pool;
-             ops/cuda.py builds and loads the CUDA kernels in csrc/
-  models/    ResNet trunk, RPN / R-CNN heads, detector, registry, init
-  data/      test-time batches (uint8 canvases per scale)
-  infer/     the multi-scale Tester and its aggregation
-  main_test  the inference CLI
+  config.py     the config tree (sniper_tpu.config)
+  convert.py    flax variables -> the port's state_dict
+  ops/          boxes, anchors, NMS, proposals and the training sampler,
+                deformable conv + ROI pool with their backward passes;
+                ops/cuda.py builds and loads the CUDA kernels in csrc/
+  models/       ResNet trunk, BatchNorm, RPN / R-CNN heads, detector,
+                losses, registry, init
+  chips/        SNIPER chip generation and box assignment
+  data/         the training chip loader, anchor targets, roidb building,
+                test-time batches
+  train/        the train step, optimizer, metrics, checkpoints
+  infer/        the multi-scale Tester and its aggregation
+  main_train    the training CLI
+  main_test     the inference CLI
 """
 
 __version__ = "0.1.0"

@@ -37,47 +37,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pool_geometry.cuh"
+
 namespace {
+
+using sniper_pool::AxisTent;
+using sniper_pool::axis_tent;
+using sniper_pool::bin_factor;
 
 constexpr int kThreads = 128;
 constexpr int kMaxSmemPerBlock = 227 * 1024;  // Hopper's opt-in maximum
 constexpr int kMaxDevices = 64;
-
-struct AxisTent {
-  int lo;     // first cell of the two-cell support
-  float wa;   // weight at lo
-  float wb;   // weight at lo + 1 (0 past the map)
-  float v;    // in-bounds flag as 0/1
-};
-
-__device__ __forceinline__ AxisTent axis_tent(float start, float step, int e,
-                                              int n) {
-  const float pos = __fadd_rn(start, __fmul_rn((float)e, step));
-  const bool inb = pos > -0.5f && pos < (float)n - 0.5f;
-  const float posc = fminf(fmaxf(pos, 0.0f), (float)(n - 1));
-  AxisTent t;
-  t.lo = (int)floorf(posc);
-  t.v = inb ? 1.0f : 0.0f;
-  t.wa = inb ? fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(posc, (float)t.lo))))
-             : 0.0f;
-  t.wb = (inb && t.lo + 1 < n)
-             ? fmaxf(0.0f,
-                     __fsub_rn(1.0f, fabsf(__fsub_rn(posc, (float)(t.lo + 1)))))
-             : 0.0f;
-  return t;
-}
-
-// Bin factor f[p, e] for one axis. stencil: p0 is the bin's window start.
-__device__ __forceinline__ float bin_factor(bool stencil, float p0, int first,
-                                            int S, int e) {
-  if (!stencil) return (e >= first && e < first + S) ? 1.0f : 0.0f;
-  float w = 0.0f;
-  for (int k = 0; k < S; ++k) {
-    const float d = __fsub_rn(__fadd_rn(p0, (float)k), (float)e);
-    w = __fadd_rn(w, fmaxf(0.0f, __fsub_rn(1.0f, fabsf(d))));
-  }
-  return w;
-}
 
 // Scatter one bin's composed weights for one axis into row[0..n) and return
 // (sum_e f*v, support window).

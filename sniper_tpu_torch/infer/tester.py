@@ -17,6 +17,8 @@ all_boxes layout: [class][image][chip] before aggregation, [class][image]
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,6 +35,13 @@ def _host(x):
     return np.asarray(x)
 
 
+@functools.lru_cache(maxsize=8)
+def _rgb_means(bgr_means: tuple, device: torch.device) -> torch.Tensor:
+    """The means as an RGB tensor on ``device``, made once: a copy from
+    pageable host memory would wait for the device at every batch."""
+    return torch.tensor(bgr_means[::-1], dtype=torch.float32, device=device)
+
+
 def device_normalize(data: torch.Tensor, im_info: torch.Tensor,
                      pixel_means) -> torch.Tensor:
     """uint8 RGB canvases [B,H,W,3] -> mean-subtracted fp32, on the
@@ -44,8 +53,7 @@ def device_normalize(data: torch.Tensor, im_info: torch.Tensor,
     Non-uint8 input passes through untouched."""
     if data.dtype != torch.uint8:
         return data
-    means = torch.as_tensor(np.asarray(pixel_means, np.float32)[::-1].copy(),
-                            device=data.device)
+    means = _rgb_means(tuple(float(v) for v in pixel_means), data.device)
     x = data.float() - means
     B, H, W = x.shape[:3]
     hh = torch.arange(H, device=data.device, dtype=torch.float32)

@@ -1,0 +1,260 @@
+"""SNIPER training CLI on one CUDA device.
+
+Port of main_train.py:19-346 without multi-host: config -> roidb (flips,
+filtering, RPN proposals for negative-chip mining, regression-target
+statistics) -> chip loader -> detector with seeded random weights -> the
+epoch loop of ``run_training``:
+
+  python -m sniper_tpu_torch.main_train --cfg configs/sniper_res101_e2e.yml \\
+      [--set TRAIN.lr 0.01 ...]
+
+Each epoch re-rolls the chips, assembles batches in a background thread
+and uploads them (pinned memory, non-blocking copies) in a second one, so
+both overlap the device's steps; the step's metrics stay on the device
+until a log line reads them. A checkpoint per epoch goes to
+``<output_path>/<cfg name>/<image_set>/checkpoints/epoch_<n>.pt``, and
+``TRAIN.begin_epoch = n`` resumes from it.
+
+Not ported yet, each raising NotImplementedError with its ROADMAP item:
+the mask and AutoFocus branches, OHEM, RPN-only training, the loader
+process (TRAIN.LOADER_PROCESS), the import of pretrained weights
+(network.pretrained) and data parallelism (more than one device).
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import logging
+import os
+import time
+
+import torch
+
+from sniper_tpu_torch.data.loader import ChipLoader, Prefetcher
+from sniper_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from sniper_tpu_torch.train.metrics import MetricTracker
+from sniper_tpu_torch.train.optimizer import make_optimizer
+from sniper_tpu_torch.train.trainer import make_train_step, to_device
+
+LOG_EVERY = 20  # steps between progress lines (the JAX CLI's)
+
+
+def build_dataset(cfg):
+    # The dataset readers are the JAX package's NumPy host plane (they
+    # import no jax); only this CLI loads them.
+    name = cfg.dataset.dataset
+    sets = str(cfg.dataset.image_set).split("+")
+    if name == "coco":
+        from sniper_tpu.data.coco import COCODataset
+
+        return [COCODataset(s, cfg.dataset.root_path,
+                            cfg.dataset.dataset_path,
+                            load_mask=cfg.TRAIN.WITH_MASK) for s in sets]
+    if name == "PascalVOC":
+        from sniper_tpu.data.pascal_voc import PascalVOC
+
+        return [PascalVOC(s, cfg.dataset.root_path, cfg.dataset.dataset_path)
+                for s in sets]
+    raise KeyError(f"unknown dataset {name!r}")
+
+
+def build_roidb(cfg, log=print, datasets=None):
+    """The training roidb (main_train.py:49-106): GT roidbs, RPN proposals
+    for negative-chip mining when TRAIN.USE_NEG_CHIPS, flipped copies,
+    filtering, then the regression-target statistics, which replace
+    TRAIN.BBOX_MEANS / BBOX_STDS unless BBOX_NORMALIZATION_PRECOMPUTED."""
+    from sniper_tpu_torch.data.bbox_regression import (
+        add_bbox_regression_targets,
+    )
+    from sniper_tpu_torch.data.roidb import (
+        append_flipped_images,
+        filter_roidb,
+        load_rpn_proposals,
+    )
+
+    roidb = []
+    for ds in datasets if datasets is not None else build_dataset(cfg):
+        r = ds.gt_roidb()
+        if cfg.TRAIN.USE_NEG_CHIPS:
+            pkl = os.path.join(cfg.proposal_path, f"{ds.name}_rpn.pkl")
+            if os.path.exists(pkl):
+                r = load_rpn_proposals(pkl, r, cfg.dataset.NUM_CLASSES)
+            else:
+                log(f"proposals {pkl} not found: neg-chip mining will only "
+                    "see GT boxes")
+        roidb += r
+    if cfg.TRAIN.FLIP:
+        roidb = append_flipped_images(roidb)
+    roidb = filter_roidb(roidb, cfg.TRAIN.FG_THRESH, cfg.TRAIN.BG_THRESH_HI,
+                         cfg.TRAIN.BG_THRESH_LO)
+    log(f"roidb: {len(roidb)} images")
+    means, stds = add_bbox_regression_targets(roidb, cfg)
+    if not cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED:
+        # class-agnostic: row 1 is the shared fg row; else average them
+        m = means.reshape(-1, 4)[1:].mean(axis=0)
+        s = stds.reshape(-1, 4)[1:].mean(axis=0)
+        if (s > 1e-3).all():
+            cfg.TRAIN.BBOX_MEANS = tuple(float(v) for v in m)
+            cfg.TRAIN.BBOX_STDS = tuple(float(v) for v in s)
+            log(f"empirical bbox means={cfg.TRAIN.BBOX_MEANS} "
+                f"stds={cfg.TRAIN.BBOX_STDS}")
+        else:
+            # a GT-only roidb has all-zero targets: dividing by ~0 stds
+            # would blow up the in-graph normalization
+            log(f"empirical bbox stds degenerate ({s}); keeping config "
+                f"constants {cfg.TRAIN.BBOX_STDS}")
+    return roidb
+
+
+def check_ported(cfg):
+    """Raise NotImplementedError for the options of later slices."""
+    todo = [
+        (cfg.TRAIN.WITH_MASK, "the mask branch (TRAIN.WITH_MASK)", 8),
+        (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 8),
+        (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 6),
+        (cfg.TRAIN.ONLY_PROPOSAL, "RPN-only training (TRAIN.ONLY_PROPOSAL)",
+         6),
+        (getattr(cfg.TRAIN, "LOADER_PROCESS", False),
+         "the loader process (TRAIN.LOADER_PROCESS)", 7),
+        (str(cfg.network.pretrained or "").strip(),
+         "pretrained-weight import (network.pretrained)", 7),
+        (int(cfg.parallel.num_devices) > 1,
+         "data parallelism (parallel.num_devices > 1)", 9),
+    ]
+    for on, what, item in todo:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _epoch_telemetry(em: dict, cfg, log):
+    """The epoch-end offset telemetry lines of the JAX CLI: the head's
+    offsets against the HEAD_MARGIN_BINS clamp, the trunk's DCN reach."""
+    if "offset_max" in em:
+        margin = int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1))
+        thr = em.get("offset_clamp_thr", margin / (0.1 * 7))
+        frac = em.get("offset_clamp_frac", 0.0)
+        msg = (f"head offsets max |trans|={em['offset_max']:.3f} vs clamp "
+               f"{thr:.3f} (margin {margin}), clamp_frac={frac:.2e}")
+        if frac > 0 or em["offset_max"] > 0.8 * thr:
+            msg += (f" - near or over the clamp: raise "
+                    f"network.HEAD_MARGIN_BINS to {margin + 1}")
+        log(msg)
+    if "dcn_offset_max" in em:
+        log(f"trunk DCN offsets max |off|={em['dcn_offset_max']:.3f} "
+            "feature px")
+
+
+def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
+                 max_steps=None, step_hook=None):
+    """Train ``model`` on ``device`` over TRAIN.begin_epoch..end_epoch of
+    ``loader`` (a ChipLoader), with the recipe's SGD, and checkpoint each
+    epoch under ``out_dir`` when given. ``max_steps`` ends the run after
+    that many steps; ``step_hook(step, metrics)`` runs after every step
+    (metrics are 0-d device tensors). Returns the last epoch's metric
+    means and the step count."""
+    check_ported(cfg)
+    model.to(device)
+    n_chips = loader.reset()
+    log(f"epoch {cfg.TRAIN.begin_epoch}: {n_chips} chips")
+    epoch_size = max(len(loader), 1)
+    opt, sched, schedule = make_optimizer(cfg, epoch_size, model)
+    gen = torch.Generator(device=device).manual_seed(int(cfg.TRAIN.seed))
+    step_fn = make_train_step(
+        model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
+        rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
+        pixel_means=cfg.network.PIXEL_MEANS, generator=gen)
+    ckpt_dir = os.path.join(out_dir, "checkpoints") if out_dir else None
+    step = 0
+    if cfg.TRAIN.begin_epoch > 0:
+        step = load_checkpoint(ckpt_dir, model, opt, sched,
+                               cfg.TRAIN.begin_epoch)
+        log(f"resumed from epoch {cfg.TRAIN.begin_epoch} at step {step}")
+    means: dict = {}
+    start = step
+    for epoch in range(cfg.TRAIN.begin_epoch, cfg.TRAIN.end_epoch):
+        if epoch > cfg.TRAIN.begin_epoch:
+            log(f"epoch {epoch}: {loader.reset()} chips")
+        n = len(loader)
+        if max_steps is not None:
+            n = min(n, max_steps - (step - start))
+        tracker = MetricTracker()
+        pending: list = []
+
+        def flush():
+            for m in pending:
+                tracker.update(m, cfg.TRAIN.BATCH_IMAGES)
+            pending.clear()
+
+        # two stages, each in its own thread: batch assembly on the host,
+        # then the upload; the islice ends the producers with the epoch
+        host = Prefetcher(itertools.islice(iter(loader), n))
+        for batch in Prefetcher(to_device(b, device) for b in host):
+            metrics = step_fn(batch)
+            pending.append(metrics)
+            step += 1
+            if step_hook is not None:
+                step_hook(step, metrics)
+            if step % LOG_EVERY == 0:
+                flush()
+                log(tracker.format(epoch, step)
+                    + f"  lr={schedule(step):.6f}")
+        flush()
+        means = tracker.means()
+        _epoch_telemetry(means, cfg, log)
+        if ckpt_dir is not None:
+            path = save_checkpoint(ckpt_dir, epoch + 1, model, opt, sched,
+                                   step)
+            log(f"saved checkpoint {path}")
+        if max_steps is not None and step - start >= max_steps:
+            break
+    return {"step": step, "means": means}
+
+
+def create_logger(output_path: str, cfg_name: str, image_set: str):
+    """Log to stdout and to <output_path>/<cfg_name>/<image_set>/."""
+    out_dir = os.path.join(output_path, cfg_name, image_set)
+    os.makedirs(out_dir, exist_ok=True)
+    ts = time.strftime("%Y-%m-%d-%H-%M")
+    logger = logging.getLogger(f"sniper_tpu_torch.{cfg_name}")
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s %(message)s")
+    for h in (logging.FileHandler(os.path.join(out_dir,
+                                               f"{cfg_name}_{ts}.log")),
+              logging.StreamHandler()):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    logger.propagate = False
+    return logger, out_dir
+
+
+def main(argv=None):
+    from sniper_tpu_torch.config import config_name, load_config
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+
+    p = argparse.ArgumentParser(description="Train a SNIPER detector (torch)")
+    p.add_argument("--cfg", required=True, help="experiment yaml")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--set", dest="overrides", nargs="*", default=[],
+                   help="config overrides: key value ...")
+    args = p.parse_args(argv)
+    cfg = load_config(args.cfg, args.overrides)
+    check_ported(cfg)
+    logger, out_dir = create_logger(cfg.output_path or "./output",
+                                    config_name(args.cfg),
+                                    str(cfg.dataset.image_set))
+    roidb = build_roidb(cfg, logger.info)
+    loader = ChipLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES,
+                        seed=cfg.TRAIN.seed)
+    # the bbox means/stds may have been measured on the roidb: build the
+    # model after build_roidb
+    model = init_detector(get_model(cfg), seed=int(cfg.TRAIN.seed))
+    run_training(cfg, model, loader, torch.device(args.device),
+                 out_dir=out_dir, log=logger.info)
+
+
+if __name__ == "__main__":
+    main()

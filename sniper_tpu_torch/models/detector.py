@@ -1,13 +1,18 @@
-"""The SNIPER detector's inference branch.
+"""The SNIPER detector: training and inference branches.
 
-Port of sniper_tpu/models/detector.py:139-152,167-170,176-183,294-315:
-trunk -> C4||C5 concat -> RPN -> softmax over the {bg, fg} axis ->
-``conv_new_1`` + ReLU cast to fp32 -> ``multi_proposal`` -> the fused
-deformable R-CNN head -> class softmax and ``bbox_pred * stds + means``.
+Port of sniper_tpu/models/detector.py:139-223,294-315: trunk -> C4||C5
+concat -> RPN -> softmax over the {bg, fg} axis -> ``conv_new_1`` + ReLU
+cast to fp32, then
 
-Training, the mask branch, AutoFocus and the RPN-only mode are later
-slices of the port (ROADMAP.md, Queue 1 items 6 and 8); asking for them
-raises ``NotImplementedError``.
+- inference: ``multi_proposal`` -> the fused deformable R-CNN head ->
+  class softmax and ``bbox_pred * stds + means``;
+- training: ``multi_proposal_target`` (proposals, GT candidates, valid
+  ranges, the fg/bg sample) -> the head on the sampled rois, returning what
+  the losses need and the offset telemetry.
+
+The mask branch, AutoFocus and the RPN-only mode are later slices of the
+port (ROADMAP.md, Queue 1 items 6 and 8); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,10 @@ from torch import nn
 from sniper_tpu_torch.models.heads import RCNNHead, RPNHead
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
-from sniper_tpu_torch.ops.proposals import multi_proposal
+from sniper_tpu_torch.ops.proposals import (
+    multi_proposal,
+    multi_proposal_target,
+)
 
 
 class SNIPERDetector(nn.Module):
@@ -39,6 +47,15 @@ class SNIPERDetector(nn.Module):
         post_nms_top_n: int = 300,
         nms_thresh: float = 0.7,
         rpn_min_size: float = 0.0,
+        train_pre_nms: int = 6000,
+        train_post_nms: int = 300,
+        train_nms_thresh: float = 0.7,
+        train_min_size: float = 0.0,
+        num_rois: int = 300,
+        fg_fraction: float = 0.25,
+        fg_thresh: float = 0.5,
+        bg_thresh_hi: float = 0.5,
+        bg_thresh_lo: float = 0.0,
         bbox_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
         bbox_means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
         autofocus: bool = False,
@@ -68,6 +85,15 @@ class SNIPERDetector(nn.Module):
         self.post_nms_top_n = post_nms_top_n
         self.nms_thresh = nms_thresh
         self.rpn_min_size = rpn_min_size
+        # the TRAIN.* proposal and sampler knobs (the reference's
+        # MultiProposalTarget attributes); num_rois is the sampled roi
+        # count per image
+        self.train_kw = dict(
+            pre_nms=train_pre_nms, post_nms=train_post_nms,
+            thresh=train_nms_thresh, min_size=train_min_size,
+            num_rois=num_rois, fg_fraction=fg_fraction, fg_thresh=fg_thresh,
+            bg_thresh_hi=bg_thresh_hi, bg_thresh_lo=bg_thresh_lo)
+        self.num_rois = num_rois
         self.register_buffer("bbox_stds", torch.tensor(bbox_stds),
                              persistent=False)
         self.register_buffer("bbox_means", torch.tensor(bbox_means),
@@ -87,27 +113,43 @@ class SNIPERDetector(nn.Module):
                 self.anchor_scales), device=device)
         return self._anchors[key]
 
-    def forward(self, data: torch.Tensor, im_info: torch.Tensor, *,
-                train: bool = False, post_nms_top_n: int | None = None):
-        """data [B,H,W,3] fp32 (mean-subtracted), im_info [B,3] (h, w,
-        scale). Returns rois [B,N,5], roi_scores [B,N], roi_valid [B,N],
-        cls_prob [B,N,C] and bbox_pred [B,N,4] (std-denormalized), with N =
-        ``post_nms_top_n`` (default: the model's)."""
-        if train:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md Queue 1 item 6)")
-        n = post_nms_top_n or self.post_nms_top_n
+    def _shared(self, data, stats=None):
+        """Trunk, RPN and conv_new_1: (feat, rpn cls logits [B,H,W,2,A],
+        rpn bbox [B,4A,H,W], fg probs [B,A,H,W], roi map [B,H,W,256] fp32)."""
         x = data.permute(0, 3, 1, 2)  # channels_last NCHW view of NHWC data
-        c4, c5 = self.trunk(x)
+        c4, c5 = self.trunk(x, stats)
         feat = torch.cat([c4.to(self.dtype), c5.to(self.dtype)], dim=1)
-
         rpn_cls_logits, rpn_bbox = self.rpn(feat)
         rpn_fg = torch.softmax(rpn_cls_logits, dim=3)[..., 1, :]
         rpn_fg = rpn_fg.permute(0, 3, 1, 2).contiguous()  # [B,A,H,W]
-
         roi_feat_map = torch.relu(conv(self.conv_new_1, feat)).float()
         roi_feat_map = roi_feat_map.permute(0, 2, 3, 1).contiguous()
+        return feat, rpn_cls_logits, rpn_bbox, rpn_fg, roi_feat_map
 
+    def forward(self, data: torch.Tensor, im_info: torch.Tensor,
+                gt_boxes: torch.Tensor | None = None,
+                valid_ranges: torch.Tensor | None = None, *,
+                train: bool = False, post_nms_top_n: int | None = None,
+                generator: torch.Generator | None = None,
+                priorities=None):
+        """data [B,H,W,3] fp32 (mean-subtracted), im_info [B,3] (h, w,
+        scale).
+
+        Inference returns rois [B,N,5], roi_scores [B,N], roi_valid [B,N],
+        cls_prob [B,N,C] and bbox_pred [B,N,4] (std-denormalized), with N =
+        ``post_nms_top_n`` (default: the model's).
+
+        ``train=True`` also takes gt_boxes [B,G,5] and valid_ranges [B,2];
+        the sampler draws from ``generator`` (or takes ``priorities``, see
+        multi_proposal_target). It returns the RPN outputs, the sampled
+        rois with their labels and targets, cls_score [B,R,C], bbox_pred
+        [B,R,4] and ``stats``: the head's offset telemetry and the trunk's
+        dcn_offset_max, as 0-d tensors."""
+        if train:
+            return self._train_forward(data, im_info, gt_boxes, valid_ranges,
+                                       generator, priorities)
+        n = post_nms_top_n or self.post_nms_top_n
+        feat, _, rpn_bbox, rpn_fg, roi_feat_map = self._shared(data)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
         rois, scores, valid = multi_proposal(
             rpn_fg, rpn_bbox, im_info, self.anchors(fh, fw, feat.device),
@@ -123,4 +165,32 @@ class SNIPERDetector(nn.Module):
             "cls_prob": cls_prob,
             "bbox_pred": (bbox_pred * self.bbox_stds
                           + self.bbox_means).reshape(b, n, 4),
+        }
+
+    def _train_forward(self, data, im_info, gt_boxes, valid_ranges,
+                       generator, priorities):
+        dcn = []
+        feat, rpn_cls_logits, rpn_bbox, rpn_fg, roi_feat_map = self._shared(
+            data, dcn)
+        b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
+        tgt = multi_proposal_target(
+            rpn_fg, rpn_bbox, im_info, gt_boxes, valid_ranges,
+            self.anchors(fh, fw, feat.device), generator=generator,
+            priorities=priorities, bbox_stds=self.bbox_stds,
+            bbox_means=self.bbox_means, **self.train_kw)
+        cls_score, bbox_pred, off = self.rcnn(
+            roi_feat_map, tgt.rois.reshape(-1, 5), return_offset=True)
+        stats = self.rcnn.offset_stats(off)
+        if dcn:
+            stats["dcn_offset_max"] = torch.stack(dcn).amax()
+        return {
+            "rpn_cls_logits": rpn_cls_logits,  # [B,H,W,2,A]
+            "rpn_bbox_pred": rpn_bbox,         # [B,4A,H,W]
+            "rois": tgt.rois,
+            "rcnn_labels": tgt.labels,         # [B,R]
+            "rcnn_bbox_targets": tgt.bbox_targets,
+            "rcnn_bbox_weights": tgt.bbox_weights,
+            "cls_score": cls_score.reshape(b, self.num_rois, -1),
+            "bbox_pred": bbox_pred.reshape(b, self.num_rois, 4),
+            "stats": stats,
         }

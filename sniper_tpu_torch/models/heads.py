@@ -1,7 +1,9 @@
-"""Detection heads for inference: RPN and the fused deformable R-CNN head.
+"""Detection heads: RPN and the fused deformable R-CNN head.
 
-Port of sniper_tpu/models/heads.py:52-160. Parameter names follow the flax
+Port of sniper_tpu/models/heads.py:52-199. Parameter names follow the flax
 tree; the ``_Lin`` param holders become ``nn.Linear`` ([out, in] weights).
+The offset FC's gradient is scaled by 0.01 inside the pool's backward
+(ops/deform.py:OFFSET_GRAD_MULT, the reference's lr_mult).
 """
 
 from __future__ import annotations
@@ -56,10 +58,13 @@ class RCNNHead(nn.Module):
         self.cls_score = nn.Linear(fc_dim, num_classes)
         self.bbox_pred = nn.Linear(fc_dim, 4)
 
-    def forward(self, roi_feat_map: torch.Tensor, rois: torch.Tensor):
+    def forward(self, roi_feat_map: torch.Tensor, rois: torch.Tensor, *,
+                return_offset: bool = False):
         """roi_feat_map [B,H,W,C] fp32, image-contiguous rois [R,5] (roi i
         belongs to image i // (R/B), as multi_proposal emits them).
-        Returns (cls_score [R, num_classes], bbox_pred [R, 4]) fp32."""
+        Returns (cls_score [R, num_classes], bbox_pred [R, 4]) fp32, and
+        with ``return_offset`` the raw offset-FC output [R, 2*P*P]
+        (detached), which offset_stats reads."""
         B = roi_feat_map.shape[0]
         if rois.shape[0] % B:
             raise NotImplementedError(
@@ -72,4 +77,17 @@ class RCNNHead(nn.Module):
         return rcnn_head_fused(
             roi_feat_map, rois, params, rois_per_image=rois.shape[0] // B,
             pooled_size=self.pooled_size, spatial_scale=self.spatial_scale,
-            trans_std=self.trans_std, margin_bins=self.margin_bins)
+            trans_std=self.trans_std, margin_bins=self.margin_bins,
+            return_offset=return_offset)
+
+    def offset_stats(self, off: torch.Tensor) -> dict:
+        """Margin-clamp telemetry of the raw offset-FC output (heads.py:
+        186-199): the stencil clips window shifts at margin_bins /
+        (trans_std * P) in offset units whatever the roi's size. Returns
+        offset_max, offset_clamp_frac (the share at or over the threshold)
+        and offset_clamp_thr, as 0-d tensors."""
+        thr = self.margin_bins / (self.trans_std * self.pooled_size)
+        ab = off.float().abs()
+        return {"offset_max": ab.amax(),
+                "offset_clamp_frac": (ab >= thr).float().mean(),
+                "offset_clamp_thr": torch.full((), thr, device=off.device)}

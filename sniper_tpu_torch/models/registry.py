@@ -2,7 +2,11 @@
 
 Port of the ``resnet_mx_101_e2e`` and ``resnet_mx_50_e2e`` entries of
 sniper_tpu/models/registry.py:73-115,149-156. ``TRAIN.bf16`` selects the
-trunk's compute dtype, as in the JAX package. ``network.POOL_KERNEL`` is
+trunk's compute dtype, as in the JAX package. The TEST.* RPN keys drive the
+inference branch and the TRAIN.* keys the training sampler, whose roi count
+per image is TRAIN.RPN_POST_NMS_TOP_N (the reference op emits exactly that
+many). Single device only: ``network.BN_MODE`` "sync" is plain batch
+statistics there. ``network.POOL_KERNEL`` is
 not read: its einsum/pallas/fused choice exists only for the TPU, and here
 the device of the tensors decides between a kernel and its plain version.
 """
@@ -33,6 +37,15 @@ def _resnet(units):
             post_nms_top_n=int(cfg.TEST.RPN_POST_NMS_TOP_N),
             nms_thresh=float(cfg.TEST.RPN_NMS_THRESH),
             rpn_min_size=float(cfg.TEST.RPN_MIN_SIZE),
+            train_pre_nms=int(cfg.TRAIN.RPN_PRE_NMS_TOP_N),
+            train_post_nms=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+            train_nms_thresh=float(cfg.TRAIN.RPN_NMS_THRESH),
+            train_min_size=float(cfg.TRAIN.RPN_MIN_SIZE),
+            num_rois=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+            fg_fraction=float(cfg.TRAIN.FG_FRACTION),
+            fg_thresh=float(cfg.TRAIN.FG_THRESH),
+            bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
+            bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
             head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
         )
         kw.update(overrides)

@@ -1,6 +1,6 @@
-"""Pre-activation ResNet trunk with a deformable, dilated C5 (inference).
+"""Pre-activation ResNet trunk with a deformable, dilated C5.
 
-Port of sniper_tpu/models/resnet.py:50-178. Modules and parameter names
+Port of sniper_tpu/models/resnet.py:32-178. Modules and parameter names
 follow the flax tree (``stage1_unit1.conv1``, ``stage4_unit1.offset``,
 ``stage4_unit1.conv2_weight``, ...) so that convert.py maps one to one.
 
@@ -11,6 +11,11 @@ follow the flax tree (``stage1_unit1.conv1``, ``stage4_unit1.offset``,
   conv runs in fp32 with dilation 2 and padding 2.
 - The stem runs fp32 ``bn_data`` -> ``conv0`` -> cast to the compute dtype
   -> ``bn0`` -> ReLU -> max-pool 3x3/2, padding 1.
+- Training: the BatchNorms of stages 2-4 train (``TrainBatchNorm``, flax's
+  batch statistics and momentum 0.95); ``bn_data``, ``bn0`` and stage 1
+  stay frozen, as in the JAX trunk (``fix_bn``). A ``stats`` list, when
+  given, collects each deformable unit's max |offset| (the
+  ``dcn_offset_max`` telemetry, resnet.py:32-47).
 
 Tensors are NCHW; the detector feeds them in ``channels_last`` memory
 format, so the NHWC view the deformable conv needs is free.
@@ -18,13 +23,14 @@ format, so the NHWC view the deformable conv needs is free.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sniper_tpu_torch.models.norm import FrozenBatchNorm
+from sniper_tpu_torch.models.norm import FrozenBatchNorm, TrainBatchNorm
 from sniper_tpu_torch.ops.deform import deformable_conv
 
 
@@ -46,32 +52,35 @@ class PreActBottleneck(nn.Module):
     def __init__(self, in_channels: int, filters: int, *, stride: int = 1,
                  dim_match: bool = True, dilation: int = 1,
                  deform: bool = False, deform_groups: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 fix_bn: bool = False, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         mid = filters // 4
         self.dtype = dtype
         self.dilation = dilation
         self.deform = deform
         self.deform_groups = deform_groups
-        self.bn1 = FrozenBatchNorm(in_channels, dtype=dtype)
+        bn = FrozenBatchNorm if fix_bn else TrainBatchNorm
+        self.bn1 = bn(in_channels, dtype=dtype)
         self.conv1 = _conv(in_channels, mid, 1)
-        self.bn2 = FrozenBatchNorm(mid, dtype=dtype)
+        self.bn2 = bn(mid, dtype=dtype)
         if deform:
             self.offset = nn.Conv2d(mid, deform_groups * 2 * 9, 3, padding=2,
                                     dilation=2)
             self.conv2_weight = nn.Parameter(torch.empty(mid, mid, 3, 3))
         else:
             self.conv2 = _conv(mid, mid, 3, stride, dilation)
-        self.bn3 = FrozenBatchNorm(mid, dtype=dtype)
+        self.bn3 = bn(mid, dtype=dtype)
         self.conv3 = _conv(mid, filters, 1)
         self.sc = None if dim_match else _conv(in_channels, filters, 1, stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: list | None = None):
         act1 = F.relu(self.bn1(x), inplace=True)
         h = conv(self.conv1, act1)
         act2 = F.relu(self.bn2(h), inplace=True)
         if self.deform:
             offsets = conv(self.offset, act2.float())
+            if stats is not None:
+                stats.append(offsets.detach().abs().amax())
             h = deformable_conv(
                 act2.permute(0, 2, 3, 1).contiguous(),
                 offsets.permute(0, 2, 3, 1).contiguous(), self.conv2_weight,
@@ -108,20 +117,38 @@ class ResNetTrunk(nn.Module):
                     cin, filters[i + 1],
                     stride=2 if first and i in (1, 2) else 1,
                     dim_match=not first, dilation=2 if c5 else 1,
-                    deform=c5 and deform_c5, dtype=dtype,
+                    deform=c5 and deform_c5, fix_bn=i == 0, dtype=dtype,
                 )
                 self.add_module(f"stage{i + 1}_unit{j + 1}", block)
                 cin = filters[i + 1]
 
-    def forward(self, x: torch.Tensor):
-        """x [B,3,H,W] fp32, pixel-mean-subtracted. Returns (c4, c5)."""
-        h = conv(self.conv0, self.bn_data(x.float()))
-        h = F.relu(self.bn0(h.to(self.dtype)), inplace=True)
-        h = F.max_pool2d(h, 3, stride=2, padding=1)
+    def _early(self):
+        """The stem and stage 1: frozen BatchNorms, and in every shipped
+        config also FIXED_PARAMS (conv0, bn0, stage1, bn_data)."""
+        yield self.bn_data
+        yield self.conv0
+        yield self.bn0
+        for j in range(self.units[0]):
+            yield getattr(self, f"stage1_unit{j + 1}")
+
+    def forward(self, x: torch.Tensor, stats: list | None = None):
+        """x [B,3,H,W] fp32, pixel-mean-subtracted. Returns (c4, c5);
+        ``stats`` collects the deformable units' max |offset|."""
+        # when no parameter of the stem and stage 1 trains (FIXED_PARAMS),
+        # nothing upstream of stage 2 needs a gradient: run it without
+        # autograd, which keeps none of its activations
+        frozen = not any(p.requires_grad for m in self._early()
+                         for p in m.parameters())
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            h = conv(self.conv0, self.bn_data(x.float()))
+            h = F.relu(self.bn0(h.to(self.dtype)), inplace=True)
+            h = F.max_pool2d(h, 3, stride=2, padding=1)
+            for j in range(self.units[0]):
+                h = getattr(self, f"stage1_unit{j + 1}")(h)
         c4 = None
-        for i in range(4):
+        for i in range(1, 4):
             if i == 3:
                 c4 = h
             for j in range(self.units[i]):
-                h = getattr(self, f"stage{i + 1}_unit{j + 1}")(h)
+                h = getattr(self, f"stage{i + 1}_unit{j + 1}")(h, stats)
         return c4, h

@@ -1,10 +1,11 @@
 """Build, load and account for the port's hand-written CUDA kernels.
 
 The sources in ``sniper_tpu_torch/csrc/*.cu`` compile with nvcc for
-``sm_90a`` into ONE shared library with a plain C interface, loaded with
-ctypes. The build runs at first use, into ``build/sniper_tpu_torch/`` at the
-root of the checkout, under a file name keyed by a hash of the sources and
-the flags: a changed source rebuilds, an unchanged one loads at once. The
+``sm_90a``, one nvcc process per source started together, and link into ONE
+shared library with a plain C interface, loaded with ctypes. The build runs
+at first use, into ``build/sniper_tpu_torch/`` at the root of the checkout,
+under a file name keyed by a hash of the sources, their headers and the
+flags: a changed source rebuilds, an unchanged one loads at once. The
 compiler's log (``-Xptxas -v``: registers, shared memory, spills per kernel)
 is kept beside the library.
 
@@ -34,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sniper_tpu_torch"
 # torch versions (IEEE division, no approximate transcendentals)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -49,6 +50,12 @@ _SIGNATURES = {
     # feat, geom, pypx, out, R, H, W, C, rpi, P, S, M, stencil, stream
     "sniper_pool_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    # x, offsets, gcol, gx, goff, dtype, B, H, W, C, G, K, dilation, stream
+    "sniper_deform_im2col_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
+    # feat, geom, pypx, g, dfeat, dpypx, R, H, W, C, rpi, P, S, M, stream
+    "sniper_pool_pass_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
 }
 
 
@@ -76,7 +83,15 @@ FUSED_POOL = Kernel(
     "fused_pool", "sniper_tpu_torch/csrc/fused_pool.cu",
     "sniper_tpu/ops/pallas/fused_pool.py:191",
 )
-KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL)
+DEFORM_IM2COL_BWD = Kernel(
+    "deform_im2col_bwd", "sniper_tpu_torch/csrc/deform_im2col_bwd.cu",
+    "sniper_tpu/ops/deform.py:153",
+)
+POOL_BWD = Kernel(
+    "fused_pool_bwd", "sniper_tpu_torch/csrc/fused_pool_bwd.cu",
+    "sniper_tpu/ops/pallas/fused_pool.py:487",
+)
+KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD)
 
 
 def _nvcc() -> str:
@@ -92,28 +107,43 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libsniper_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode:
+                failed.append(f"{src.name} (code {proc.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = Path(tmp) / out.name
+        res = subprocess.run(
+            [_nvcc(), "-shared", "-o", str(lib), *(str(o) for _, o, _ in jobs)],
+            capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed with code {res.returncode}:"
+                               f"\n{res.stderr}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(lib, out)
     return out
 
 

@@ -1,19 +1,35 @@
-"""Deformable convolution and the two-pass deformable PSROI pool, forward.
+"""Deformable convolution and the two-pass deformable PSROI pool, forward
+and backward.
 
-Port of sniper_tpu/ops/deform.py's inference path:
+Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
 
 - ``deformable_conv`` (deform.py:237-286, ``conv_groups == 1``): DCNv1
-  im2col with the JAX package's CLAMP border rule (``deform_im2col``; the
-  CUDA kernel in csrc/deform_im2col.cu on CUDA tensors, its plain version
-  on the CPU), then one ``torch.matmul`` with the kernel as
-  [K*K*Cin, Cout].
-- ``fused_offset_pool`` (deform.py:643-794, the einsum path's semantics)
-  driven as sniper_tpu/ops/pallas/fused_pool.py:_forward_parts drives its
-  kernel: pass A (undeformed interior bin average) -> offset FC as one
+  im2col with the JAX package's CLAMP border rule, then one
+  ``torch.matmul`` with the kernel as [K*K*Cin, Cout]. The im2col is
+  ``DeformIm2col``, the counterpart of ``_make_im2col``'s custom VJP: its
+  forward is ``deform_im2col`` (the CUDA kernel in csrc/deform_im2col.cu on
+  CUDA tensors, the plain version on the CPU) and its backward
+  ``deform_im2col_bwd`` (csrc/deform_im2col_bwd.cu, or the plain version).
+  The weight gradient and gcol = gout @ W^T come from the matmul's own
+  autograd, as the JAX package leaves that product to XLA.
+- ``fused_offset_pool`` (deform.py:643-794 with fused_pool.py's composed
+  form): ``FusedOffsetPool``, the counterpart of ``_make_fused_pool_vjp``.
+  Forward: pass A (undeformed interior bin average) -> offset FC as one
   matmul -> clipped per-bin window starts -> pass B (offset-shifted
-  tent-stack pool). Each pass is ``pool_pass``: the CUDA kernel in
-  csrc/fused_pool.cu on CUDA tensors, its plain version on the CPU.
+  tent-stack pool); each pass is ``pool_pass`` (csrc/fused_pool.cu, or the
+  plain version). Backward: transposed pass B (dfeat and the window-start
+  gradient) -> the clip masks -> the offset-FC transpose times
+  ``OFFSET_GRAD_MULT`` -> transposed pass A; each transposed pass is
+  ``pool_pass_bwd`` (csrc/fused_pool_bwd.cu, or the plain version).
 - ``rcnn_head_fused`` (deform.py:797-841): the pool plus the FC stack.
+
+The plain backwards are written out as the JAX backward is, not derived by
+autograd: the zeros-initialized offset FC and C5 offset convs put every
+window start and every DCN sample on an integer at step 1, exactly on the
+kinks, and there the JAX conventions hold (``jnp.abs'(0) = +1``,
+``jnp.maximum`` and ``jnp.clip`` split ties in half, the DCN positional
+gradient is zero on the clamped border), where torch's autograd gives
+``abs'(0) = 0`` and passes a clamp's whole gradient at the bound.
 
 All public arrays are NHWC, as in the JAX package.
 """
@@ -24,6 +40,10 @@ import numpy as np
 import torch
 
 from sniper_tpu_torch.ops import cuda
+
+# the offset FC's gradient scale inside the pool's backward: the reference's
+# lr_mult of 0.01 on that layer, so one learning rate serves every parameter
+OFFSET_GRAD_MULT = 0.01
 
 # ---------------------------------------------------------------------------
 # deformable convolution
@@ -38,25 +58,11 @@ def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation):
     G, K = num_groups, kernel_size
     KK = K * K
     cg = C // G
-    half = (K - 1) // 2 * dilation
-    dev = x.device
-    off = offsets.float().reshape(B, H, W, G, KK, 2)
-    taps = torch.arange(KK, device=dev)
-    ty = ((taps // K) * dilation - half).float()  # [KK]
-    tx = ((taps % K) * dilation - half).float()
-    base_y = torch.arange(H, device=dev, dtype=torch.float32)
-    base_x = torch.arange(W, device=dev, dtype=torch.float32)
-    sy = (base_y[None, :, None, None, None] + ty) + off[..., 0]
-    sx = (base_x[None, None, :, None, None] + tx) + off[..., 1]
-    sy = sy.clamp(0.0, H - 1.0)
-    sx = sx.clamp(0.0, W - 1.0)
-    y0 = torch.floor(sy).long().clamp_max(H - 2)
-    x0 = torch.floor(sx).long().clamp_max(W - 2)
-    ly = (sy - y0.float())[..., None]
-    lx = (sx - x0.float())[..., None]
+    _, _, y0, x0, ly, lx = _im2col_geometry(offsets, B, H, W, G, K, dilation)
+    ly, lx = ly[..., None], lx[..., None]
     xg = x.float().reshape(B, H * W, G, cg)
-    bi = torch.arange(B, device=dev)[:, None, None, None, None]
-    gi = torch.arange(G, device=dev)[None, None, None, :, None]
+    bi = torch.arange(B, device=x.device)[:, None, None, None, None]
+    gi = torch.arange(G, device=x.device)[None, None, None, :, None]
 
     def corner(dy, dx):  # -> [B,H,W,G,KK,cg]
         return xg[bi, (y0 + dy) * W + (x0 + dx), gi]
@@ -70,17 +76,22 @@ def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation):
 _IM2COL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _deform_im2col_kernel(x, offsets, *, num_groups, kernel_size, dilation):
+def _require_im2col(what, x, offsets, G, K):
+    """Raise unless the im2col kernels take x and the offsets."""
     B, H, W, C = x.shape
-    G, K = num_groups, kernel_size
     if x.dtype not in _IM2COL_DTYPES:
-        raise ValueError(f"deform_im2col takes float32 or bfloat16, got "
-                         f"{x.dtype}")
+        raise ValueError(f"{what} takes float32 or bfloat16, got {x.dtype}")
     cuda.require(x, "x", x.dtype)
     cuda.require(offsets, "offsets", torch.float32, (B, H, W, G * K * K * 2))
     if C % G or H < 2 or W < 2:
-        raise ValueError(f"deform_im2col needs C % G == 0 and H, W >= 2, "
-                         f"got C={C}, G={G}, H={H}, W={W}")
+        raise ValueError(f"{what} needs C % G == 0 and H, W >= 2, got C={C}, "
+                         f"G={G}, H={H}, W={W}")
+
+
+def _deform_im2col_kernel(x, offsets, *, num_groups, kernel_size, dilation):
+    B, H, W, C = x.shape
+    G, K = num_groups, kernel_size
+    _require_im2col("deform_im2col", x, offsets, G, K)
     col = torch.empty((B, H, W, K * K, C), dtype=x.dtype, device=x.device)
     lib = cuda.library()
     cuda.DEFORM_IM2COL.launches += 1
@@ -101,6 +112,110 @@ def deform_im2col(x, offsets, *, num_groups=4, kernel_size=3, dilation=2):
     return deform_im2col_plain(x, offsets, **kw)
 
 
+def _im2col_geometry(offsets, B, H, W, G, K, dilation):
+    """The forward's sample geometry: clamped (sy, sx), the corner (y0, x0)
+    and the blend weights (ly, lx), each [B,H,W,G,K*K]."""
+    half = (K - 1) // 2 * dilation
+    dev = offsets.device
+    off = offsets.float().reshape(B, H, W, G, K * K, 2)
+    taps = torch.arange(K * K, device=dev)
+    ty = ((taps // K) * dilation - half).float()
+    tx = ((taps % K) * dilation - half).float()
+    base_y = torch.arange(H, device=dev, dtype=torch.float32)
+    base_x = torch.arange(W, device=dev, dtype=torch.float32)
+    sy = ((base_y[None, :, None, None, None] + ty) + off[..., 0]).clamp(
+        0.0, H - 1.0)
+    sx = ((base_x[None, None, :, None, None] + tx) + off[..., 1]).clamp(
+        0.0, W - 1.0)
+    y0 = torch.floor(sy).long().clamp_max(H - 2)
+    x0 = torch.floor(sx).long().clamp_max(W - 2)
+    return sy, sx, y0, x0, sy - y0.float(), sx - x0.float()
+
+
+def deform_im2col_bwd_plain(x, offsets, gcol, *, num_groups, kernel_size,
+                            dilation):
+    """The im2col's VJP, written out as _make_im2col.im2col_bwd is: gcol
+    [B,H,W,K*K,C] -> (gx [B,H,W,C] in x's dtype, summed in fp32 and rounded
+    once; goff [B,H,W,G*K*K*2] fp32). gx scatters each sample's gradient to
+    its four corners with weights wy*wx; goff reduces gcol * d(sample)/d(sy,
+    sx) over each group's channels, and is zero where the clamped sample
+    sits on the border (strictly inside only, as :220-228)."""
+    B, H, W, C = x.shape
+    G, K = num_groups, kernel_size
+    KK = K * K
+    cg = C // G
+    sy, sx, y0, x0, ly, lx = _im2col_geometry(offsets, B, H, W, G, K,
+                                              dilation)
+    gq = gcol.float().reshape(B, H, W, KK, G, cg).permute(0, 1, 2, 4, 3, 5)
+    ly, lx = ly[..., None], lx[..., None]
+    xg = x.float().reshape(B, H * W, G, cg)
+    bi = torch.arange(B, device=x.device)[:, None, None, None, None]
+    gi = torch.arange(G, device=x.device)[None, None, None, :, None]
+    gx = torch.zeros(B * H * W * G, cg, device=x.device)
+    v = {}
+    for dy, wy in ((0, 1 - ly), (1, ly)):
+        for dx, wx in ((0, 1 - lx), (1, lx)):
+            pix = (y0 + dy) * W + (x0 + dx)  # [B,H,W,G,KK]
+            v[dy, dx] = xg[bi, pix, gi]
+            row = ((bi * (H * W) + pix) * G + gi).reshape(-1)
+            gx.index_add_(0, row, ((wy * wx) * gq).reshape(-1, cg))
+    dvy = (v[1, 0] - v[0, 0]) * (1 - lx) + (v[1, 1] - v[0, 1]) * lx
+    dvx = (v[0, 1] - v[0, 0]) * (1 - ly) + (v[1, 1] - v[1, 0]) * ly
+    my = ((sy > 0.0) & (sy < H - 1.0)).float()
+    mx = ((sx > 0.0) & (sx < W - 1.0)).float()
+    goff = torch.stack([(gq * dvy).sum(-1) * my, (gq * dvx).sum(-1) * mx],
+                       dim=-1)
+    return (gx.reshape(B, H, W, C).to(x.dtype),
+            goff.reshape(B, H, W, G * KK * 2))
+
+
+def _deform_im2col_bwd_kernel(x, offsets, gcol, *, num_groups, kernel_size,
+                              dilation):
+    B, H, W, C = x.shape
+    G, K = num_groups, kernel_size
+    _require_im2col("deform_im2col_bwd", x, offsets, G, K)
+    cuda.require(gcol, "gcol", x.dtype, (B, H, W, K * K, C))
+    gx = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    goff = torch.empty((B, H, W, G * K * K * 2), dtype=torch.float32,
+                       device=x.device)
+    lib = cuda.library()
+    cuda.DEFORM_IM2COL_BWD.launches += 1
+    cuda.check(lib.sniper_deform_im2col_bwd(
+        x.data_ptr(), offsets.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
+        goff.data_ptr(), _IM2COL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
+        cuda.stream(x)), "deform_im2col_bwd")
+    return gx.to(x.dtype), goff
+
+
+def deform_im2col_bwd(x, offsets, gcol, *, num_groups=4, kernel_size=3,
+                      dilation=2):
+    """The im2col's VJP (see deform_im2col_bwd_plain): the CUDA kernel for
+    CUDA tensors, the plain version on the CPU."""
+    kw = dict(num_groups=num_groups, kernel_size=kernel_size,
+              dilation=dilation)
+    if x.is_cuda:
+        return _deform_im2col_bwd_kernel(x, offsets, gcol, **kw)
+    return deform_im2col_bwd_plain(x, offsets, gcol, **kw)
+
+
+class DeformIm2col(torch.autograd.Function):
+    """deform_im2col with the JAX package's hand-written VJP. Residuals:
+    x and the offsets."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, num_groups, kernel_size, dilation):
+        ctx.kw = dict(num_groups=num_groups, kernel_size=kernel_size,
+                      dilation=dilation)
+        ctx.save_for_backward(x, offsets)
+        return deform_im2col(x, offsets, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, gcol):
+        x, offsets = ctx.saved_tensors
+        gx, goff = deform_im2col_bwd(x, offsets, gcol.contiguous(), **ctx.kw)
+        return gx, goff, None, None, None
+
+
 def deformable_conv(x, offsets, weight, *, num_groups=4, kernel_size=3,
                     dilation=2):
     """DCNv1 convolution, stride 1, 'same' padding. x [B,H,W,Cin],
@@ -108,8 +223,7 @@ def deformable_conv(x, offsets, weight, *, num_groups=4, kernel_size=3,
     [B,H,W,Cout] in x's dtype (the matmul accumulates in fp32)."""
     B, H, W, Cin = x.shape
     K = kernel_size
-    col = deform_im2col(x, offsets, num_groups=num_groups, kernel_size=K,
-                        dilation=dilation)
+    col = DeformIm2col.apply(x, offsets, num_groups, K, dilation)
     w = weight.permute(2, 3, 1, 0).reshape(K * K * Cin, -1).to(x.dtype)
     return torch.matmul(col.reshape(B, H, W, K * K * Cin), w)
 
@@ -168,6 +282,32 @@ def _tent_stack(p0, S, E):
     return w
 
 
+def _tent_stack_pair(p0, S, E):
+    """The tent stack and its derivative in the window start p0, each
+    [R, PP, E], with fused_pool.py:_tent_stack_pair's conventions at the
+    kinks: abs'(0) = +1, and a tent's edge |d| == 1 carries half (the
+    jnp.maximum tie)."""
+    cell = torch.arange(E, device=p0.device, dtype=torch.float32)
+    w = torch.zeros(p0.shape + (E,), device=p0.device)
+    dw = torch.zeros_like(w)
+    for k in range(S):
+        d = p0[..., None] + k - cell
+        ad = d.abs()
+        w = w + (1.0 - ad).clamp_min(0.0)
+        gate = (ad < 1.0).float() + 0.5 * (ad == 1.0).float()
+        dw = dw - torch.where(d >= 0, 1.0, -1.0) * gate
+    return w, dw
+
+
+def _image_chunks(R, rpi, size=64):
+    """(image, first roi, end roi) blocks of at most ``size`` rois that do
+    not cross an image."""
+    for r0 in range(0, R, size):
+        r1 = min(R, r0 + size)
+        for b in range(r0 // rpi, (r1 - 1) // rpi + 1):
+            yield b, max(r0, b * rpi), min(r1, (b + 1) * rpi)
+
+
 def pool_pass_plain(feat, geom, pypx, *, rois_per_image, P, S, M):
     """One pool pass, in the composed-tent form of the JAX kernel.
 
@@ -194,13 +334,10 @@ def pool_pass_plain(feat, geom, pypx, *, rois_per_image, P, S, M):
     cx = fx @ wx  # [R,PP,W]
     n = (fy * vy[:, None, :]).sum(-1) * (fx * vx[:, None, :]).sum(-1)
     numer = torch.empty((R, P * P, C), device=feat.device)
-    for r0 in range(0, R, 64):
-        r1 = min(R, r0 + 64)
-        for b in range(r0 // rpi, (r1 - 1) // rpi + 1):
-            lo, hi = max(r0, b * rpi), min(r1, (b + 1) * rpi)
-            featt = feat[b].float().permute(1, 0, 2).reshape(W, H * C)
-            tmp = (cx[lo:hi] @ featt).reshape(hi - lo, P * P, H, C)
-            numer[lo:hi] = (tmp * cy[lo:hi, :, :, None]).sum(2)
+    for b, lo, hi in _image_chunks(R, rpi):
+        featt = feat[b].float().permute(1, 0, 2).reshape(W, H * C)
+        tmp = (cx[lo:hi] @ featt).reshape(hi - lo, P * P, H, C)
+        numer[lo:hi] = (tmp * cy[lo:hi, :, :, None]).sum(2)
     n = n[..., None]
     return torch.where(n > 0, numer / n.clamp_min(1.0), 0.0)
 
@@ -236,6 +373,112 @@ def pool_pass(feat, geom, pypx, *, rois_per_image, P, S, M):
     return pool_pass_plain(feat, geom, pypx, **kw)
 
 
+def pool_pass_bwd_plain(feat, geom, pypx, g, *, rois_per_image, P, S, M,
+                        dfeat=None):
+    """The transposed pool pass, written out as fused_pool.py's
+    _pool_bwd_kernel is.
+
+    g [R, P*P, C] is the pass's output cotangent. Adds to ``dfeat``
+    [B,H,W,C] fp32 (zeros when None) the feature gradient
+    sum_p cy[p,h] cx[p,w] dnum[p,c], dnum = g / max(n, 1) where n > 0.
+    Pass B (pypx given) also returns the window-start gradient [R,2,P*P]:
+    the tent-stack derivative against d(cy) = dnum . (cx feat) and d(cx) =
+    (cy dnum) . feat, plus the count denominator's term, which is zero for
+    n < 1 (max(n, 1) picks the constant) and half at the n == 1.0 tie.
+    Returns (dfeat, dpypx or None)."""
+    B, H, W, C = feat.shape
+    R = geom.shape[0]
+    rpi = rois_per_image
+    PP = P * P
+    E = P * S + 2 * M
+    wy, vy = _resize_tents(geom[:, 0], geom[:, 2], E, H)  # [R,E,H], [R,E]
+    wx, vx = _resize_tents(geom[:, 1], geom[:, 3], E, W)
+    stencil = pypx is not None
+    if stencil:
+        fy, dfy_dp = _tent_stack_pair(pypx[:, 0], S, E)
+        fx, dfx_dp = _tent_stack_pair(pypx[:, 1], S, E)
+    else:
+        ay, ax = _avg_factors(P, S, M, E, feat.device)
+        fy, fx = ay.expand(R, -1, -1), ax.expand(R, -1, -1)
+    cy = fy @ wy  # [R,PP,H]
+    cx = fx @ wx  # [R,PP,W]
+    sy = (fy * vy[:, None, :]).sum(-1)  # [R,PP]
+    sx = (fx * vx[:, None, :]).sum(-1)
+    n = sy * sx
+    pos = n > 0
+    den = n.clamp_min(1.0)
+    dnum = torch.where(pos[..., None], g / den[..., None], 0.0)
+    if dfeat is None:
+        dfeat = torch.zeros((B, H, W, C), device=feat.device)
+    if stencil:
+        numer = torch.empty((R, PP, C), device=feat.device)
+        dcy = torch.empty((R, PP, H), device=feat.device)
+        dcx = torch.empty((R, PP, W), device=feat.device)
+    for b, lo, hi in _image_chunks(R, rpi):
+        featt = feat[b].float().permute(1, 0, 2).reshape(W, H * C)
+        gg = cy[lo:hi, :, :, None] * dnum[lo:hi, :, None, :]  # [n,PP,H,C]
+        gg = gg.reshape(-1, H * C)
+        contrib = cx[lo:hi].reshape(-1, W).t() @ gg  # [W, H*C]
+        dfeat[b] += contrib.reshape(W, H, C).permute(1, 0, 2)
+        if stencil:
+            big = (cx[lo:hi] @ featt).reshape(hi - lo, PP, H, C)
+            numer[lo:hi] = (big * cy[lo:hi, :, :, None]).sum(2)
+            dcy[lo:hi] = (dnum[lo:hi, :, None, :] * big).sum(-1)
+            dcx[lo:hi] = (gg @ featt.t()).reshape(hi - lo, PP, W)
+    if not stencil:
+        return dfeat, None
+    tie = torch.where(n == 1.0, 0.5, 1.0)
+    dn = torch.where(pos & (n >= 1.0),
+                     -tie * (g * numer).sum(-1) / (den * den), 0.0)
+    dfy = dcy @ wy.transpose(1, 2) + (dn * sx)[..., None] * vy[:, None, :]
+    dfx = dcx @ wx.transpose(1, 2) + (dn * sy)[..., None] * vx[:, None, :]
+    dpp = torch.stack([(dfy * dfy_dp).sum(-1), (dfx * dfx_dp).sum(-1)],
+                      dim=1)
+    return dfeat, dpp
+
+
+def _pool_pass_bwd_kernel(feat, geom, pypx, g, *, rois_per_image, P, S, M,
+                          dfeat=None):
+    B, H, W, C = feat.shape
+    R = geom.shape[0]
+    PP = P * P
+    cuda.require(feat, "feat", torch.float32)
+    cuda.require(geom, "geom", torch.float32, (B * rois_per_image, 4))
+    cuda.require(g, "g", torch.float32, (R, PP, C))
+    if pypx is not None:
+        cuda.require(pypx, "pypx", torch.float32, (R, 2, PP))
+    smem = PP * (2 * (H + W) + 3) * 4 + PP * 8 * 4
+    if smem > 227 * 1024:
+        raise ValueError(f"pool_pass_bwd: a {H}x{W} map at P={P} needs "
+                         f"{smem} B of shared memory, more than a block has")
+    if dfeat is None:
+        dfeat = torch.zeros((B, H, W, C), dtype=torch.float32,
+                            device=feat.device)
+    else:
+        cuda.require(dfeat, "dfeat", torch.float32, (B, H, W, C))
+    dpp = (None if pypx is None else
+           torch.empty((R, 2, PP), dtype=torch.float32, device=feat.device))
+    lib = cuda.library()
+    cuda.POOL_BWD.launches += 1
+    cuda.check(lib.sniper_pool_pass_bwd(
+        feat.data_ptr(), geom.data_ptr(),
+        None if pypx is None else pypx.data_ptr(), g.data_ptr(),
+        dfeat.data_ptr(), None if dpp is None else dpp.data_ptr(),
+        R, H, W, C, rois_per_image, P, S, M, cuda.stream(feat)),
+        "pool_pass_bwd")
+    return dfeat, dpp
+
+
+def pool_pass_bwd(feat, geom, pypx, g, *, rois_per_image, P, S, M,
+                  dfeat=None):
+    """The transposed pool pass (see pool_pass_bwd_plain): the CUDA kernel
+    for CUDA tensors, the plain version on the CPU."""
+    kw = dict(rois_per_image=rois_per_image, P=P, S=S, M=M, dfeat=dfeat)
+    if feat.is_cuda:
+        return _pool_pass_bwd_kernel(feat, geom, pypx, g, **kw)
+    return pool_pass_bwd_plain(feat, geom, pypx, g, **kw)
+
+
 def pool_geometry(rois, *, P, S, M, spatial_scale):
     """rois [R,5] -> (geom [R,4] = (ys, xs, sub_h, sub_w), roi_h, roi_w,
     sub_h, sub_w): the patch origin is the (0.5 - M)-th sub-sample cell."""
@@ -246,11 +489,10 @@ def pool_geometry(rois, *, P, S, M, spatial_scale):
     return geom.contiguous(), roi_h, roi_w, sub_h, sub_w
 
 
-def window_starts(off, roi_h, roi_w, sub_h, sub_w, *, P, S, M, trans_std):
-    """Offset-FC output [R, 2*P*P] (first P*P dy, then P*P dx) -> clipped
-    per-bin window starts [R, 2, P*P] (fused_pool.py:_window_starts)."""
+def _window_raw(off, roi_h, roi_w, sub_h, sub_w, *, P, S, M, trans_std):
+    """Offset-FC output [R, 2*P*P] (first P*P dy, then P*P dx) -> the
+    unclipped per-bin window starts (raw_y, raw_x), each [R, P*P]."""
     R = off.shape[0]
-    E = P * S + 2 * M
     dy = off[:, :P * P]
     dx = off[:, P * P:]
     p = torch.arange(P * P, device=off.device)
@@ -258,45 +500,123 @@ def window_starts(off, roi_h, roi_w, sub_h, sub_w, *, P, S, M, trans_std):
     base_x = (S * (p % P) + M).float()
     raw_y = base_y + dy * trans_std * roi_h.reshape(R, 1) / sub_h.reshape(R, 1)
     raw_x = base_x + dx * trans_std * roi_w.reshape(R, 1) / sub_w.reshape(R, 1)
-    hi = float(E - S)
+    return raw_y, raw_x
+
+
+def _rail(P, S, M):
+    """The last window start in the patch, E - S."""
+    return float(P * S + 2 * M - S)
+
+
+def _clip_starts(raw_y, raw_x, hi):
     return torch.stack([raw_y.clamp(0.0, hi), raw_x.clamp(0.0, hi)],
                        dim=1).contiguous()
 
 
+def window_starts(off, roi_h, roi_w, sub_h, sub_w, *, P, S, M, trans_std):
+    """Offset-FC output [R, 2*P*P] -> clipped per-bin window starts
+    [R, 2, P*P] (fused_pool.py:_window_starts)."""
+    raw_y, raw_x = _window_raw(off, roi_h, roi_w, sub_h, sub_w, P=P, S=S,
+                               M=M, trans_std=trans_std)
+    return _clip_starts(raw_y, raw_x, _rail(P, S, M))
+
+
+def _clip_mask(raw, hi):
+    """jnp.clip's subgradient: 1 strictly inside, 0 outside, 0.5 at a rail
+    (jnp.maximum and jnp.minimum split ties in half)."""
+    inside = (raw > 0.0) & (raw < hi)
+    at_rail = (raw == 0.0) | (raw == hi)
+    return inside.float() + 0.5 * at_rail.float()
+
+
+class FusedOffsetPool(torch.autograd.Function):
+    """The two-pass pool with _make_fused_pool_vjp's backward. Residuals:
+    feat, rois, the offset FC and pass A's output. Returns (pooled
+    [R, P*P*C], the raw offset-FC output [R, 2*P*P]); the second output is
+    telemetry and carries no gradient. rois get none (the roi snapping's
+    round() has zero gradient)."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, off_w, off_b, statics):
+        rpi, P, S, M, spatial_scale, trans_std = statics
+        R = rois.shape[0]
+        geom, roi_h, roi_w, sub_h, sub_w = pool_geometry(
+            rois, P=P, S=S, M=M, spatial_scale=spatial_scale)
+        kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
+        pass1 = pool_pass(feat, geom, None, **kw)
+        off = pass1.reshape(R, -1) @ off_w.t() + off_b  # [R, 2*P*P]
+        pypx = window_starts(off, roi_h, roi_w, sub_h, sub_w, P=P, S=S, M=M,
+                             trans_std=trans_std)
+        pooled = pool_pass(feat, geom, pypx, **kw).reshape(R, -1)
+        ctx.statics = statics
+        ctx.save_for_backward(feat, rois, off_w, off_b, pass1)
+        ctx.mark_non_differentiable(off)
+        return pooled, off
+
+    @staticmethod
+    def backward(ctx, gpooled, _goff):
+        feat, rois, off_w, off_b, pass1 = ctx.saved_tensors
+        rpi, P, S, M, spatial_scale, trans_std = ctx.statics
+        R, PP, C = pass1.shape
+        geom, roi_h, roi_w, sub_h, sub_w = pool_geometry(
+            rois, P=P, S=S, M=M, spatial_scale=spatial_scale)
+        off = pass1.reshape(R, -1) @ off_w.t() + off_b
+        raw_y, raw_x = _window_raw(off, roi_h, roi_w, sub_h, sub_w, P=P,
+                                   S=S, M=M, trans_std=trans_std)
+        hi = _rail(P, S, M)
+        pypx = _clip_starts(raw_y, raw_x, hi)
+        kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
+        g = gpooled.reshape(R, PP, C).float().contiguous()
+        # transposed pass B -> dfeat term 1 and the window-start gradient
+        dfeat, dpp = pool_pass_bwd(feat, geom, pypx, g, **kw)
+        # window starts -> the offset FC's transpose, with the forward's
+        # exact scale trans_std * roi / sub and the reference's lr_mult
+        ddy = (dpp[:, 0] * _clip_mask(raw_y, hi)
+               * (trans_std * roi_h.reshape(R, 1) / sub_h.reshape(R, 1)))
+        ddx = (dpp[:, 1] * _clip_mask(raw_x, hi)
+               * (trans_std * roi_w.reshape(R, 1) / sub_w.reshape(R, 1)))
+        dfc = torch.cat([ddy, ddx], dim=1) * OFFSET_GRAD_MULT  # [R, 2*P*P]
+        doff_w = dfc.t() @ pass1.reshape(R, PP * C)
+        doff_b = dfc.sum(0)
+        dpass1 = (dfc @ off_w).reshape(R, PP, C).contiguous()
+        # transposed pass A -> dfeat term 2, into the same buffer
+        dfeat, _ = pool_pass_bwd(feat, geom, None, dpass1, dfeat=dfeat, **kw)
+        return (dfeat.to(feat.dtype), None, doff_w.to(off_w.dtype),
+                doff_b.to(off_b.dtype), None)
+
+
 def fused_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
                       pooled_size=7, sample_per_part=4, spatial_scale=0.0625,
-                      trans_std=0.1, margin_bins=1):
+                      trans_std=0.1, margin_bins=1, return_offset=False):
     """Two-pass deformable ROI pooling. feat [B,H,W,C] fp32,
     image-contiguous rois [B*rpi, 5], offset FC weight [2*P*P, P*P*C] and
-    bias [2*P*P]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major."""
+    bias [2*P*P]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major, and
+    with ``return_offset`` also the raw offset-FC output [B*rpi, 2*P*P]
+    (detached). The offset FC's gradient is scaled by OFFSET_GRAD_MULT."""
     P, S = pooled_size, sample_per_part
-    M = margin_bins * S
-    R = rois.shape[0]
-    feat = feat.float().contiguous()
-    geom, roi_h, roi_w, sub_h, sub_w = pool_geometry(
-        rois, P=P, S=S, M=M, spatial_scale=spatial_scale)
-    kw = dict(rois_per_image=rois_per_image, P=P, S=S, M=M)
-    pass1 = pool_pass(feat, geom, None, **kw)
-    off = pass1.reshape(R, -1) @ off_w.t() + off_b  # [R, 2*P*P]
-    pypx = window_starts(off, roi_h, roi_w, sub_h, sub_w, P=P, S=S, M=M,
-                         trans_std=trans_std)
-    return pool_pass(feat, geom, pypx, **kw).reshape(R, -1)
+    statics = (rois_per_image, P, S, margin_bins * S, spatial_scale,
+               trans_std)
+    pooled, off = FusedOffsetPool.apply(feat.float().contiguous(), rois,
+                                        off_w, off_b, statics)
+    return (pooled, off) if return_offset else pooled
 
 
 def rcnn_head_fused(feat, rois, head_params, *, rois_per_image,
                     pooled_size=7, sample_per_part=4, spatial_scale=0.0625,
-                    trans_std=0.1, margin_bins=1):
+                    trans_std=0.1, margin_bins=1, return_offset=False):
     """fused_offset_pool + the R-CNN FC stack. ``head_params`` is
     ((off_w, off_b), (fc1_w, fc1_b), (fc2_w, fc2_b), (cls_w, cls_b),
     (bbox_w, bbox_b)), weights [out, in]. Returns (cls_score [R, classes],
-    bbox_pred [R, 4]) fp32."""
+    bbox_pred [R, 4]) fp32, and the raw offset-FC output with
+    ``return_offset``."""
     (off_w, off_b), fc1, fc2, cls, bbox = head_params
-    pooled = fused_offset_pool(
+    pooled, off = fused_offset_pool(
         feat, rois, off_w, off_b, rois_per_image=rois_per_image,
         pooled_size=pooled_size, sample_per_part=sample_per_part,
         spatial_scale=spatial_scale, trans_std=trans_std,
-        margin_bins=margin_bins)
+        margin_bins=margin_bins, return_offset=True)
     h = torch.relu(torch.nn.functional.linear(pooled, *fc1))
     h = torch.relu(torch.nn.functional.linear(h, *fc2))
-    return (torch.nn.functional.linear(h, *cls),
-            torch.nn.functional.linear(h, *bbox))
+    out = (torch.nn.functional.linear(h, *cls),
+           torch.nn.functional.linear(h, *bbox))
+    return out + (off,) if return_offset else out

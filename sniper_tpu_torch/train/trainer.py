@@ -1,0 +1,70 @@
+"""The single-device training step.
+
+Port of sniper_tpu/train/trainer.py:82-182 on one device: uint8 batches
+are mean-subtracted on the device over each chip's ``data_extent``, then
+the detector's training forward, ``total_loss``, the backward, one SGD
+step and the lr scheduler's step. The BatchNorms of stages 2-4 update their
+running statistics in the forward (models/norm.py:TrainBatchNorm), as the
+JAX step's mutated ``batch_stats`` do.
+
+The step returns its metrics as 0-d device tensors and never waits for the
+device: the losses, ``rcnn_acc``, ``rcnn_fg_frac``, the head's offset
+telemetry and the trunk's ``dcn_offset_max``. The caller reads them when it
+logs. The sampler draws from an explicit ``torch.Generator`` on the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sniper_tpu_torch.infer.tester import device_normalize
+from sniper_tpu_torch.models.losses import total_loss
+
+
+def make_train_step(model, optimizer, scheduler, batch_images: int, *,
+                    rpn_batch_size: int = 256, pixel_means=None,
+                    generator: torch.Generator | None = None):
+    """Returns step(batch) -> metrics. ``batch`` is a dict of tensors on
+    the model's device (the chip loader's keys)."""
+
+    def step(batch):
+        data = batch["data"]
+        if data.dtype == torch.uint8:
+            if pixel_means is None:
+                # zero means would silently train on raw pixels
+                raise ValueError(
+                    "uint8 batch but make_train_step got no pixel_means: "
+                    "pass cfg.network.PIXEL_MEANS")
+            data = device_normalize(data, batch["data_extent"], pixel_means)
+        model.train()
+        out = model(data, batch["im_info"], batch["gt_boxes"],
+                    batch["valid_ranges"], train=True, generator=generator)
+        loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size)
+        labels = out["rcnn_labels"]
+        pred = out["cls_score"].detach().argmax(-1)
+        valid = labels >= 0
+        n_valid = valid.sum().clamp_min(1)
+        metrics["rcnn_acc"] = ((pred == labels) & valid).sum() / n_valid
+        metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
+        metrics.update(out["stats"])
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def to_device(batch: dict, device) -> dict:
+    """NumPy batch -> tensors on ``device``; on a CUDA device through
+    pinned memory with non-blocking copies (the transfer overlaps the
+    step before it)."""
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        if cuda:
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=cuda)
+    return out

@@ -168,10 +168,8 @@ def test_unported_branches_raise():
         tiny_torch_detector(with_mask=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tiny_torch_detector(autofocus=True)
-    model = tiny_torch_detector()
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]),
-              train=True)
+        tiny_torch_detector(rpn_only=True)
 
 
 def test_init_detector_follows_the_flax_init():

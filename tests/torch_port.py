@@ -24,6 +24,15 @@ TINY = dict(num_classes=5, num_anchors=9, anchor_scales=(2, 4, 7),
             pre_nms_top_n=200, post_nms_top_n=16)
 
 
+def synth_image_loader(path):
+    """A deterministic uint8 BGR image for a roidb entry named
+    'img<i>:<h>x<w>'."""
+    i, hw = path.split(":")
+    h, w = (int(v) for v in hw.split("x"))
+    rng = np.random.RandomState(int(i.removeprefix("img")))
+    return rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+
+
 def tiny_jax_detector(key=0, **overrides):
     """A tiny fp32 flax detector (tests/test_detector.py's shape) and its
     inference variables as NumPy."""
