@@ -14,16 +14,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    in the same dtype, with TF32 off: the forward kernels at the shapes the
    inference path gives them at each test scale and at the training
    shapes of configs/sniper_res101_e2e.yml, the two backward kernels
-   (pool and DCN im2col) at the training shapes, at zero offsets (every sample on a kink)
-   and at random offsets: the errors, the kernel's and the plain version's
-   times.
+   (pool and DCN im2col) at the training shapes, at zero offsets (every
+   sample on a kink) and at random offsets, and the ROI patch extraction at
+   the mask branch's shapes of every test scale of
+   configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
+   route of the 14x14 pool held against the composed-tent pool kernels: the
+   errors, the kernel's and the plain version's times, the least time the
+   card could take (bytes over 3.35 TB/s or fp32 operations over 67
+   TFLOP/s, whichever is larger) and, where one PyTorch call computes the
+   same function, that call's time.
 3. Inference end to end at full R101 width with seeded random weights:
    (a) the kernel path against the plain path on a small input, (b) the
    port's run_detection over a few synthetic 640x480 images, with the
    kernels' launch counters zeroed just before and read just after, (c)
    per-scale forward times on the host clock: a smoke reading (median and
    spread over E2E_REPS passes), not a benchmark.
-4. Training at full R101 width: (a) one step's losses and named gradients,
+4. Mask-branch inference of configs/sniper_res101_e2e_mask.yml at full
+   width and depth with seeded random weights: (a) the kernel path against
+   the plain path on a small input, (b) run_detection with masks over the
+   synthetic images of phase 3, counters zeroed just before and read just
+   after, with the aggregated masks of one image pasted and RLE-encoded, (c)
+   per-scale forward times (median and spread over MASK_REPS passes), img/s
+   and peak memory: a smoke reading.
+5. Training at full R101 width: (a) one step's losses and named gradients,
    kernel path against plain path, on 2 chips of 256x256 with an fp32
    trunk; (b) the port's
    run_training from its ChipLoader over synthetic images at
@@ -31,11 +44,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    with the counters zeroed just before and read after the warm-up and at
    the end: every step's losses, the step times on the host clock (a smoke
    reading), chips per second, peak memory, the loader's own time per
-   batch and the launches of all five kernels over the timed steps.
+   batch and the launches of the five kernels training runs (all but the
+   patch extraction) over the timed steps.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script raises at once.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches from the mask inference run, or from the training run for the two
+backward kernels, with every path's counts beside them); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script raises at
+once.
 """
 
 from __future__ import annotations
@@ -53,10 +69,15 @@ import numpy as np
 import torch
 
 CONFIG = "configs/sniper_res101_e2e.yml"
+MASK_CONFIG = "configs/sniper_res101_e2e_mask.yml"
 N_IMAGES = 8
 IM_W, IM_H = 640, 480
 E2E_REPS = 15  # timed passes over each scale's batches in phase 3 (c)
-N_TRAIN_IMAGES = 40  # synthetic roidb of phase 4 (b), before flips
+MASK_REPS = 5  # the same for phase 4 (c)
+# the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
+N_TRAIN_IMAGES = 40  # synthetic roidb of phase 5 (b), before flips
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
@@ -81,6 +102,21 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of the bytes
+    that must move over the memory rate and the fp32 operations over the
+    fp32 peak, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def result(ok, err, ms, plain_ms, nbytes, ops, library_ms=None) -> dict:
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(ok=bool(ok), err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 def environment() -> str:
@@ -163,11 +199,17 @@ def check_nms(dev, sh):
     diff = int((keep_k.long() - keep_p.long()).abs().max())
     ms = time_ms(lambda: nms(boxes, scores, max_out, thresh), 20)
     plain_ms = time_ms(lambda: nms_plain(boxes, scores, max_out, thresh), 2)
+    kept = int(valid_k.sum())
+    # bytes: boxes and scores in, keep and valid out; operations: ~14 fp32
+    # ops for the IoU test of every kept box against every candidate
+    r = result(same, diff, ms, plain_ms,
+               B * N * 20 + B * max_out * 5, 14.0 * kept * N)
     print(f"nms [{sh['label']}]: B={B} N={N} -> {max_out} at {thresh}: keep "
           f"lists {'identical' if same else 'DIFFER'} (max index diff "
-          f"{diff}), {int(valid_k.sum())} kept; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return same, float(diff), ms, plain_ms
+          f"{diff}), {kept} kept; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), no single torch call")
+    return r
 
 
 def check_im2col(dev, sh):
@@ -192,11 +234,56 @@ def check_im2col(dev, sh):
     del a, b
     ms = time_ms(lambda: deform_im2col(x, off, **kw), 20)
     plain_ms = time_ms(lambda: deform_im2col_plain(x, off, **kw), 2)
+    xg, grid = im2col_as_grid_sample(x, off, G, K, d)
+    lib_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+        xg, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), 10)
+    KK = K * K
+    r = result(ok, err.max(), ms, plain_ms,
+               x.numel() * 2 + off.numel() * 4 + B * H * W * KK * C * 2,
+               7.0 * B * H * W * KK * C, lib_ms)
     print(f"deform_im2col [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
           f"dilation {d}, offsets +-6 px: max abs err "
           f"{float(err.max()):.3e}, bit-exact {exact}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return ok, float(err.max()), ms, plain_ms
+          f"plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), library F.grid_sample (fp32) {lib_ms:.4f} ms")
+    return r
+
+
+def im2col_as_grid_sample(x, off, G, K, d):
+    """The im2col as F.grid_sample's inputs (the library yardstick, in
+    fp32: the grid shares the input's dtype): x as [B*G, C/G, H, W] and the
+    clamped sample points as a [B*G, H, W*K*K, 2] grid, align_corners=True
+    and border padding being the JAX package's clamp rule."""
+    B, H, W, C = x.shape
+    KK = K * K
+    half = (K - 1) // 2 * d
+    xg = (x.float().reshape(B, H, W, G, C // G).permute(0, 3, 4, 1, 2)
+          .reshape(B * G, C // G, H, W).contiguous())
+    o = off.float().reshape(B, H, W, G, KK, 2)
+    t = torch.arange(KK, device=x.device)
+    ty = ((t // K) * d - half).float()
+    tx = ((t % K) * d - half).float()
+    sy = torch.arange(H, device=x.device).float()[None, :, None, None, None]
+    sx = torch.arange(W, device=x.device).float()[None, None, :, None, None]
+    gy = (sy + ty + o[..., 0]) * (2.0 / (H - 1)) - 1.0
+    gx = (sx + tx + o[..., 1]) * (2.0 / (W - 1)) - 1.0
+    grid = torch.stack([gx, gy], dim=-1)  # [B,H,W,G,KK,2]
+    grid = grid.permute(0, 3, 1, 2, 4, 5).reshape(B * G, H, W * KK, 2)
+    return xg, grid.contiguous()
+
+
+def random_rois(B, rpi, H, W, g):
+    """Image-contiguous rois [B*rpi, 5] over a map of H x W cells at
+    stride 16: corners up to 60 px past the canvas, sides 8 to 800 px."""
+    R = B * rpi
+    rois = torch.zeros(R, 5)
+    rois[:, 0] = torch.arange(B).repeat_interleave(rpi).float()
+    span = torch.tensor([W * 16.0 + 120, H * 16.0 + 120])
+    xy = torch.rand(R, 2, generator=g) * span - 60
+    wh = torch.exp(torch.rand(R, 2, generator=g) * math.log(100.0)) * 8.0
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + wh
+    return rois
 
 
 def check_pool(dev, sh):
@@ -207,14 +294,7 @@ def check_pool(dev, sh):
     g = torch.Generator().manual_seed(3)
     feat = torch.randn(B, H, W, C, generator=g).to(dev)
     R = B * rpi
-    rois = torch.zeros(R, 5)
-    rois[:, 0] = torch.arange(B).repeat_interleave(rpi).float()
-    span = torch.tensor([W * 16.0 + 120, H * 16.0 + 120])
-    xy = torch.rand(R, 2, generator=g) * span - 60
-    wh = torch.exp(torch.rand(R, 2, generator=g) * math.log(100.0)) * 8.0
-    rois[:, 1:3] = xy
-    rois[:, 3:5] = xy + wh
-    rois = rois.to(dev)
+    rois = random_rois(B, rpi, H, W, g).to(dev)
     off_w = (torch.randn(2 * P * P, P * P * C, generator=g) * 0.03).to(dev)
     off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
 
@@ -246,11 +326,18 @@ def check_pool(dev, sh):
     plain_ms = (
         time_ms(lambda: deform.pool_pass_plain(feat, geom, None, **kw), 2)
         + time_ms(lambda: deform.pool_pass_plain(feat, geom, pypx, **kw), 2))
+    # two passes: each reads the map and the geometry (pass B also the
+    # window starts) and writes [R, P*P, C] fp32; each bin averages S*S
+    # bilinear samples of four taps (8 fp32 ops per sample and channel)
+    r = result(ok, worst, ms, plain_ms,
+               2 * (feat.numel() * 4 + R * 16 + R * P * P * C * 4)
+               + R * 2 * P * P * 4, 2 * 8.0 * R * P * P * S * S * C)
     print(f"fused_pool [{sh['label']}]: B={B} rpi={rpi} C={C} map {H}x{W}, "
           f"{clamped:.1%} of window starts on the margin clamp; max abs err "
           f"{', '.join(parts)}; kernel (pass A + pass B) {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return ok, worst, ms, plain_ms
+          f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), no single torch call")
+    return r
 
 
 def train_shapes(cfg) -> dict:
@@ -317,10 +404,18 @@ def check_pool_bwd(dev, sh):
                                                    **kw), 2)
         + time_ms(lambda: deform.pool_pass_bwd_plain(feat, geom, None, gout,
                                                      **kw), 2))
+    # two transposed passes: each reads the map, the geometry and g and
+    # writes dfeat (pass B also reads the window starts and writes their
+    # gradient); per sample, tap and channel the dfeat scatter is 8 fp32
+    # ops and pass B's start gradient 8 more
+    r = result(ok, worst, ms, plain_ms,
+               2 * (2 * feat.numel() * 4 + R * 16 + gout.numel() * 4)
+               + 2 * R * 2 * P * P * 4, (16.0 + 8.0) * R * P * P * S * S * C)
     print(f"fused_pool_bwd [training]: B={B} rpi={rpi} C={C} map {H}x{W}; "
           f"max |err| / max |ref|: {'; '.join(parts)}; kernel (pass B + "
-          f"pass A) {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return ok, worst, ms, plain_ms
+          f"pass A) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no single torch call")
+    return r
 
 
 def check_im2col_bwd(dev, sh):
@@ -356,13 +451,146 @@ def check_im2col_bwd(dev, sh):
     ms = time_ms(lambda: deform.deform_im2col_bwd(x, off, gcol, **kw), 10)
     plain_ms = time_ms(lambda: deform.deform_im2col_bwd_plain(x, off, gcol,
                                                               **kw), 2)
+    xg, grid = im2col_as_grid_sample(x, off, G, K, d)
+    KK = K * K
+    gg = (gcol.float().reshape(B, H, W, KK, G, C // G)
+          .permute(0, 4, 5, 1, 2, 3).reshape(B * G, C // G, H, W * KK)
+          .contiguous())
+    lib_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gg, xg, grid, 0, 1, True, [True, True]), 10)
+    # x, offsets and gcol in, gx and goff out; per (pixel, tap, channel)
+    # ~20 fp32 ops (four corner weights and scatters, the two sample
+    # derivatives and their products with gcol)
+    r = result(ok, worst, ms, plain_ms,
+               2 * x.numel() * 2 + gcol.numel() * 2 + 2 * off.numel() * 4,
+               20.0 * gcol.numel(), lib_ms)
     print(f"deform_im2col_bwd [training]: x [{B},{H},{W},{C}] bf16, G={G}, "
           f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return ok, worst, ms, plain_ms
+          f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), library grid_sampler_2d_backward (fp32) "
+          f"{lib_ms:.4f} ms")
+    return r
+
+
+def patch_as_grid_sample(feat, geom, rpi, E):
+    """The patch extraction as F.grid_sample's inputs (the library
+    yardstick, fp32): the map as [B, C, H, W], each roi's E x E sample
+    points as rows of a [B, rpi*E, E, 2] grid (align_corners=True and border
+    padding are the clamp rule), and the in-bounds mask that zeroes the
+    cells outside (-0.5, n-0.5)."""
+    B, H, W, C = feat.shape
+    o = torch.arange(E, device=feat.device, dtype=torch.float32)
+    pos_y = geom[:, 0:1] + o * geom[:, 2:3]  # [R, E]
+    pos_x = geom[:, 1:2] + o * geom[:, 3:4]
+    gy = pos_y * (2.0 / (H - 1)) - 1.0
+    gx = pos_x * (2.0 / (W - 1)) - 1.0
+    grid = torch.stack([gx[:, None, :].expand(-1, E, E),
+                        gy[:, :, None].expand(-1, E, E)], dim=-1)
+    grid = grid.reshape(B, rpi * E, E, 2).contiguous()
+    inb = ((pos_y > -0.5) & (pos_y < H - 0.5))[:, :, None] & (
+        (pos_x > -0.5) & (pos_x < W - 0.5))[:, None, :]
+    mask = inb.float().reshape(B, 1, rpi * E, E)
+    return feat.float().permute(0, 3, 1, 2).contiguous(), grid, mask
+
+
+def check_roi_patch(dev, sh):
+    """P5 at the mask pool's shapes (P=14, S=4, margin 1 bin: E=64), fp32
+    (the main path's dtype) and bf16, on all of the scale's rois; then the
+    patch route of the whole 14x14 pool against the composed-tent pool
+    kernels on the same inputs."""
+    from sniper_tpu_torch.ops import deform
+
+    B, rpi, C, H, W = sh["B"], sh["rois"], 256, sh["H"], sh["W"]
+    P, S, M = 14, 4, 4
+    E = P * S + 2 * M
+    R = B * rpi
+    g = torch.Generator().manual_seed(10)
+    feat32 = torch.randn(B, H, W, C, generator=g).to(dev)
+    rois = random_rois(B, rpi, H, W, g).to(dev)
+    geom, *_ = deform.pool_geometry(rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+    kw = dict(rois_per_image=rpi, patch_cells=E)
+    ok, worst, parts, timed = True, 0.0, [], {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        feat = feat32.to(dtype)
+        a = deform.extract_patches(feat, geom, **kw)
+        b = deform.extract_patches_plain(feat, geom, **kw)
+        torch.cuda.synchronize()
+        err = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            good = bool(err.max() <= ROI_PATCH_ATOL)
+        else:
+            good = bool((err <= 2.0 ** -7 * b.float().abs() + 1e-6).all())
+        ok &= good
+        worst = max(worst, float(err.max()))
+        del a, b, err
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: deform.extract_patches(feat, geom, **kw), 5)
+        plain_ms = time_ms(
+            lambda: deform.extract_patches_plain(feat, geom, **kw), 1)
+        es = feat.element_size()
+        # the map and the geometry in, [R, E, E, C] out; 9 fp32 ops per
+        # output element (two row blends and one column blend)
+        r = result(good, worst, ms, plain_ms,
+                   feat.numel() * es + R * 16 + R * E * E * C * es,
+                   9.0 * R * E * E * C)
+        timed[name] = r
+        parts.append(f"{name}: max abs err {r['err']:.3e} "
+                     f"{'PASS' if good else 'FAIL'}, kernel {ms:.4f} ms, "
+                     f"plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                     f"({r['bound_by']}, {R * E * E * C * es / 1e9:.2f} GB "
+                     "written)")
+    fmap, grid, inb = patch_as_grid_sample(feat32, geom, rpi, E)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            fmap, grid, mode="bilinear", padding_mode="border",
+            align_corners=True) * inb
+
+    lib_ms = time_ms(library, 5)
+    lib_err = float((library().reshape(B, C, rpi, E, E).permute(0, 2, 3, 4, 1)
+                     .reshape(R, E, E, C)
+                     - deform.extract_patches(feat32, geom, **kw)).abs().max())
+    timed["fp32"]["library_ms"] = lib_ms
+    del fmap, grid, inb
+    torch.cuda.empty_cache()
+
+    # the patch route (P5, then torch ops) against the P1/P2 kernels at
+    # P=14, with an offset FC that moves the windows by ~0.5 to 2 cells
+    off_w = (torch.randn(2 * P * P, P * P * C, generator=g) * 0.003).to(dev)
+    off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
+    with torch.inference_mode():
+        a = deform.patch_offset_pool(feat32, rois, off_w, off_b,
+                                     rois_per_image=rpi, pooled_size=P)
+        b = deform.fused_offset_pool(feat32, rois, off_w, off_b,
+                                     rois_per_image=rpi, pooled_size=P)
+    torch.cuda.synchronize()
+    route_err = float((a - b).abs().max())
+    route_ok = bool(torch.allclose(a, b, atol=POOL_ATOL, rtol=POOL_RTOL))
+    ok &= route_ok
+    route_ms = time_ms(lambda: deform.patch_offset_pool(
+        feat32, rois, off_w, off_b, rois_per_image=rpi, pooled_size=P), 3)
+    fused_ms = time_ms(lambda: deform.fused_offset_pool(
+        feat32, rois, off_w, off_b, rois_per_image=rpi, pooled_size=P), 3)
+    print(f"roi_patch [{sh['label']}]: B={B} rpi={rpi} C={C} map {H}x{W}, "
+          f"E={E}; {'; '.join(parts)}; library F.grid_sample (bilinear, "
+          f"border, align_corners) times the in-bounds mask, fp32, "
+          f"{lib_ms:.4f} ms (max abs diff from the kernel {lib_err:.3e}, "
+          f"its own coordinate rounding; not a check)")
+    print(f"mask pool route [{sh['label']}]: patch_offset_pool (roi_patch + "
+          f"torch ops) vs fused_offset_pool (fused_pool kernels) at P=14, "
+          f"offset FC nonzero: max abs err {route_err:.3e} (tolerance "
+          f"atol={POOL_ATOL} rtol={POOL_RTOL}) "
+          f"{'PASS' if route_ok else 'FAIL'}; {route_ms:.3f} ms vs "
+          f"{fused_ms:.3f} ms for the whole pool")
+    del a, b
+    torch.cuda.empty_cache()
+    out = dict(timed["fp32"])
+    out.update(ok=ok, err=worst)
+    return out
 
 
 POOL_ATOL, POOL_RTOL = 1e-4, 1e-4
+ROI_PATCH_ATOL = 1e-5
 POOL_BWD_REL = IM2COL_BWD_REL = 1e-4
 TOLERANCES = {
     "nms": "identical keep lists (the IoU is computed in nms_jax's fp32 "
@@ -377,14 +605,22 @@ TOLERANCES = {
                          "atomics in another order, then one rounding)",
     "fused_pool_bwd": f"dfeat and d(py,px) within {POOL_BWD_REL} * max|ref| "
                       "(fp32 atomics and block sums in another order)",
+    "roi_patch": f"fp32 within {ROI_PATCH_ATOL} absolute (the same taps "
+                 "blended in fp32; the plain version's dense products sum "
+                 "in another order); bf16 within one rounding step of the "
+                 "result (2^-7 relative) plus 1e-6; the patch route of the "
+                 f"14x14 pool within atol={POOL_ATOL} rtol={POOL_RTOL} of "
+                 "the composed-tent kernels (fp32 sums of the same tents in "
+                 "another order)",
 }
 
 
-def kernel_phase(dev, cfg) -> tuple[bool, list]:
+def kernel_phase(dev, cfg, mcfg) -> tuple[bool, list]:
     """Each kernel against its plain version: the forward kernels at every
     test scale's shapes and at the training shapes (scale 0 first: its
-    times go into the JSON line), the backward kernels at the training
-    shapes."""
+    times and bound go into the JSON line), the backward kernels at the
+    training shapes, the patch extraction at the mask branch's shapes of
+    every test scale."""
     from sniper_tpu_torch.ops import cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -398,16 +634,16 @@ def kernel_phase(dev, cfg) -> tuple[bool, list]:
             (cuda.DEFORM_IM2COL, check_im2col, both),
             (cuda.FUSED_POOL, check_pool, both),
             (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train),
-            (cuda.POOL_BWD, check_pool_bwd, train)):
+            (cuda.POOL_BWD, check_pool_bwd, train),
+            (cuda.ROI_PATCH, check_roi_patch, main_path_shapes(mcfg))):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
         runs = [check(dev, sh) for sh in at]
         torch.cuda.synchronize()
-        good = all(r[0] for r in runs)
+        good = all(r["ok"] for r in runs)
         print(f"{kernel.name}: {'PASS' if good else 'FAIL'}")
         ok &= good
-        results.append(dict(kernel=kernel,
-                            max_abs_err=max(r[1] for r in runs),
-                            ms=runs[0][2], plain_ms=runs[0][3]))
+        results.append(dict(runs[0], kernel=kernel,
+                            max_abs_err=max(r["err"] for r in runs)))
     return ok, results
 
 
@@ -452,17 +688,18 @@ def plain_versions():
     from sniper_tpu_torch.ops import deform, nms, proposals
 
     saved = (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
-             deform.pool_pass_bwd, proposals.nms)
+             deform.pool_pass_bwd, deform.extract_patches, proposals.nms)
     deform.deform_im2col = deform.deform_im2col_plain
     deform.pool_pass = deform.pool_pass_plain
     deform.deform_im2col_bwd = deform.deform_im2col_bwd_plain
     deform.pool_pass_bwd = deform.pool_pass_bwd_plain
+    deform.extract_patches = deform.extract_patches_plain
     proposals.nms = nms.nms_plain
     try:
         yield
     finally:
         (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
-         deform.pool_pass_bwd, proposals.nms) = saved
+         deform.pool_pass_bwd, deform.extract_patches, proposals.nms) = saved
 
 
 def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
@@ -583,7 +820,181 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: training
+# phase 4: mask-branch inference
+# ---------------------------------------------------------------------------
+
+INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool", "roi_patch")
+# the patch extraction runs only in the mask branch, which training does not
+# run yet
+TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
+                    "fused_pool_bwd")
+
+
+class MaskCountingDataset(CountingDataset):
+    """Also stands in for evaluate_segmentations: checks every aggregated
+    mask, then pastes and RLE-encodes the masks of image 0 and decodes the
+    first RLE back."""
+
+    def evaluate_segmentations(self, all_boxes_masks, roidb):
+        from sniper_tpu_torch.infer.masks import (
+            masks_to_results,
+            paste_mask,
+            rle_to_binary_mask,
+        )
+
+        n = 0
+        for j in range(1, self.num_classes):
+            for dets, masks in all_boxes_masks[j]:
+                if masks.ndim != 3 or len(masks) != len(dets):
+                    raise ValueError(f"masks {masks.shape} for dets "
+                                     f"{dets.shape}")
+                if len(masks) and not (np.isfinite(masks).all()
+                                       and masks.min() >= 0
+                                       and masks.max() <= 1):
+                    raise ValueError("mask probabilities outside [0, 1]")
+                n += len(masks)
+        one = [None] + [[all_boxes_masks[j][0]]
+                        for j in range(1, self.num_classes)]
+        ids = {j: j for j in range(1, self.num_classes)}
+        t0 = time.perf_counter()
+        results = masks_to_results(one, roidb[:1], ids, self.num_classes)
+        paste_s = time.perf_counter() - t0
+        h, w = roidb[0]["height"], roidb[0]["width"]
+        if not results or any(r["segmentation"]["size"] != [h, w]
+                              for r in results):
+            raise ValueError("no or misshapen RLEs for image 0")
+        j = next(j for j in range(1, self.num_classes)
+                 if len(all_boxes_masks[j][0][0]))
+        dets, masks = all_boxes_masks[j][0]
+        same = np.array_equal(rle_to_binary_mask(results[0]["segmentation"]),
+                              paste_mask(masks[0], dets[0, :4], h, w))
+        if not same:
+            raise ValueError("the first RLE does not decode to its mask")
+        pixels = sum(sum(r["segmentation"]["counts"][1::2]) for r in results)
+        return {"masks": n, "image0_rles": len(results),
+                "image0_mask_pixels": int(pixels),
+                "image0_paste_rle_s": round(paste_s, 3)}
+
+
+def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
+    """Returns (ok, {kernel name: launches in run_detection with masks})."""
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+
+    model = get_model(mcfg)
+    init_detector(model, seed=0, offset_std=1e-3)
+    model.to(dev).eval()
+    S = model.mask_size
+    print(f"mask: {MASK_CONFIG}: symbol {mcfg.symbol}, units "
+          f"{model.trunk.units}, {mcfg.dataset.NUM_CLASSES} classes, "
+          f"post-NMS per scale {list(mcfg.TEST.N_PROPOSAL_PER_SCALE)}, "
+          f"batches {list(mcfg.TEST.BATCH_IMAGES)}, trunk dtype "
+          f"{model.dtype}, mask pool 14x14 (margin "
+          f"{model.head_margin_bins} bin) and mask head in fp32 with TF32 "
+          f"off; {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+          f"params, seeded random weights (seed 0, offsets normal(1e-3))")
+    ok = True
+
+    # (a) kernel path against the plain path, on a small input
+    g = torch.Generator().manual_seed(11)
+    data = (torch.randn(1, 256, 320, 3, generator=g) * 50).to(dev)
+    info = torch.tensor([[256.0, 320.0, 1.0]], device=dev)
+    with torch.inference_mode():
+        torch.backends.cudnn.deterministic = True
+        out_k = model(data, info)
+        with plain_versions():
+            out_p = model(data, info)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    same_rois = torch.equal(out_k["rois"], out_p["rois"])
+    err = float((out_k["cls_prob"] - out_p["cls_prob"]).abs().max())
+    merr = float((out_k["mask_prob"] - out_p["mask_prob"]).abs().max())
+    good = same_rois and err <= 1e-3 and merr <= 1e-3
+    print(f"mask (a) 256x320 input, kernel path vs plain path on the card: "
+          f"rois identical {same_rois}, cls_prob max abs err {err:.3e}, "
+          f"mask_prob max abs err {merr:.3e}; tolerance 1e-3 (bf16 trunk "
+          f"identical in both, fp32 pool sums in another order): "
+          f"{'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    # (b) the main path: run_detection with masks over synthetic images
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(N_IMAGES)]
+    for k in cuda.KERNELS:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        stats = run_detection(mcfg, model, None, roidb, MaskCountingDataset(),
+                              out_dir, dev, image_loader=synth_image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    good = (stats["bbox"]["detections"] > 0 and stats["segm"]["masks"] > 0
+            and all(launches[n] > 0 for n in INFERENCE_KERNELS))
+    print(f"mask (b) run_detection with masks over {N_IMAGES} synthetic "
+          f"{IM_W}x{IM_H} images: {stats}; launches of the six kernels "
+          f"{launches} (the four of inference must be > 0; the pool and "
+          f"DCN backward kernels run only in training, phase 5), "
+          f"{wall:.2f} s wall including first-call set-up: "
+          f"{'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    # (c) per-scale forward times at the shipped batch sizes
+    init_inference_crops(roidb)
+    torch.cuda.reset_peak_memory_stats()
+    ms_per_image = 0.0
+    for s in range(len(mcfg.TEST.SCALES)):
+        bs = mcfg.TEST.BATCH_IMAGES[s]
+        n = _scale_post_nms(mcfg, s, model)
+        batches = list(TestChipIterator(roidb, mcfg, s, bs,
+                                        image_loader=synth_image))
+        fwd = make_forward(model, None, dev, mcfg.network.PIXEL_MEANS, n)
+        out = fwd(batches[0]["data"], batches[0]["im_info"])
+        torch.cuda.synchronize()
+        mp = out["mask_prob"]
+        shapes_ok = (tuple(mp.shape) == (bs, n, S, S)
+                     and bool(torch.isfinite(mp).all())
+                     and float(mp.min()) >= 0 and float(mp.max()) <= 1)
+        per_rep = []
+        for _ in range(MASK_REPS):
+            t0 = time.perf_counter()
+            for b in batches:
+                fwd(b["data"], b["im_info"])
+            torch.cuda.synchronize()
+            per_rep.append((time.perf_counter() - t0) * 1e3 / len(batches))
+        per_rep.sort()
+        ms = per_rep[len(per_rep) // 2]
+        hw = batches[0]["data"].shape[1:3]
+        print(f"mask (c) scale {s}: canvas {hw[0]}x{hw[1]}, batch {bs}, "
+              f"{n} rois/img: median {ms:.2f} ms/batch (min "
+              f"{per_rep[0]:.2f}, max {per_rep[-1]:.2f} over {MASK_REPS} "
+              f"passes of {len(batches)} batches), {bs * 1e3 / ms:.1f} img/s "
+              f"[{card}]; mask_prob shape, range and finiteness "
+              f"{'PASS' if shapes_ok else 'FAIL'}")
+        ok &= shapes_ok
+        ms_per_image += ms / bs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"mask (c) three-scale pyramid with masks: {ms_per_image:.2f} "
+          f"ms/img, {1e3 / ms_per_image:.1f} img/s, peak memory {peak:.2f} "
+          f"GiB (forward only, sum of the scales' medians, random weights; "
+          f"a smoke reading) [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training
 # ---------------------------------------------------------------------------
 
 TRAIN_SIZES = ((480, 640), (640, 480), (600, 800), (375, 500), (768, 1024),
@@ -665,7 +1076,7 @@ def train_cfg(cfg):
     return cfg
 
 
-# leaves whose gradients phase 4 (a) compares, kernel path against plain
+# leaves whose gradients phase 5 (a) compares, kernel path against plain
 # path: the head, and trunk leaves that the backward kernels feed
 HEAD_LEAVES = ("rcnn.offset.weight", "rcnn.offset.bias",
                "rcnn.fc_new_1.weight", "rcnn.cls_score.weight")
@@ -855,7 +1266,7 @@ def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         for n in (cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name))
     finite = all(math.isfinite(v) for m in losses for v in m.values())
     good = (res["step"] == n_steps and len(timed) == TIMED_STEPS and finite
-            and all(over_timed.values()) and every_step)
+            and all(over_timed[n] for n in TRAINING_KERNELS) and every_step)
     srt = sorted(timed)
     med = srt[len(srt) // 2]
     print(f"train (b) run_training, {n_steps} steps ({WARMUP_STEPS} warm-up, "
@@ -879,30 +1290,41 @@ def main() -> int:
     from sniper_tpu_torch.config import load_config
 
     dev = torch.device("cuda", 0)
-    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                   CONFIG))
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, CONFIG))
+    mcfg = load_config(os.path.join(root, MASK_CONFIG))
     card = environment()
-    ok_k, results = kernel_phase(dev, cfg)
+    ok_k, results = kernel_phase(dev, cfg, mcfg)
     torch.cuda.synchronize()
     ok_e, launches_infer = e2e_phase(dev, cfg, card)
     torch.cuda.synchronize()
+    ok_m, launches_mask = mask_phase(dev, mcfg, card)
+    torch.cuda.synchronize()
     ok_t, launches_train = train_phase(dev, cfg, card)
     torch.cuda.synchronize()
-    # "launches": the training run, the path of this slice, which runs all
-    # five kernels; the inference run's counts stand beside it
+
+    # "launches": the mask-branch inference run, the path of this slice, for
+    # the four kernels it runs; the training run for the two backward
+    # kernels, which only training runs. Every path's counts stand beside.
+    def main_path(name):
+        return "mask inference" if name in INFERENCE_KERNELS else "training"
+
+    by_path = {"inference": launches_infer, "mask inference": launches_mask,
+               "training": launches_train}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
-        "launches": launches_train[r["kernel"].name],
-        "launches_by_path": {
-            "inference": launches_infer.get(r["kernel"].name, 0),
-            "training": launches_train[r["kernel"].name]},
+        "launches": by_path[main_path(r["kernel"].name)][r["kernel"].name],
+        "launches_path": main_path(r["kernel"].name),
+        "launches_by_path": {p: c.get(r["kernel"].name, 0)
+                             for p, c in by_path.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
-    if not (ok_k and ok_e and ok_t):
+    if not (ok_k and ok_e and ok_m and ok_t):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
-              f"training {ok_t})")
+              f"mask inference {ok_m}, training {ok_t})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

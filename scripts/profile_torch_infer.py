@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's inference forward, per test scale.
 
-Runs sniper_tpu_torch's R101 detector (configs/sniper_res101_e2e.yml,
-seeded random weights) on synthetic canvases at each TEST.SCALES entry
-with the shipped batch size and post-NMS roi count, under torch.profiler,
-and prints per scale: the host-clock time per batch, the device-busy time
-(sum of kernel times) and its share, and the device time by kernel group
-(the three hand-written kernels, convolutions, GEMMs, the rest), then the
-top kernels by device time. Needs one CUDA device.
+Runs sniper_tpu_torch's R101 detector (``--cfg``, by default
+configs/sniper_res101_e2e.yml; seeded random weights) on synthetic
+canvases at each TEST.SCALES entry with the shipped batch size and
+post-NMS roi count, under torch.profiler, and prints per scale: the
+host-clock time per batch, the device-busy time (sum of kernel times) and
+its share, and the device time by kernel group (the hand-written kernels,
+convolutions, GEMMs, the rest), then the top kernels by device time. A
+second, unprofiled pass times the detector's stages on the device with
+CUDA events around them (trunk, R-CNN head, and with the mask branch its
+pool, split into the patch extraction and the stencil, and its head). TF32
+is off, as in chip_smoke.py. Needs one CUDA device.
 
-    python3 scripts/profile_torch_infer.py [--reps 3]
+    python3 scripts/profile_torch_infer.py [--reps 3] [--cfg configs/sniper_res101_e2e_mask.yml]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import os
 import subprocess
 import sys
@@ -30,6 +35,7 @@ GROUPS = (
     ("kernel:fused_pool", ("pool_pass_kernel",)),
     ("kernel:nms", ("nms_mask_kernel", "nms_scan_kernel")),
     ("kernel:deform_im2col", ("deform_im2col_kernel",)),
+    ("kernel:roi_patch", ("roi_patch_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma_fprop", "sm90_xmma",
                       "fprop")),
     ("gemm (cuBLAS)", ("gemm", "cutlass", "sm90_")),
@@ -44,9 +50,49 @@ def group_of(name: str) -> str:
     return "other (elementwise, BN, copies)"
 
 
+@contextlib.contextmanager
+def stage_timers(model, spans):
+    """Wrap the detector's stages so that each call records CUDA events
+    around itself into ``spans[name]`` (restored on exit)."""
+    from sniper_tpu_torch.models import detector
+    from sniper_tpu_torch.ops import deform
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    patched = [(model.trunk, "forward", "trunk"),
+               (model.rcnn, "forward", "R-CNN head (pool + FCs)"),
+               (detector, "patch_offset_pool", "mask pool"),
+               (deform, "extract_patches", "  mask pool: roi_patch"),
+               (deform, "stencil_pool", "  mask pool: stencil"),
+               (deform, "tiled_bin_avg", "  mask pool: pass-1 average")]
+    if model.with_mask:
+        patched.append((model.mask, "forward", "mask head"))
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
+    for obj, attr, name in patched:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            if isinstance(obj, torch.nn.Module):
+                del obj.__dict__[attr]  # back to the class's forward
+            else:
+                setattr(obj, attr, fn)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--cfg", default="configs/sniper_res101_e2e.yml")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_infer: needs a CUDA device")
@@ -65,7 +111,10 @@ def main():
     ).stdout.strip()
     print(card)
     dev = torch.device("cuda", 0)
-    cfg = load_config(os.path.join(ROOT, "configs", "sniper_res101_e2e.yml"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(os.path.join(ROOT, args.cfg))
+    print(f"{args.cfg}: symbol {cfg.symbol}")
     model = init_detector(get_model(cfg), seed=0, offset_std=1e-3)
     model.to(dev).eval()
     gen = torch.Generator().manual_seed(0)
@@ -108,6 +157,16 @@ def main():
             print(f"  {g:34s} {ms:9.3f} ms  {ms / busy:6.1%}")
         for name, ms in per_kernel.most_common(8):
             print(f"    {ms:9.3f} ms  {name[:100]}")
+        spans = collections.defaultdict(list)
+        with stage_timers(model, spans):
+            for _ in range(args.reps):
+                fwd()
+            torch.cuda.synchronize()
+        print("  device time by stage (CUDA events around each call, per "
+              "batch; the split rows sum the chunks of the mask pool):")
+        for name, evs in spans.items():
+            ms = sum(a.elapsed_time(b) for a, b in evs) / args.reps
+            print(f"  {name:34s} {ms:9.3f} ms")
 
 
 if __name__ == "__main__":

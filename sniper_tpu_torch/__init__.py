@@ -2,28 +2,31 @@
 
 The port of ``sniper_tpu`` (JAX on a TPU), which stays beside it as the
 reference: a ported piece is done when it gives the JAX output on the same
-weights and inputs. This package imports torch and never jax; from
-``sniper_tpu`` it uses only the (pure Python) config tree, and its CLIs load
-the dataset readers.
+weights and inputs. This package imports torch and never jax, and nothing
+of ``sniper_tpu``: it keeps its own copies of the host modules it needs
+(the config tree, the dataset readers, the COCO evaluator, mask pasting).
 
 The slices ported so far, for the flagship R101 detector
 (``configs/sniper_res101_e2e.yml``) on one device: multi-scale inference
 (``main_test.run_detection`` -> ``infer.tester.Tester`` -> ``aggregate``)
-and SNIPER training (``main_train.run_training``).
+and SNIPER training (``main_train.run_training``); and the mask branch's
+inference (``configs/sniper_res101_e2e_mask.yml``).
 
 Package layout (the names of ``sniper_tpu``'s modules):
-  config.py     the config tree (sniper_tpu.config)
+  config/       the config tree (a copy of sniper_tpu/config)
   convert.py    flax variables -> the port's state_dict
   ops/          boxes, anchors, NMS, proposals and the training sampler,
-                deformable conv + ROI pool with their backward passes;
+                deformable conv + ROI pool with their backward passes, the
+                patch route of the pool (the mask branch's);
                 ops/cuda.py builds and loads the CUDA kernels in csrc/
-  models/       ResNet trunk, BatchNorm, RPN / R-CNN heads, detector,
-                losses, registry, init
+  models/       ResNet trunk, BatchNorm, RPN / R-CNN / mask heads,
+                detector, losses, registry, init
   chips/        SNIPER chip generation and box assignment
   data/         the training chip loader, anchor targets, roidb building,
-                test-time batches
+                test-time batches, the COCO / VOC readers and evaluators
   train/        the train step, optimizer, metrics, checkpoints
-  infer/        the multi-scale Tester and its aggregation
+  infer/        the multi-scale Tester and its aggregation, mask pasting
+                and RLE encoding
   main_train    the training CLI
   main_test     the inference CLI
 """

@@ -4,6 +4,10 @@ The port's modules carry the flax tree's names, so a leaf's path maps to a
 key directly; only the leaf names and layouts change:
 
 - ``kernel`` of a conv, HWIO -> ``weight``, OIHW;
+- ``kernel`` of a transposed conv (flax ``ConvTranspose``, [kh,kw,in,out])
+  -> ``weight`` of ``nn.ConvTranspose2d``, [in,out,kh,kw], flipped in both
+  spatial axes: with flax's SAME padding and untransposed kernel, output
+  row 2i + a of the stride-2 2x2 deconv takes tap 1 - a, torch's tap a;
 - ``conv2_kernel`` (the deformable 3x3, [3,3,mid,mid]) -> ``conv2_weight``,
   OIHW;
 - ``kernel`` of a ``_Lin`` / Dense, [in, out] -> ``weight``, [out, in];
@@ -40,8 +44,12 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), np.asarray(v)
 
 
-def flax_to_torch(value: np.ndarray, leaf: str) -> np.ndarray:
-    """One leaf's layout change (see the module doc)."""
+def flax_to_torch(value: np.ndarray, leaf: str,
+                  transposed: bool = False) -> np.ndarray:
+    """One leaf's layout change (see the module doc); ``transposed`` for
+    the kernel of a transposed conv."""
+    if transposed and leaf == "kernel":
+        return value[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [in,out,kh,kw]
     if leaf in ("kernel", "conv2_kernel") and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if leaf == "kernel" and value.ndim == 2:
@@ -56,6 +64,8 @@ def convert(variables: Mapping, model: nn.Module) -> dict:
     every port parameter or buffer left unfilled, and every shape that
     disagrees."""
     want = model.state_dict()
+    deconvs = {name for name, m in model.named_modules()
+               if isinstance(m, nn.ConvTranspose2d)}
     out, unmapped, bad_shape = {}, [], []
     for path, value in _leaves(variables):
         name = _LEAF.get((path[0], path[-1]))
@@ -63,8 +73,9 @@ def convert(variables: Mapping, model: nn.Module) -> dict:
         if key not in want or key in out:
             unmapped.append("/".join(path))
             continue
-        t = torch.tensor(flax_to_torch(value, path[-1]),
-                         dtype=want[key].dtype)
+        t = torch.tensor(flax_to_torch(
+            value, path[-1], ".".join(path[1:-1]) in deconvs).copy(),
+            dtype=want[key].dtype)
         if tuple(t.shape) != tuple(want[key].shape):
             bad_shape.append(f"{key}: {tuple(t.shape)} vs "
                              f"{tuple(want[key].shape)}")

@@ -1,18 +1,21 @@
 """Multi-scale inference: per-chip detection, pruning, aggregation.
 
-A jax-free copy of the box path of sniper_tpu/infer/tester.py:64-449
-(``device_normalize`` in torch, ``check_valid`` and ``Tester``). The host
-plane is unchanged: decode the class-agnostic deltas on the rois, clip to
-the chip canvas, rescale by 1/im_scale, per-class score threshold,
+A jax-free copy of the box and mask paths of sniper_tpu/infer/tester.py:
+64-427 (``device_normalize`` in torch, ``check_valid`` and ``Tester``). The
+host plane is unchanged: decode the class-agnostic deltas on the rois, clip
+to the chip canvas, rescale by 1/im_scale, per-class score threshold,
 optional chip-border pruning (TEST.DO_PRUNING), then ``aggregate``: per
 image and class, concat the scales under their VALID_RANGES area filters,
 soft-NMS / NMS through the config-driven wrapper, and the MAX_PER_IMAGE
-cap. The forward returns torch tensors, which are brought to the host
-where the host plane needs them. The JAX Tester's packed-array fetch and
-device staging existed for its remote runtime and are not ported.
+cap. With masks, each detection's [S,S] mask probabilities ride along
+through the class filter, the pruning, the NMS keep and the cap. The
+forward returns torch tensors, which are brought to the host where the
+host plane needs them. The JAX Tester's packed-array fetch and device
+staging existed for its remote runtime and are not ported.
 
 all_boxes layout: [class][image][chip] before aggregation, [class][image]
--> [N,5] after.
+-> [N,5] after; all_masks the same nesting, [N,S,S] rows aligned with
+all_boxes before aggregation and (dets, masks) pairs after.
 """
 
 from __future__ import annotations
@@ -83,9 +86,10 @@ class Tester:
 
     ``forward_fn(data, im_info) -> dict`` must return the detector's
     test-mode outputs (rois [B,N,5], cls_prob [B,N,C], bbox_pred
-    [B,N,4] std-denormalized, roi_valid [B,N]). The JAX Tester's mask,
-    AutoFocus-map, per-chip NMS and proposal-extraction modes come with
-    the slices that add those outputs (ROADMAP.md Queue 1 items 5, 8).
+    [B,N,4] std-denormalized, roi_valid [B,N], and mask_prob [B,N,S,S]
+    with the mask branch). The JAX Tester's AutoFocus-map, per-chip NMS and
+    proposal-extraction modes come with the slices that add those outputs
+    (ROADMAP.md Queue 1 items 5, 8).
     """
 
     def __init__(self, forward_fn, cfg, num_classes: int):
@@ -96,7 +100,9 @@ class Tester:
 
     def detect_outputs(self, out, im_info, im_scales):
         """Decode already-enqueued forward outputs into per-image
-        (scores [N,C], boxes [N,4]) in original image coordinates.
+        (scores [N,C], boxes [N,4]) in original image coordinates, and the
+        per-image mask probabilities [N,S,S] when the forward has them
+        (else an empty list).
         Splitting dispatch from decode lets get_detections run one batch
         ahead — the device computes batch N+1 while the host
         post-processes batch N (the reference gets the same overlap from
@@ -105,8 +111,9 @@ class Tester:
         cls_prob = _host(out["cls_prob"])
         deltas = _host(out["bbox_pred"])
         valid = _host(out["roi_valid"])
+        mask_prob = _host(out["mask_prob"]) if "mask_prob" in out else None
 
-        scores_list, boxes_list = [], []
+        scores_list, boxes_list, masks_list = [], [], []
         for i in range(rois.shape[0]):
             boxes = bbox_pred(rois[i, :, 1:], deltas[i])
             boxes = clip_boxes(boxes, im_info[i][:2])
@@ -114,16 +121,19 @@ class Tester:
             scores = np.where(valid[i][:, None], cls_prob[i], 0.0)
             scores_list.append(scores)
             boxes_list.append(boxes)
-        return scores_list, boxes_list
+            if mask_prob is not None:
+                masks_list.append(mask_prob[i])
+        return scores_list, boxes_list, masks_list
 
     def get_detections(self, batches, roidb, cls_thresh=1e-3,
-                       do_pruning=False):
+                       do_pruning=False, with_masks=False):
         """Run detection over an iterable of batches.
 
         ``batches`` yields dicts with data [B,H,W,3], im_info [B,3],
         im_scales [B], im_ids [B], chip_ids [B], valid [B] (padding
         mask for partial batches). Returns all_boxes in the reference
-        layout ([cls][img][chip] -> [N,5]).
+        layout ([cls][img][chip] -> [N,5]); with_masks also all_masks
+        ([cls][img][chip] -> [N,S,S] aligned with all_boxes rows).
         """
         n_images = len(roidb)
         n_chips = [len(r["inference_crops"]) for r in roidb]
@@ -132,6 +142,11 @@ class Tester:
              for i in range(n_images)]
             for _ in range(self.num_classes)
         ]
+        all_masks = (
+            [[[None] * n_chips[i] for i in range(n_images)]
+             for _ in range(self.num_classes)]
+            if with_masks else None
+        )
 
         import time
 
@@ -142,7 +157,7 @@ class Tester:
             t0 = time.time()
             # blocks on the device result (fetch); the launches already
             # happened, so this overlaps with the NEXT batch's compute
-            scores, boxes = self.detect_outputs(
+            scores, boxes, masks = self.detect_outputs(
                 out, batch["im_info"], batch["im_scales"]
             )
             detect_time += time.time() - t0
@@ -170,6 +185,9 @@ class Tester:
                     else:
                         dets = empty
                     all_boxes[j][im_id][chip_id] = dets
+                    if all_masks is not None:
+                        all_masks[j][im_id][chip_id] = (
+                            masks[i][inds] if masks else None)
 
                 if do_pruning:
                     chip = roidb[im_id]["inference_crops"][chip_id]
@@ -191,6 +209,10 @@ class Tester:
                         all_boxes[j][im_id][chip_id] = (
                             d[keep] if keep else np.zeros((0, 5), np.float32)
                         )
+                        if all_masks is not None and \
+                                all_masks[j][im_id][chip_id] is not None:
+                            all_masks[j][im_id][chip_id] = \
+                                all_masks[j][im_id][chip_id][keep]
             post_time += time.time() - t0
             n_done += int(np.sum(batch["valid"]))
             if n_done:
@@ -214,31 +236,47 @@ class Tester:
             pending = (batch, out)
         if pending is not None:
             process(*pending)
+        if with_masks:
+            return all_boxes, all_masks
         return all_boxes
 
-    def aggregate(self, scale_cls_dets, num_images: int):
+    def aggregate(self, scale_cls_dets, num_images: int,
+                  scale_cls_masks=None, mask_size: int = 28):
         """Merge per-scale detections with VALID_RANGES + NMS + cap.
 
         scale_cls_dets: list over scales of all_boxes ([cls][img][chip]).
-        Returns all_boxes[cls][img] -> [N,5].
+        Returns all_boxes[cls][img] -> [N,5]; when scale_cls_masks (same
+        nesting, [N,S,S] rows aligned with dets) is given, also returns
+        all_masks[cls][img] -> (dets, masks) pairs, which
+        dataset.evaluate_segmentations takes.
         """
         valid_ranges = self.cfg.TEST.VALID_RANGES
         assert len(scale_cls_dets) == len(valid_ranges), (
             "a valid range per test scale is required"
         )
+        with_masks = scale_cls_masks is not None
         all_boxes = [
             [np.zeros((0, 5), np.float32) for _ in range(num_images)]
             for _ in range(self.num_classes)
         ]
+        all_masks = (
+            [[None for _ in range(num_images)]
+             for _ in range(self.num_classes)]
+            if with_masks else None
+        )
+        empty_masks = np.zeros((0, mask_size, mask_size), np.float32)
+
         def aggregate_image(i):
             # merge scales/chips per class first, then rescore ALL
             # classes in one batched soft-NMS call (one padded greedy
             # loop instead of num_classes sequential ones)
             merged_cls = {}
+            merged_cls_m = {}
             for j in range(1, self.num_classes):
-                agg = []
-                for dets_s, vr in zip(scale_cls_dets, valid_ranges):
-                    for cls_dets in dets_s[j][i]:
+                agg, agg_m = [], []
+                for s, (dets_s, vr) in enumerate(
+                        zip(scale_cls_dets, valid_ranges)):
+                    for c, cls_dets in enumerate(dets_s[j][i]):
                         if cls_dets is None or len(cls_dets) == 0:
                             continue
                         d1 = cls_dets[:, 2] - cls_dets[:, 0]
@@ -251,6 +289,12 @@ class Tester:
                             ok &= areas <= vr[1] * vr[1]
                         if ok.any():
                             agg.append(cls_dets[ok])
+                            if with_masks:
+                                m = scale_cls_masks[s][j][i][c]
+                                agg_m.append(
+                                    np.asarray(m)[ok] if m is not None
+                                    else np.zeros((int(ok.sum()), mask_size,
+                                                   mask_size), np.float32))
                 merged = (
                     np.vstack(agg).astype(np.float32)
                     if agg else np.zeros((0, 5), np.float32)
@@ -258,11 +302,24 @@ class Tester:
                 all_boxes[j][i] = merged
                 if merged.shape[0]:
                     merged_cls[j] = merged
+                if with_masks:
+                    merged_cls_m[j] = (np.concatenate(agg_m, axis=0)
+                                       if agg_m else empty_masks)
             js = list(merged_cls)
-            if js:
+            if js and with_masks:
+                outs, keeps = self.nms.batched(
+                    [merged_cls[j] for j in js], return_indices=True)
+                for j, out, keep in zip(js, outs, keeps):
+                    all_boxes[j][i] = out
+                    merged_cls_m[j] = merged_cls_m[j][keep]
+            elif js:
                 outs = self.nms.batched([merged_cls[j] for j in js])
                 for j, out in zip(js, outs):
                     all_boxes[j][i] = out
+            if with_masks:
+                for j in range(1, self.num_classes):
+                    all_masks[j][i] = (all_boxes[j][i],
+                                       merged_cls_m.get(j, empty_masks))
 
             max_per_image = self.cfg.TEST.MAX_PER_IMAGE
             if max_per_image > 0:
@@ -274,6 +331,9 @@ class Tester:
                     for j in range(1, self.num_classes):
                         keep = all_boxes[j][i][:, -1] >= thresh
                         all_boxes[j][i] = all_boxes[j][i][keep]
+                        if with_masks:
+                            all_masks[j][i] = (all_boxes[j][i],
+                                               all_masks[j][i][1][keep])
 
         # images are independent; CONCURRENT_JOBS>1 soft-NMSes them in a
         # thread pool (reference: Pool(32) over images, inference.py:159)
@@ -286,4 +346,6 @@ class Tester:
         else:
             for i in range(num_images):
                 aggregate_image(i)
+        if with_masks:
+            return all_boxes, all_masks
         return all_boxes

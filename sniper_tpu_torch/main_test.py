@@ -4,7 +4,10 @@ Port of main_test.py:52-79,137-163,174-280 (``make_forward``,
 ``_scale_post_nms``, ``run_detection``), single device only: multi-scale
 detection over TEST.SCALES with the per-scale post-NMS roi counts of a
 list-valued TEST.N_PROPOSAL_PER_SCALE, aggregation with per-scale valid
-ranges and soft-NMS, then the dataset's evaluation.
+ranges and soft-NMS, then the dataset's evaluation. A detector with the
+mask branch (configs/sniper_res101_e2e_mask.yml) also carries each
+detection's mask through aggregation, and the dataset scores both boxes
+and masks.
 
   python -m sniper_tpu_torch.main_test --cfg configs/sniper_res101_e2e.yml \\
       --weights model.pt
@@ -77,8 +80,10 @@ def _per_scale(value, s):
 def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
                   image_loader=None):
     """Detect at every TEST.SCALES entry, aggregate, evaluate. Returns
-    ``dataset.evaluate_detections``'s result. ``image_loader`` replaces
-    cv2.imread (tests and synthetic runs inject one)."""
+    ``dataset.evaluate_detections``'s result, or with the mask branch
+    {"bbox": that, "segm": ``dataset.evaluate_segmentations``'s}.
+    ``image_loader`` replaces cv2.imread (tests and synthetic runs inject
+    one)."""
     if cfg.TEST.AUTO_FOCUS:
         raise NotImplementedError(
             "AutoFocus inference is not ported yet (ROADMAP.md Queue 1 "
@@ -86,6 +91,7 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
     init_inference_crops(roidb)
     if state is not None:
         model.load_state_dict(state)
+    with_masks = bool(model.with_mask)
     testers: dict = {}
 
     def get_tester(post_nms):
@@ -98,46 +104,55 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
         return testers[post_nms]
 
     loader_kw = {} if image_loader is None else {"image_loader": image_loader}
-    scale_dets = []
+    scale_dets, scale_masks = [], []
     for s in range(len(cfg.TEST.SCALES)):
         cache_file = os.path.join(out_dir, f"dets_scale{s}.pkl")
         if _per_scale(cfg.TEST.USE_CACHE, s) and os.path.exists(cache_file):
             with open(cache_file, "rb") as f:
-                all_boxes = pickle.load(f)["dets"]
+                cached = pickle.load(f)
+            all_boxes, all_masks = cached["dets"], cached.get("masks")
             print(f"scale {s}: loaded from cache {cache_file}")
         else:
             tester = get_tester(_scale_post_nms(cfg, s, model))
             batches = TestChipIterator(
                 roidb, cfg, s, _per_scale(cfg.TEST.BATCH_IMAGES, s),
                 **loader_kw)
-            all_boxes = tester.get_detections(
+            out = tester.get_detections(
                 iter(batches), roidb,
-                do_pruning=bool(_per_scale(cfg.TEST.DO_PRUNING, s)))
+                do_pruning=bool(_per_scale(cfg.TEST.DO_PRUNING, s)),
+                with_masks=with_masks)
+            all_boxes, all_masks = out if with_masks else (out, None)
             print(f"scale {s}: done")
             # atomic: USE_CACHE treats existence as "scale done"
             tmp = f"{cache_file}.tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
-                pickle.dump({"dets": all_boxes, "maps": None}, f)
+                pickle.dump({"dets": all_boxes, "maps": None,
+                             "masks": all_masks}, f)
             os.replace(tmp, cache_file)
         scale_dets.append(all_boxes)
+        scale_masks.append(all_masks)
 
     tester = (next(iter(testers.values())) if testers
               else Tester(None, cfg, dataset.num_classes))
-    final = tester.aggregate(scale_dets, len(roidb))
-    return dataset.evaluate_detections(final, roidb)
+    if not with_masks:
+        final = tester.aggregate(scale_dets, len(roidb))
+        return dataset.evaluate_detections(final, roidb)
+    final, final_masks = tester.aggregate(
+        scale_dets, len(roidb), scale_cls_masks=scale_masks,
+        mask_size=model.mask_size)
+    return {"bbox": dataset.evaluate_detections(final, roidb),
+            "segm": dataset.evaluate_segmentations(final_masks, roidb)}
 
 
 def build_test_dataset(cfg):
-    # The dataset readers and the COCO evaluator are the JAX package's
-    # NumPy host plane (they import no jax); only this CLI loads them.
     name = cfg.dataset.dataset
     if name == "coco":
-        from sniper_tpu.data.coco import COCODataset
+        from sniper_tpu_torch.data.coco import COCODataset
 
         return COCODataset(str(cfg.dataset.test_image_set),
                            cfg.dataset.root_path, cfg.dataset.dataset_path)
     if name == "PascalVOC":
-        from sniper_tpu.data.pascal_voc import PascalVOC
+        from sniper_tpu_torch.data.pascal_voc import PascalVOC
 
         return PascalVOC(str(cfg.dataset.test_image_set),
                          cfg.dataset.root_path, cfg.dataset.dataset_path)

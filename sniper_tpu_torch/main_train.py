@@ -41,18 +41,16 @@ LOG_EVERY = 20  # steps between progress lines (the JAX CLI's)
 
 
 def build_dataset(cfg):
-    # The dataset readers are the JAX package's NumPy host plane (they
-    # import no jax); only this CLI loads them.
     name = cfg.dataset.dataset
     sets = str(cfg.dataset.image_set).split("+")
     if name == "coco":
-        from sniper_tpu.data.coco import COCODataset
+        from sniper_tpu_torch.data.coco import COCODataset
 
         return [COCODataset(s, cfg.dataset.root_path,
                             cfg.dataset.dataset_path,
                             load_mask=cfg.TRAIN.WITH_MASK) for s in sets]
     if name == "PascalVOC":
-        from sniper_tpu.data.pascal_voc import PascalVOC
+        from sniper_tpu_torch.data.pascal_voc import PascalVOC
 
         return [PascalVOC(s, cfg.dataset.root_path, cfg.dataset.dataset_path)
                 for s in sets]

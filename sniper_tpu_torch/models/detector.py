@@ -1,16 +1,21 @@
 """The SNIPER detector: training and inference branches.
 
-Port of sniper_tpu/models/detector.py:139-223,294-315: trunk -> C4||C5
+Port of sniper_tpu/models/detector.py:139-223,294-354: trunk -> C4||C5
 concat -> RPN -> softmax over the {bg, fg} axis -> ``conv_new_1`` + ReLU
 cast to fp32, then
 
 - inference: ``multi_proposal`` -> the fused deformable R-CNN head ->
-  class softmax and ``bbox_pred * stds + means``;
+  class softmax and ``bbox_pred * stds + means``; with ``with_mask``, the
+  mask branch on every kept roi: the 14x14 two-pass pool through one patch
+  extraction per roi (``patch_offset_pool``, the JAX package's einsum
+  route, which its mask branch takes whatever POOL_KERNEL says) with the
+  ``mask_offset`` FC -> ``MaskHead`` -> the neg and pos planes of each
+  roi's argmax foreground class -> softmax over the pair -> ``mask_prob``;
 - training: ``multi_proposal_target`` (proposals, GT candidates, valid
   ranges, the fg/bg sample) -> the head on the sampled rois, returning what
   the losses need and the offset telemetry.
 
-The mask branch, AutoFocus and the RPN-only mode are later slices of the
+Mask training, AutoFocus and the RPN-only mode are later slices of the
 port (ROADMAP.md, Queue 1 items 6 and 8); asking for them raises
 ``NotImplementedError``.
 """
@@ -22,9 +27,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sniper_tpu_torch.models.heads import RCNNHead, RPNHead
+from sniper_tpu_torch.models.heads import MaskHead, RCNNHead, RPNHead
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
+from sniper_tpu_torch.ops.deform import patch_offset_pool
 from sniper_tpu_torch.ops.proposals import (
     multi_proposal,
     multi_proposal_target,
@@ -63,10 +69,6 @@ class SNIPERDetector(nn.Module):
         rpn_only: bool = False,
     ):
         super().__init__()
-        if with_mask:
-            raise NotImplementedError(
-                "the mask branch is not ported yet (ROADMAP.md Queue 1 "
-                "item 8)")
         if autofocus:
             raise NotImplementedError(
                 "the AutoFocus branch is not ported yet (ROADMAP.md Queue 1 "
@@ -103,6 +105,13 @@ class SNIPERDetector(nn.Module):
         self.conv_new_1 = nn.Conv2d(1024 + 2048, 256, 1)
         self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
                              fc_dim=head_fc_dim, margin_bins=head_margin_bins)
+        self.with_mask = with_mask
+        self.mask_size = 28  # the mask head's deconv doubles the 14x14 pool
+        self.head_margin_bins = head_margin_bins
+        if with_mask:
+            # the 14x14 pool's offset FC: the first 196 outputs are dy
+            self.mask_offset = nn.Linear(14 * 14 * 256, 2 * 14 * 14)
+            self.mask = MaskHead(num_classes - 1)
         self._anchors: dict = {}
 
     def anchors(self, fh: int, fw: int, device) -> torch.Tensor:
@@ -137,7 +146,9 @@ class SNIPERDetector(nn.Module):
 
         Inference returns rois [B,N,5], roi_scores [B,N], roi_valid [B,N],
         cls_prob [B,N,C] and bbox_pred [B,N,4] (std-denormalized), with N =
-        ``post_nms_top_n`` (default: the model's).
+        ``post_nms_top_n`` (default: the model's), and with ``with_mask``
+        mask_prob [B,N,S,S] (S = mask_size): each roi's foreground
+        probability for its argmax foreground class.
 
         ``train=True`` also takes gt_boxes [B,G,5] and valid_ranges [B,2];
         the sampler draws from ``generator`` (or takes ``priorities``, see
@@ -158,7 +169,7 @@ class SNIPERDetector(nn.Module):
         )
         cls_score, bbox_pred = self.rcnn(roi_feat_map, rois.reshape(-1, 5))
         cls_prob = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
-        return {
+        out = {
             "rois": rois,
             "roi_scores": scores,
             "roi_valid": valid,
@@ -166,9 +177,35 @@ class SNIPERDetector(nn.Module):
             "bbox_pred": (bbox_pred * self.bbox_stds
                           + self.bbox_means).reshape(b, n, 4),
         }
+        if self.with_mask:
+            out["mask_prob"] = self._mask_prob(roi_feat_map, rois, cls_prob)
+        return out
+
+    def _mask_prob(self, roi_feat_map, rois, cls_prob):
+        """Pool every kept roi at 14x14, predict its argmax foreground
+        class's neg/pos planes only, softmax over the pair (detector.py:
+        318-353). Returns [B,N,S,S]."""
+        b, n = rois.shape[:2]
+        C = roi_feat_map.shape[-1]
+        pooled = patch_offset_pool(
+            roi_feat_map, rois.reshape(-1, 5), self.mask_offset.weight,
+            self.mask_offset.bias, rois_per_image=n, pooled_size=14,
+            spatial_scale=1.0 / self.feat_stride,
+            margin_bins=self.head_margin_bins).reshape(-1, 14, 14, C)
+        logits = self.mask(pooled)  # [B*N, S, S, 2*nfg]
+        nfg = self.num_classes - 1
+        S = self.mask_size
+        best = cls_prob[..., 1:].argmax(dim=-1).reshape(-1, 1, 1, 1)
+        pair = torch.cat([
+            logits.gather(-1, best.expand(-1, S, S, 1)),
+            logits.gather(-1, (best + nfg).expand(-1, S, S, 1))], dim=-1)
+        return torch.softmax(pair, dim=-1)[..., 1].reshape(b, n, S, S)
 
     def _train_forward(self, data, im_info, gt_boxes, valid_ranges,
                        generator, priorities):
+        if self.with_mask:
+            raise NotImplementedError(
+                "mask training is not ported yet (ROADMAP.md Queue 1 item 8)")
         dcn = []
         feat, rpn_cls_logits, rpn_bbox, rpn_fg, roi_feat_map = self._shared(
             data, dcn)

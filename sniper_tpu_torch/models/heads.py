@@ -1,6 +1,6 @@
-"""Detection heads: RPN and the fused deformable R-CNN head.
+"""Detection heads: RPN, the fused deformable R-CNN head and the mask head.
 
-Port of sniper_tpu/models/heads.py:52-199. Parameter names follow the flax
+Port of sniper_tpu/models/heads.py:52-235. Parameter names follow the flax
 tree; the ``_Lin`` param holders become ``nn.Linear`` ([out, in] weights).
 The offset FC's gradient is scaled by 0.01 inside the pool's backward
 (ops/deform.py:OFFSET_GRAD_MULT, the reference's lr_mult).
@@ -91,3 +91,29 @@ class RCNNHead(nn.Module):
         return {"offset_max": ab.amax(),
                 "offset_clamp_frac": (ab >= thr).float().mean(),
                 "offset_clamp_thr": torch.full((), thr, device=off.device)}
+
+
+class MaskHead(nn.Module):
+    """Mask branch (heads.py:202-235): four 3x3 convs to 256 with ReLU ->
+    2x2 stride-2 transposed conv (14 -> 28) with ReLU -> 1x1 conv to
+    2 * num_fg_classes channels (per-class neg and pos logit planes). fp32,
+    like the flax module. flax's ConvTranspose (padding "SAME", kernel not
+    transposed) gives output row 2i + a the kernel tap 1 - a, where torch's
+    gives it tap a: convert.py flips the kernel spatially."""
+
+    def __init__(self, num_fg_classes: int = 80, in_channels: int = 256):
+        super().__init__()
+        for i in range(4):
+            setattr(self, f"mask_conv_3x3_{i + 1}",
+                    nn.Conv2d(in_channels if i == 0 else 256, 256, 3,
+                              padding=1))
+        self.mask_deconv = nn.ConvTranspose2d(256, 256, 2, stride=2)
+        self.mask_out = nn.Conv2d(256, 2 * num_fg_classes, 1)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        """pooled [R, 14, 14, C] -> logits [R, 28, 28, 2*num_fg_classes]."""
+        h = pooled.permute(0, 3, 1, 2)
+        for i in range(4):
+            h = torch.relu(getattr(self, f"mask_conv_3x3_{i + 1}")(h))
+        h = torch.relu(self.mask_deconv(h))
+        return self.mask_out(h).permute(0, 2, 3, 1)

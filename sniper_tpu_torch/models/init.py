@@ -6,9 +6,11 @@ distributions as the flax initializers, drawn from an explicit
 
 - convs: lecun_normal (truncated normal, variance 1/fan_in), zero bias;
 - the deformable 3x3: variance_scaling(2.0, "fan_out", truncated normal);
-- RPN, ``conv_new_1`` and the R-CNN FCs: normal(0.01), zero bias;
-- offset convs and the R-CNN offset FC: zeros, or normal(``offset_std``)
-  when it is given, so that the deformable sampling really moves;
+- RPN, ``conv_new_1``, the R-CNN FCs and every mask-head layer:
+  normal(0.01), zero bias;
+- offset convs and the R-CNN and mask offset FCs: zeros, or
+  normal(``offset_std``) when it is given, so that the deformable sampling
+  really moves;
 - BatchNorm: scale 1, bias 0, mean 0, var 1.
 """
 
@@ -51,6 +53,9 @@ def init_detector(model: SNIPERDetector, seed: int = 0,
                    model.rcnn.fc_new_1, model.rcnn.fc_new_2,
                    model.rcnn.cls_score, model.rcnn.bbox_pred}
     offsets = {model.rcnn.offset}
+    if model.with_mask:
+        head_layers |= set(model.mask.children())
+        offsets.add(model.mask_offset)
     for name, m in model.named_modules():
         if name.endswith(".offset"):
             offsets.add(m)
@@ -62,7 +67,7 @@ def init_detector(model: SNIPERDetector, seed: int = 0,
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if m in offsets:
                 if offset_std is None:
                     nn.init.zeros_(m.weight)

@@ -1,7 +1,8 @@
 """Model registry: config symbol -> detector constructor.
 
-Port of the ``resnet_mx_101_e2e`` and ``resnet_mx_50_e2e`` entries of
-sniper_tpu/models/registry.py:73-115,149-156. ``TRAIN.bf16`` selects the
+Port of the ``resnet_mx_101_e2e``, ``resnet_mx_101_e2e_mask`` and
+``resnet_mx_50_e2e`` entries of sniper_tpu/models/registry.py:73-115,
+149-156; TRAIN.WITH_MASK turns the mask branch on, as in the JAX package. ``TRAIN.bf16`` selects the
 trunk's compute dtype, as in the JAX package. The TEST.* RPN keys drive the
 inference branch and the TRAIN.* keys the training sampler, whose roi count
 per image is TRAIN.RPN_POST_NMS_TOP_N (the reference op emits exactly that
@@ -56,6 +57,7 @@ def _resnet(units):
 
 _REGISTRY = {
     "resnet_mx_101_e2e": _resnet((3, 4, 23, 3)),
+    "resnet_mx_101_e2e_mask": _resnet((3, 4, 23, 3)),
     "resnet_mx_50_e2e": _resnet((3, 4, 6, 3)),
 }
 

@@ -56,6 +56,8 @@ _SIGNATURES = {
     # feat, geom, pypx, g, dfeat, dpypx, R, H, W, C, rpi, P, S, M, stream
     "sniper_pool_pass_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    # feat, geom, out, dtype, H, W, C, rpi, r0, r1, E, stream
+    "sniper_roi_patch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -91,7 +93,12 @@ POOL_BWD = Kernel(
     "fused_pool_bwd", "sniper_tpu_torch/csrc/fused_pool_bwd.cu",
     "sniper_tpu/ops/pallas/fused_pool.py:487",
 )
-KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD)
+ROI_PATCH = Kernel(
+    "roi_patch", "sniper_tpu_torch/csrc/roi_patch.cu",
+    "sniper_tpu/ops/pallas/roi_patch.py:101",
+)
+KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD,
+           ROI_PATCH)
 
 
 def _nvcc() -> str:

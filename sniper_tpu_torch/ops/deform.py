@@ -22,6 +22,14 @@ Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
   ``OFFSET_GRAD_MULT`` -> transposed pass A; each transposed pass is
   ``pool_pass_bwd`` (csrc/fused_pool_bwd.cu, or the plain version).
 - ``rcnn_head_fused`` (deform.py:797-841): the pool plus the FC stack.
+- ``patch_offset_pool`` (deform.py:743-794, ``fused_offset_pool`` with
+  ``extract="einsum"``): the patch route of the same two-pass pool, which the
+  mask branch's 14x14 pool takes. Each roi's (T+2M)^2 patch is extracted
+  once by ``extract_patches`` (csrc/roi_patch.cu, the counterpart of
+  pallas/roi_patch.py, or the plain version), then ``tiled_bin_avg``
+  (pass 1 on the central T x T cells) -> offset FC -> ``stencil_pool``
+  (the offset-shifted tent stack as one dense product per roi). Forward
+  only.
 
 The plain backwards are written out as the JAX backward is, not derived by
 autograd: the zeros-initialized offset FC and C5 offset convs put every
@@ -44,6 +52,10 @@ from sniper_tpu_torch.ops import cuda
 # the offset FC's gradient scale inside the pool's backward: the reference's
 # lr_mult of 0.01 on that layer, so one learning rate serves every parameter
 OFFSET_GRAD_MULT = 0.01
+# rois per chunk of the patch route: at P=14 a roi's fp32 patch is
+# E*E*C*4 B (4.2 MB at E=64, C=256) and its stencil weights P*P*E*E*4 B
+# (3.2 MB), so a chunk holds about 470 MB
+PATCH_ROI_CHUNK = 64
 
 # ---------------------------------------------------------------------------
 # deformable convolution
@@ -73,13 +85,13 @@ def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation):
     return col.permute(0, 1, 2, 4, 3, 5).reshape(B, H, W, KK, C).to(x.dtype)
 
 
-_IM2COL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _require_im2col(what, x, offsets, G, K):
     """Raise unless the im2col kernels take x and the offsets."""
     B, H, W, C = x.shape
-    if x.dtype not in _IM2COL_DTYPES:
+    if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what} takes float32 or bfloat16, got {x.dtype}")
     cuda.require(x, "x", x.dtype)
     cuda.require(offsets, "offsets", torch.float32, (B, H, W, G * K * K * 2))
@@ -97,7 +109,7 @@ def _deform_im2col_kernel(x, offsets, *, num_groups, kernel_size, dilation):
     cuda.DEFORM_IM2COL.launches += 1
     cuda.check(lib.sniper_deform_im2col(
         x.data_ptr(), offsets.data_ptr(), col.data_ptr(),
-        _IM2COL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
+        _KERNEL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
         cuda.stream(x)), "deform_im2col")
     return col
 
@@ -182,7 +194,7 @@ def _deform_im2col_bwd_kernel(x, offsets, gcol, *, num_groups, kernel_size,
     cuda.DEFORM_IM2COL_BWD.launches += 1
     cuda.check(lib.sniper_deform_im2col_bwd(
         x.data_ptr(), offsets.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
-        goff.data_ptr(), _IM2COL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
+        goff.data_ptr(), _KERNEL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
         cuda.stream(x)), "deform_im2col_bwd")
     return gx.to(x.dtype), goff
 
@@ -299,10 +311,10 @@ def _tent_stack_pair(p0, S, E):
     return w, dw
 
 
-def _image_chunks(R, rpi, size=64):
-    """(image, first roi, end roi) blocks of at most ``size`` rois that do
-    not cross an image."""
-    for r0 in range(0, R, size):
+def _image_chunks(R, rpi, size=64, start=0):
+    """(image, first roi, end roi) blocks of at most ``size`` rois of
+    [start, R) that do not cross an image."""
+    for r0 in range(start, R, size):
         r1 = min(R, r0 + size)
         for b in range(r0 // rpi, (r1 - 1) // rpi + 1):
             yield b, max(r0, b * rpi), min(r1, (b + 1) * rpi)
@@ -620,3 +632,156 @@ def rcnn_head_fused(feat, rois, head_params, *, rois_per_image,
     out = (torch.nn.functional.linear(h, *cls),
            torch.nn.functional.linear(h, *bbox))
     return out + (off,) if return_offset else out
+
+
+# ---------------------------------------------------------------------------
+# the patch route of the two-pass pool (the mask branch's 14x14 pool)
+# ---------------------------------------------------------------------------
+
+
+def extract_patches_plain(feat, geom, *, rois_per_image, patch_cells, r0=0,
+                          r1=None):
+    """Per-roi bilinear resize of feat [B,H,W,C] onto the E x E patch grid
+    (E = ``patch_cells``) for rois [r0, r1): geom [R,4] = (ys, xs, sub_h,
+    sub_w) fp32, image-contiguous rois (roi r -> image r // rpi). Returns
+    [r1-r0, E, E, C] in feat's dtype: the dense ``_resize_tents`` products
+    of _extract_patch_batched, in fp32, rounded once."""
+    B, H, W, C = feat.shape
+    r1 = geom.shape[0] if r1 is None else r1
+    E = patch_cells
+    g = geom[r0:r1]
+    wy, _ = _resize_tents(g[:, 0], g[:, 2], E, H)  # [n,E,H]
+    wx, _ = _resize_tents(g[:, 1], g[:, 3], E, W)  # [n,E,W]
+    out = torch.empty((r1 - r0, E, E, C), dtype=feat.dtype,
+                      device=feat.device)
+    for b, lo, hi in _image_chunks(r1, rois_per_image, start=r0):
+        a, z = lo - r0, hi - r0
+        tmp = (wy[a:z] @ feat[b].float().reshape(H, W * C)).reshape(
+            z - a, E, W, C)
+        # [n,1,E(s),W] @ [n,E(t),W,C] -> [n,t,s,C]
+        out[a:z] = (wx[a:z, None] @ tmp).to(feat.dtype)
+    return out
+
+
+def _extract_patches_kernel(feat, geom, *, rois_per_image, patch_cells, r0,
+                            r1):
+    B, H, W, C = feat.shape
+    R = B * rois_per_image
+    if feat.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"extract_patches takes float32 or bfloat16, got "
+                         f"{feat.dtype}")
+    cuda.require(feat, "feat", feat.dtype)
+    cuda.require(geom, "geom", torch.float32, (R, 4))
+    if H < 2 or W < 2 or not 0 <= r0 <= r1 <= R:
+        raise ValueError(f"extract_patches needs H, W >= 2 and 0 <= r0 <= r1 "
+                         f"<= {R}, got H={H}, W={W}, r0={r0}, r1={r1}")
+    E = patch_cells
+    out = torch.empty((r1 - r0, E, E, C), dtype=feat.dtype,
+                      device=feat.device)
+    lib = cuda.library()
+    cuda.ROI_PATCH.launches += 1
+    cuda.check(lib.sniper_roi_patch(
+        feat.data_ptr(), geom.data_ptr(), out.data_ptr(),
+        _KERNEL_DTYPES[feat.dtype], H, W, C, rois_per_image, r0, r1, E,
+        cuda.stream(feat)), "extract_patches")
+    return out
+
+
+def extract_patches(feat, geom, *, rois_per_image, patch_cells, r0=0,
+                    r1=None):
+    """Patch extraction (see extract_patches_plain): the CUDA kernel for
+    CUDA tensors, the plain version on the CPU."""
+    r1 = geom.shape[0] if r1 is None else r1
+    kw = dict(rois_per_image=rois_per_image, patch_cells=patch_cells, r0=r0,
+              r1=r1)
+    if feat.is_cuda:
+        return _extract_patches_kernel(feat, geom, **kw)
+    return extract_patches_plain(feat, geom, **kw)
+
+
+def patch_counts(geom, E, H, W):
+    """In-bounds mask [n, E, E] fp32 of the patch cells of geom [n,4]
+    (_extract_patches_pallas's cnt)."""
+    o = torch.arange(E, device=geom.device, dtype=torch.float32)
+    pos_y = geom[:, 0:1] + o * geom[:, 2:3]
+    pos_x = geom[:, 1:2] + o * geom[:, 3:4]
+    vy = (pos_y > -0.5) & (pos_y < H - 0.5)
+    vx = (pos_x > -0.5) & (pos_x < W - 0.5)
+    return (vy[:, :, None] & vx[:, None, :]).float()
+
+
+def tiled_bin_avg(patch, cnt, P, S):
+    """Undeformed per-bin average (deform.py:_tiled_bin_avg): patch
+    [n, T, T, C] (T = P*S), cnt [n, T, T] -> [n, P, P, C] fp32. The S-wide
+    bins tile the patch, so this is a reshape-sum."""
+    n, C = patch.shape[0], patch.shape[-1]
+    out = patch.float().reshape(n, P, S, P, S, C).sum(dim=(2, 4))
+    cn = cnt.reshape(n, P, S, P, S).sum(dim=(2, 4))[..., None]
+    return torch.where(cn > 0, out / cn.clamp_min(1.0), 0.0)
+
+
+def stencil_pool(patch, cnt, roi_h, roi_w, sub_h, sub_w, ctrans, *, P, S, M,
+                 trans_std):
+    """Deformed per-bin average (deform.py:_stencil_pool): each bin's S^2
+    samples shift by the learned offset, which is a tent-stack stencil on
+    the patch, applied as one dense [P*P, E*E] x [E*E, C] product per roi.
+    patch [n,E,E,C], cnt [n,E,E], roi_h .. sub_w [n], ctrans [n,P,P,2]
+    (plane 0 dy, plane 1 dx). Returns [n, P, P, C] fp32."""
+    n, E, _, C = patch.shape
+    dy = (ctrans[..., 0].float() * trans_std * roi_h[:, None, None]
+          / sub_h[:, None, None])
+    dx = (ctrans[..., 1].float() * trans_std * roi_w[:, None, None]
+          / sub_w[:, None, None])
+    base = S * torch.arange(P, device=patch.device, dtype=torch.float32) + M
+    # window starts clamp to E - S so all S samples stay on the patch
+    py = (base[:, None] + dy).clamp(0.0, float(E - S)).reshape(n, P * P)
+    px = (base[None, :] + dx).clamp(0.0, float(E - S)).reshape(n, P * P)
+    w_y = _tent_stack(py, S, E)  # [n, PP, E]
+    w_x = _tent_stack(px, S, E)
+    wf = (w_y[..., :, None] * w_x[..., None, :]).reshape(n, P * P, E * E)
+    pooled = wf @ patch.float().reshape(n, E * E, C)
+    cn = wf @ cnt.reshape(n, E * E, 1)
+    pooled = torch.where(cn > 0, pooled / cn.clamp_min(1.0), 0.0)
+    return pooled.reshape(n, P, P, C)
+
+
+def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
+                      pooled_size=14, sample_per_part=4, spatial_scale=0.0625,
+                      trans_std=0.1, margin_bins=1):
+    """Two-pass deformable ROI pooling through one patch extraction per roi
+    (fused_offset_pool(extract="einsum"), deform.py:743-794): extract ->
+    pass-1 average of the central T x T cells -> offset FC (weight
+    [2*P*P, P*P*C], bias [2*P*P]; the first P*P outputs are dy, the next
+    dx) -> stencil. feat [B,H,W,C] (pooled in fp32), image-contiguous rois
+    [B*rpi, 5]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major. Rois run
+    PATCH_ROI_CHUNK at a time. Forward only: its backward comes with mask
+    training."""
+    if torch.is_grad_enabled() and (feat.requires_grad or off_w.requires_grad
+                                    or off_b.requires_grad):
+        raise NotImplementedError(
+            "patch_offset_pool is forward only; its backward comes with "
+            "mask training (ROADMAP.md Queue 1 item 8)")
+    P, S = pooled_size, sample_per_part
+    T = P * S
+    M = margin_bins * S
+    E = T + 2 * M
+    feat = feat.float().contiguous()
+    B, H, W, C = feat.shape
+    R = rois.shape[0]
+    geom, roi_h, roi_w, sub_h, sub_w = pool_geometry(
+        rois, P=P, S=S, M=M, spatial_scale=spatial_scale)
+    out = torch.empty((R, P * P * C), device=feat.device)
+    for r0 in range(0, R, PATCH_ROI_CHUNK):
+        r1 = min(R, r0 + PATCH_ROI_CHUNK)
+        sl = slice(r0, r1)
+        patch = extract_patches(feat, geom, rois_per_image=rois_per_image,
+                                patch_cells=E, r0=r0, r1=r1)
+        cnt = patch_counts(geom[sl], E, H, W)
+        pass1 = tiled_bin_avg(patch[:, M:M + T, M:M + T],
+                              cnt[:, M:M + T, M:M + T], P, S)
+        off = pass1.reshape(r1 - r0, -1) @ off_w.t() + off_b
+        ctrans = off.reshape(r1 - r0, 2, P, P).permute(0, 2, 3, 1)
+        out[sl] = stencil_pool(
+            patch, cnt, roi_h[sl], roi_w[sl], sub_h[sl], sub_w[sl], ctrans,
+            P=P, S=S, M=M, trans_std=trans_std).reshape(r1 - r0, -1)
+    return out

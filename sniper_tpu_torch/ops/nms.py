@@ -67,6 +67,7 @@ def soft_nms_np(
     Nt: float = 0.3,
     threshold: float = 0.001,
     method: int = 2,
+    return_indices: bool = False,
 ):
     """Soft-NMS, bit-faithful to the reference Cython kernel.
 
@@ -74,9 +75,9 @@ def soft_nms_np(
     [M,5] rows in the reference's emission order (max-score selection
     sort with swap; decayed boxes below ``threshold`` replaced by the
     dynamic tail). Sequential by nature — float32 arithmetic throughout
-    to match the Cython float locals. (The JAX copy's ``return_indices``,
-    which carries instance masks through the rescoring, comes with the
-    mask slice.)
+    to match the Cython float locals. ``return_indices`` also returns
+    each surviving row's ORIGINAL index (for carrying per-detection
+    payloads like instance masks through the rescoring).
 
     The reference kernel is a scalar double loop; here the inner
     decay pass is VECTORIZED, which is exact: at each step i every
@@ -88,6 +89,11 @@ def soft_nms_np(
     exact array order (argmax tie-breaking depends on it).
     """
     b = np.array(boxes, dtype=np.float32, copy=True)
+    if return_indices:
+        # ride an index column through the row swaps (cols 0-4 drive the
+        # algorithm; the extra column is inert)
+        idx_col = np.arange(b.shape[0], dtype=np.float32)[:, None]
+        b = np.concatenate([b, idx_col], axis=1)
     N = b.shape[0]
     sigma = np.float32(sigma)
     one = np.float32(1)
@@ -139,6 +145,8 @@ def soft_nms_np(
                     else:
                         pos += 1
         i += 1
+    if return_indices:
+        return b[:N, :5], b[:N, 5].astype(np.int64)
     return b[:N]
 
 
@@ -148,6 +156,7 @@ def soft_nms_np_batched(
     Nt: float = 0.3,
     threshold: float = 0.001,
     method: int = 2,
+    return_indices: bool = False,
 ):
     """Run soft-NMS on many INDEPENDENT problems (e.g. one per class) in
     a single padded greedy loop — bit-identical per problem to
@@ -155,16 +164,24 @@ def soft_nms_np_batched(
     of sum(kept): one [C, Nmax] vector op per step covers every class.
 
     dets_list: sequence of [N_c, 5] float32 arrays. Returns a list of
-    surviving [M_c, 5] arrays.
+    surviving [M_c, 5] arrays (plus a list of original-index arrays
+    when return_indices).
     """
     C = len(dets_list)
     Ns = np.array([d.shape[0] for d in dets_list], dtype=int)
     Nmax = int(Ns.max()) if C else 0
     if Nmax == 0:
-        return [np.zeros((0, 5), np.float32) for _ in range(C)]
-    b = np.zeros((C, Nmax, 5), np.float32)
+        outs = [np.zeros((0, 5), np.float32) for _ in range(C)]
+        if return_indices:
+            return outs, [np.zeros((0,), np.int64) for _ in range(C)]
+        return outs
+    K = 6 if return_indices else 5
+    b = np.zeros((C, Nmax, K), np.float32)
     for c, d in enumerate(dets_list):
-        b[c, : d.shape[0]] = d
+        n = d.shape[0]
+        b[c, :n, :5] = d
+        if return_indices:
+            b[c, :n, 5] = np.arange(n, dtype=np.float32)
 
     N = Ns.copy()                 # live length per problem
     i = np.zeros(C, dtype=int)    # kept count per problem
@@ -185,7 +202,7 @@ def soft_nms_np_batched(
         tmp = b[rows, ic].copy()
         b[rows, ic] = b[rows, maxpos]
         b[rows, maxpos] = tmp
-        t = b[rows, ic]  # [R, 5] the kept boxes this step
+        t = b[rows, ic]  # [R, K] the kept boxes this step
         tarea = (t[:, 2] - t[:, 0] + one) * (t[:, 3] - t[:, 1] + one)
         x1 = b[rows, :, 0]
         y1 = b[rows, :, 1]
@@ -224,7 +241,10 @@ def soft_nms_np_batched(
                     pos += 1
             N[c] = n_c
         i[rows] = ic + 1
-    return [b[c, : N[c]] for c in range(C)]
+    outs = [b[c, : N[c], :5] for c in range(C)]
+    if return_indices:
+        return outs, [b[c, : N[c], 5].astype(np.int64) for c in range(C)]
+    return outs
 
 
 class NMSWrapper:
@@ -239,17 +259,25 @@ class NMSWrapper:
         self.thresh = thresh
         self.sigma = sigma
 
-    def __call__(self, dets: np.ndarray):
+    def __call__(self, dets: np.ndarray, return_indices: bool = False):
         if self.thresh > 0:
-            return dets[nms_np(dets.astype(np.float32), self.thresh)]
-        return soft_nms_np(dets, sigma=self.sigma, method=2)
+            keep = nms_np(dets.astype(np.float32), self.thresh)
+            if return_indices:
+                return dets[keep], np.asarray(keep, np.int64)
+            return dets[keep]
+        return soft_nms_np(dets, sigma=self.sigma, method=2,
+                           return_indices=return_indices)
 
-    def batched(self, dets_list):
+    def batched(self, dets_list, return_indices: bool = False):
         """NMS over many independent det sets (e.g. the per-class sets
         of one image) — soft-NMS runs them in one padded greedy loop."""
         if self.thresh > 0:
-            return [self(d) for d in dets_list]
-        return soft_nms_np_batched(dets_list, sigma=self.sigma, method=2)
+            outs = [self(d, return_indices) for d in dets_list]
+            if return_indices:
+                return [o[0] for o in outs], [o[1] for o in outs]
+            return outs
+        return soft_nms_np_batched(dets_list, sigma=self.sigma, method=2,
+                                   return_indices=return_indices)
 
 
 def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,

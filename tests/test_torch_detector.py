@@ -30,16 +30,10 @@ from sniper_tpu.models.resnet import ResNetTrunk as JTrunk
 from sniper_tpu.ops.proposals import make_anchors_ahw
 from sniper_tpu.ops.proposals import multi_proposal as jmulti_proposal
 from sniper_tpu_torch.ops.proposals import multi_proposal
-from torch_port import TINY, tiny_jax_detector, tiny_torch_detector
+from torch_port import TINY, close_to_scale, tiny_jax_detector, \
+    tiny_torch_detector
 
 B, H, W = 2, 64, 96
-
-
-def _close(got, want, rtol=1e-4):
-    want = np.asarray(want)
-    scale = max(float(np.abs(want).max()), 1e-6)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
-                               atol=1e-4 * scale)
 
 
 def _perturb(variables, rng):
@@ -97,12 +91,12 @@ def test_trunk_and_rpn_match_jax(tiny):
     c4, c5, feat, cls, bbox, _ = _jax_stages(variables, data)
     with torch.inference_mode():
         t4, t5 = model.trunk(torch.from_numpy(data).permute(0, 3, 1, 2))
-        _close(t4.permute(0, 2, 3, 1), c4)
-        _close(t5.permute(0, 2, 3, 1), c5)
+        close_to_scale(t4.permute(0, 2, 3, 1), c4)
+        close_to_scale(t5.permute(0, 2, 3, 1), c5)
         tcls, tbbox = model.rpn(torch.from_numpy(np.array(feat))
                                 .permute(0, 3, 1, 2))
-    _close(tcls, cls)
-    _close(tbbox, bbox)
+    close_to_scale(tcls, cls)
+    close_to_scale(tbbox, bbox)
 
 
 def test_proposals_from_jax_rpn_outputs(tiny):
@@ -139,8 +133,8 @@ def test_head_from_jax_rois_and_features(tiny):
     with torch.inference_mode():
         tcls, tbox = model.rcnn(torch.from_numpy(np.array(roi_feat)),
                                 torch.from_numpy(rois))
-    _close(tcls, jcls)
-    _close(tbox, jbox)
+    close_to_scale(tcls, jcls)
+    close_to_scale(tbox, jbox)
 
 
 def test_whole_forward_matches_jax():
@@ -158,14 +152,17 @@ def test_whole_forward_matches_jax():
                                   np.asarray(want["roi_valid"]))
     np.testing.assert_allclose(got["rois"].numpy(), np.asarray(want["rois"]),
                                atol=1e-3, rtol=1e-5)
-    _close(got["roi_scores"], want["roi_scores"])
-    _close(got["cls_prob"], want["cls_prob"])
-    _close(got["bbox_pred"], want["bbox_pred"])
+    close_to_scale(got["roi_scores"], want["roi_scores"])
+    close_to_scale(got["cls_prob"], want["cls_prob"])
+    close_to_scale(got["bbox_pred"], want["bbox_pred"])
 
 
 def test_unported_branches_raise():
+    # the mask branch runs at inference; its training is a later slice
+    model = tiny_torch_detector(with_mask=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tiny_torch_detector(with_mask=True)
+        model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]),
+              torch.zeros(1, 1, 5), torch.tensor([[0.0, 1e5]]), train=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tiny_torch_detector(autofocus=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

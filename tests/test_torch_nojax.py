@@ -1,6 +1,8 @@
-"""The port imports without jax: with jax (and flax) blocked in
-``sys.modules``, every module of sniper_tpu_torch imports, and of
-sniper_tpu only the pure-Python config tree comes along."""
+"""The port stands alone: with jax, flax and the JAX package sniper_tpu
+blocked in ``sys.modules``, every module of sniper_tpu_torch imports and no
+module of sniper_tpu comes along; and no source file of the port, nor
+chip_smoke.py, imports jax or sniper_tpu, at the top or inside a
+function."""
 
 import os
 import pkgutil
@@ -12,6 +14,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "sniper_tpu_torch")
+PORT_SOURCES = sorted(
+    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+    if f.endswith(".py"))
 
 
 def _modules():
@@ -24,15 +29,17 @@ def _modules():
 _PROBE = """
 import sys
 for name in [m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]:
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sniper_tpu')]:
     del sys.modules[name]
 sys.modules['jax'] = None
 sys.modules['flax'] = None
+sys.modules['sniper_tpu'] = None
 import importlib
 for name in sys.argv[1:]:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.startswith('sniper_tpu.')
-                and not m.startswith('sniper_tpu.config'))
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'flax', 'sniper_tpu')
+                and sys.modules[m] is not None)
 print('LEAKED', leaked)
 """
 
@@ -41,16 +48,24 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "sniper_tpu_torch.main_test" in mods
     assert "sniper_tpu_torch.ops.deform" in mods
+    assert "sniper_tpu_torch.data.coco" in mods
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "LEAKED []" in res.stdout, res.stdout
 
 
-@pytest.mark.parametrize("path", sorted(
-    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
-    if f.endswith(".py")))
+@pytest.mark.parametrize("path", PORT_SOURCES)
 def test_no_jax_import_in_source(path):
     with open(path) as f:
         src = f.read()
     assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES + [
+    os.path.join(ROOT, "chip_smoke.py")])
+def test_no_sniper_tpu_import_in_source(path):
+    with open(path) as f:
+        src = f.read()
+    assert not re.search(r"^\s*(from|import)\s+sniper_tpu(\.|\s|$)", src,
+                         re.M), path

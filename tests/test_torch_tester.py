@@ -1,6 +1,7 @@
 """The port's jax-free host plane (Tester, test-time batches, on-device
 normalization) against the JAX package's, on the same inputs: the copies
-must give identical results."""
+must give identical results, with masks too (carried through the class
+filter, the chip-border pruning, the NMS keep and the MAX_PER_IMAGE cap)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +103,69 @@ def test_get_detections_matches_jax(rng):
     for c in range(ncls):
         for i in range(2):
             np.testing.assert_array_equal(got[c][i][0], want[c][i][0])
+
+
+def test_get_detections_with_masks_matches_jax(rng):
+    cfg = default_config()
+    cfg.TEST.NMS = -1
+    n, ncls, S = 12, 4, 6
+    roidb = _roidb(2)
+    tloader.init_inference_crops(roidb)
+    rois = np.concatenate([np.zeros((2, n, 1), np.float32), np.stack(
+        [random_boxes(rng, n, hw=(80, 120))[:, :4] for _ in range(2)])], -1)
+    out = {"rois": rois,
+           "cls_prob": rng.dirichlet(np.ones(ncls), (2, n)).astype(np.float32),
+           "bbox_pred": (rng.randn(2, n, 4) * 0.1).astype(np.float32),
+           "roi_valid": np.arange(n)[None].repeat(2, 0) < 10,
+           "mask_prob": rng.rand(2, n, S, S).astype(np.float32)}
+    batch = {"data": None, "im_info": np.array([[80, 120, 1.0]] * 2,
+                                               np.float32),
+             "im_scales": np.array([1.0, 1.3], np.float32),
+             "im_ids": np.array([0, 1]), "chip_ids": np.array([0, 0]),
+             "valid": np.array([True, True])}
+    kw = dict(do_pruning=True, with_masks=True)
+    want_b, _, want_m = jtester.Tester(
+        lambda d, i: out, cfg, ncls).get_detections([batch], roidb, **kw)
+    got_b, got_m = ttester.Tester(
+        lambda d, i: {k: torch.from_numpy(np.asarray(v))
+                      for k, v in out.items()}, cfg, ncls).get_detections(
+        [batch], roidb, **kw)
+    kept = 0
+    for c in range(1, ncls):
+        for i in range(2):
+            np.testing.assert_array_equal(got_b[c][i][0], want_b[c][i][0])
+            np.testing.assert_array_equal(got_m[c][i][0], want_m[c][i][0])
+            assert len(got_m[c][i][0]) == len(got_b[c][i][0])
+            kept += len(got_b[c][i][0])
+    assert kept > 0
+
+
+@pytest.mark.parametrize("nms,sigma", [(-1, 0.55), (0.3, -1)])
+def test_aggregate_with_masks_matches_jax(rng, nms, sigma):
+    cfg = default_config()
+    cfg.TEST.VALID_RANGES = [(-1, 90), (32, -1)]
+    cfg.TEST.NMS = nms
+    cfg.TEST.NMS_SIGMA = sigma
+    cfg.TEST.MAX_PER_IMAGE = 25
+    ncls, nimg, S = 4, 3, 5
+    scale_dets, scale_masks = [], []
+    for _ in range(2):
+        d = [[[random_boxes(rng, int(rng.randint(0, 30)))]
+              for _ in range(nimg)] for _ in range(ncls)]
+        scale_dets.append(d)
+        scale_masks.append([[[rng.rand(len(x[0]), S, S).astype(np.float32)]
+                             for x in dc] for dc in d])
+    kw = dict(scale_cls_masks=scale_masks, mask_size=S)
+    want_b, want_m = jtester.Tester(None, cfg, ncls).aggregate(
+        scale_dets, nimg, **kw)
+    got_b, got_m = ttester.Tester(None, cfg, ncls).aggregate(
+        scale_dets, nimg, **kw)
+    for c in range(1, ncls):
+        for i in range(nimg):
+            np.testing.assert_array_equal(got_b[c][i], want_b[c][i])
+            for g, w in zip(got_m[c][i], want_m[c][i]):
+                np.testing.assert_array_equal(g, w)
+            assert len(got_m[c][i][1]) == len(got_b[c][i])
 
 
 def test_scale_post_nms():

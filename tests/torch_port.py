@@ -19,6 +19,15 @@ def cuda_or_skip() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def close_to_scale(got, want, rtol=1e-4):
+    """assert_allclose with rtol and an atol of 1e-4 of want's largest
+    magnitude (fp32 layers summing in another order)."""
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
+                               atol=1e-4 * scale)
+
+
 TINY = dict(num_classes=5, num_anchors=9, anchor_scales=(2, 4, 7),
             anchor_ratios=(0.5, 1, 2), units=(1, 1, 1, 1),
             pre_nms_top_n=200, post_nms_top_n=16)
