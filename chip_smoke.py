@@ -19,7 +19,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the mask branch's shapes of every test scale of
    configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
    route of the 14x14 pool held against the composed-tent pool kernels: the
-   errors, the kernel's and the plain version's times, the least time the
+   errors, the kernel's and the plain version's times (the im2col's also as
+   an effective rate, the pool backward's per pass), the least time the
    card could take (bytes over 3.35 TB/s or fp32 operations over 67
    TFLOP/s, whichever is larger) and, where one PyTorch call computes the
    same function, that call's time.
@@ -239,14 +240,16 @@ def check_im2col(dev, sh):
         xg, grid, mode="bilinear", padding_mode="border",
         align_corners=True), 10)
     KK = K * K
-    r = result(ok, err.max(), ms, plain_ms,
-               x.numel() * 2 + off.numel() * 4 + B * H * W * KK * C * 2,
+    nbytes = x.numel() * 2 + off.numel() * 4 + B * H * W * KK * C * 2
+    r = result(ok, err.max(), ms, plain_ms, nbytes,
                7.0 * B * H * W * KK * C, lib_ms)
     print(f"deform_im2col [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
           f"dilation {d}, offsets +-6 px: max abs err "
-          f"{float(err.max()):.3e}, bit-exact {exact}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}), library F.grid_sample (fp32) {lib_ms:.4f} ms")
+          f"{float(err.max()):.3e}, bit-exact {exact}; kernel {ms:.4f} ms "
+          f"({nbytes / ms / 1e6:.0f} GB/s effective), plain {plain_ms:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.0f} GB/s), "
+          f"library F.grid_sample (fp32) {lib_ms:.4f} ms")
     return r
 
 
@@ -395,10 +398,11 @@ def check_pool_bwd(dev, sh):
                         0.0 if bins is None else float((pk - pp).abs().max()))
             parts.append(f"{label} {mode}: dfeat {errs[0]:.2e}"
                          + ("" if bins is None else f", d(py,px) {errs[1]:.2e}"))
-    ms = (time_ms(lambda: deform.pool_pass_bwd(feat, geom, pypx, gout, **kw),
-                  5)
-          + time_ms(lambda: deform.pool_pass_bwd(feat, geom, None, gout, **kw),
-                    5))
+    ms_b = time_ms(lambda: deform.pool_pass_bwd(feat, geom, pypx, gout, **kw),
+                   5)
+    ms_a = time_ms(lambda: deform.pool_pass_bwd(feat, geom, None, gout, **kw),
+                   5)
+    ms = ms_b + ms_a
     plain_ms = (
         time_ms(lambda: deform.pool_pass_bwd_plain(feat, geom, pypx, gout,
                                                    **kw), 2)
@@ -412,8 +416,9 @@ def check_pool_bwd(dev, sh):
                2 * (2 * feat.numel() * 4 + R * 16 + gout.numel() * 4)
                + 2 * R * 2 * P * P * 4, (16.0 + 8.0) * R * P * P * S * S * C)
     print(f"fused_pool_bwd [training]: B={B} rpi={rpi} C={C} map {H}x{W}; "
-          f"max |err| / max |ref|: {'; '.join(parts)}; kernel (pass B + "
-          f"pass A) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"max |err| / max |ref|: {'; '.join(parts)}; kernel pass B "
+          f"{ms_b:.4f} ms + pass A {ms_a:.4f} ms = {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no single torch call")
     return r
 
@@ -604,7 +609,7 @@ TOLERANCES = {
                          f"steps plus {IM2COL_BWD_REL} * max|ref| (fp32 "
                          "atomics in another order, then one rounding)",
     "fused_pool_bwd": f"dfeat and d(py,px) within {POOL_BWD_REL} * max|ref| "
-                      "(fp32 atomics and block sums in another order)",
+                      "(fp32 atomics and warp sums in another order)",
     "roi_patch": f"fp32 within {ROI_PATCH_ATOL} absolute (the same taps "
                  "blended in fp32; the plain version's dense products sum "
                  "in another order); bf16 within one rounding step of the "

@@ -24,26 +24,36 @@
 // are summed over the rows and columns of every cell whose derivative is
 // nonzero, not only over the forward's support.
 //
-// Design: one block per roi, threads over the channels (a loop over
-// channel tiles when C exceeds the block). A roi's own sums over C (dcy,
-// dcx, sum_c g numer) stay inside its block: each warp reduces with
-// shuffles and adds its partial sum to shared memory, so d(py, px) needs no
-// second pass and no global atomics. The composed weights cy [P*P, H] and
-// cx [P*P, W], their gradients and each bin's row and column windows live
-// in shared memory (about 26 KB at the training map of 32x32).
+// Bound: fp32 operations (the tent-weighted sums over each bin's window
+// and channels). dfeat is a sum over every roi of the image, so blocks
+// cannot own its cells, and the window-start sums reduce over channels per
+// (bin, row) and (bin, column).
 //
-// dfeat is a sum over every roi of the image. On the TPU the grid visits an
-// image's rois in order and accumulates in VMEM; here the blocks run in no
-// order, so each (bin, row, column) tap adds into the fp32 [B,H,W,C] buffer
-// with a coalesced atomicAdd (RED.ADD.F32). The wrapper zeroes the buffer
-// before pass B, and pass A adds into the same buffer.
-//
-// Bound: the L2 atomics of dfeat (one per tap and channel) and the feature
-// reads of the numerator, dcy and dcx (two reads per tap and channel), all
-// served mostly from L2. The window geometry uses the forward's __f*_rn
-// helpers, so each discrete decision (in-bounds flags, the kinks, the
-// n == 1.0 tie) equals the plain torch version's; only the order of the
-// sums differs from it.
+// Design: one block of eight warps per roi, three phases.
+// 0. One thread per (bin, axis) composes the bin's weights cy [P*P, H] or
+//    cx [P*P, W] into shared memory with the forward's geometry, visiting
+//    only the patch cells in reach of the bin's tent stack, with its
+//    support and derivative windows, and sets the bin's bit in a mask per
+//    map row or column of its support; the block's footprint is the
+//    bounding box of the supports.
+// 1. (stencil) Warps own bins. A lane keeps its channels' partial sums in
+//    registers (16-byte vectors of 4 channels), so each (bin, row) and
+//    (bin, column) of dcy and dcx takes one warp reduction and one plain
+//    store by the bin's own warp, with no block barrier; the feature reads
+//    are coalesced 512-byte lines from L1 and L2.
+// 2. dfeat is gathered per footprint cell: a warp owns one cell and its
+//    lanes the cell's 4-channel vectors; it walks the bins whose row and
+//    column masks both hold the cell, sums cy*cx*g/max(n,1) in registers,
+//    and adds each vector's sum to dfeat with one 16-byte atomic
+//    (RED.ADD.F32x4): one global atomic per (footprint cell, 4 channels),
+//    not per (bin, support cell, channel); the rois of an image meet in L2
+//    through them. The wrapper zeroes dfeat before pass B, and pass A adds
+//    into it.
+// The window geometry uses the forward's __f*_rn helpers, so each discrete
+// decision (in-bounds flags, the kinks, the n == 1.0 tie) equals the plain
+// torch version's; only the order of the sums differs from it. A channel
+// count that is not a multiple of 4 (or an unaligned pointer) takes the
+// same kernel with scalar channels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,20 +67,57 @@ using sniper_pool::axis_tent;
 using sniper_pool::bin_dfactor;
 using sniper_pool::bin_factor;
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 256;
 constexpr int kMaxSmemPerBlock = 227 * 1024;  // Hopper's opt-in maximum
 constexpr int kMaxDevices = 64;
+constexpr int kSlots = 2;  // channel vectors per lane in phase 1
+
+// The shared memory of one roi's block; ops/deform.py mirrors it.
+size_t smem_bytes(int H, int W, int P) {
+  const size_t PP = (size_t)P * P;
+  const size_t words = (PP + 63) / 64;
+  return (H + W) * words * 8          // row and column bin masks
+         + PP * (2 * (H + W) + 4) * 4  // cy, cx, dcy, dcx, sy, sx, gnum, rden
+         + PP * 8 * 4 + 4 * 4;         // windows, footprint
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Every thread of the block calls this with its channel's term; lane 0 of
-// each warp adds the warp's sum to *dst in shared memory.
-__device__ __forceinline__ void block_add(float* dst, float v) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) atomicAdd(dst, v);
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float* f) {
+  if constexpr (VEC == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  } else {
+    f[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_to(float* dst, const float* a) {
+  if constexpr (VEC == 4)
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(a[0], a[1], a[2], a[3]));
+  else
+    atomicAdd(dst, a[0]);
+}
+
+// Patch cells [e0, e1] outside which the tent stack at window start p0
+// and its derivative are exactly zero: |p0 + k - e| <= 1 for some k < S
+// needs floor(p0) - 1 <= e <= floor(p0) + S. p0 is held to [-4, 1e6]
+// first (no cell of [0, E) lies in the stack's reach beyond), which also
+// maps a NaN start to an empty stack, as the full loop finds it.
+__device__ __forceinline__ void tent_cells(float p0, int S, int* e0,
+                                           int* e1) {
+  const int f0 = (int)floorf(fminf(fmaxf(p0, -4.0f), 1e6f));
+  *e0 = f0 - 1;
+  *e1 = f0 + S + 1;
 }
 
 // One bin, one axis: scatter the composed weights into row[0..n) as the
@@ -83,7 +130,9 @@ __device__ void compose_axis_bwd(bool stencil, float p0, int first, int S,
                                  int* win) {
   float cnt = 0.0f;
   int a = n, z = -1, da = n, dz = -1;
-  for (int e = 0; e < E; ++e) {
+  int e0 = first, e1 = first + S - 1;
+  if (stencil) tent_cells(p0, S, &e0, &e1);
+  for (int e = max(e0, 0); e <= min(e1, E - 1); ++e) {
     const float f = bin_factor(stencil, p0, first, S, e);
     const float df = stencil ? bin_dfactor(p0, S, e) : 0.0f;
     if (f == 0.0f && df == 0.0f) continue;
@@ -119,13 +168,29 @@ __device__ void compose_axis_bwd(bool stencil, float p0, int first, int S,
   win[3] = dz;
 }
 
+// Set bin p's bit in the mask of every cell of its support where its
+// composed weight is nonzero; widen the footprint box[0..1] to the support.
+__device__ void mark_support(const float* __restrict__ row, const int* win,
+                             int p, int words,
+                             unsigned long long* __restrict__ mask,
+                             int* box) {
+  if (win[0] > win[1]) return;
+  for (int i = win[0]; i <= win[1]; ++i)
+    if (row[i] != 0.0f)
+      atomicOr(&mask[i * words + (p >> 6)], 1ull << (p & 63));
+  atomicMin(&box[0], win[0]);
+  atomicMax(&box[1], win[1]);
+}
+
 // d(window start) of one bin on one axis: sum over the cells with a nonzero
 // tent-stack derivative of dfy[e] * dfy_dp[e], where dfy[e] = sum_h
 // dcy[h] w[e,h] + dn_s * v[e] (dn_s = dn times the other axis' count).
 __device__ float window_grad(float p0, int S, int E, float start, float step,
                              int n, const float* __restrict__ dc, float dn_s) {
   float acc = 0.0f;
-  for (int e = 0; e < E; ++e) {
+  int e0, e1;
+  tent_cells(p0, S, &e0, &e1);
+  for (int e = max(e0, 0); e <= min(e1, E - 1); ++e) {
     const float df = bin_dfactor(p0, S, e);
     if (df == 0.0f) continue;
     const AxisTent t = axis_tent(start, step, e, n);
@@ -137,21 +202,118 @@ __device__ float window_grad(float p0, int S, int E, float start, float step,
   return acc;
 }
 
-__global__ void pool_pass_bwd_kernel(
+// Phase 1 for bin p, run by one warp: dcy[p, rows], dcx[p, columns] and
+// gnum[p] = sum_c g numer, over channel tiles of 32 lanes x kSlots x VEC.
+template <int VEC>
+__device__ void bin_start_sums(const float* __restrict__ fb,
+                               const float* __restrict__ gp, float den,
+                               const float* __restrict__ cyp,
+                               const float* __restrict__ cxp, const int* wp,
+                               int W, int C, float* __restrict__ dcyp,
+                               float* __restrict__ dcxp, float* gnum) {
+  const int lane = threadIdx.x & 31;
+  const int ylo = wp[0], yhi = wp[1], dylo = wp[2], dyhi = wp[3];
+  const int xlo = wp[4], xhi = wp[5], dxlo = wp[6], dxhi = wp[7];
+  const size_t WC = (size_t)W * C;
+  for (int c0 = 0; c0 < C; c0 += 32 * kSlots * VEC) {
+    float gv[kSlots][VEC], dn[kSlots][VEC], num[kSlots][VEC];
+    bool act[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int c = c0 + VEC * (lane + 32 * k);
+      act[k] = c < C;
+      if (act[k]) load_vec<VEC>(gp + c, gv[k]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        if (!act[k]) gv[k][j] = 0.0f;
+        dn[k][j] = __fdiv_rn(gv[k][j], den);
+        num[k][j] = 0.0f;
+      }
+    }
+    const float* fl = fb + c0 + VEC * lane;  // this lane's first channel
+    // rows: the numerator's, and dcy over the derivative window
+    for (int h = min(ylo, dylo); h <= max(yhi, dyhi); ++h) {
+      float big[kSlots][VEC] = {};
+      for (int w = xlo; w <= xhi; ++w) {
+        const float wxv = cxp[w];
+        if (wxv == 0.0f) continue;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (!act[k]) continue;
+          float f[VEC];
+          load_vec<VEC>(fl + h * WC + (size_t)w * C + 32 * VEC * k, f);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) big[k][j] += wxv * f[j];
+        }
+      }
+      const float cyh = cyp[h];
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          num[k][j] += cyh * big[k][j];
+          s += dn[k][j] * big[k][j];
+        }
+      if (h >= dylo && h <= dyhi) {
+        s = warp_sum(s);
+        if (lane == 0) dcyp[h] += s;
+      }
+    }
+    // columns: dcx over the derivative window
+    for (int w = dxlo; w <= dxhi; ++w) {
+      float colv[kSlots][VEC] = {};
+      for (int h = ylo; h <= yhi; ++h) {
+        const float wyv = cyp[h];
+        if (wyv == 0.0f) continue;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (!act[k]) continue;
+          float f[VEC];
+          load_vec<VEC>(fl + h * WC + (size_t)w * C + 32 * VEC * k, f);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) colv[k][j] += wyv * f[j];
+        }
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) s += dn[k][j] * colv[k][j];
+      s = warp_sum(s);
+      if (lane == 0) dcxp[w] += s;
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s += gv[k][j] * num[k][j];
+    s = warp_sum(s);
+    if (lane == 0) *gnum += s;
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) pool_pass_bwd_kernel(
     const float* __restrict__ feat, const float* __restrict__ geom,
     const float* __restrict__ pypx, const float* __restrict__ g,
     float* __restrict__ dfeat, float* __restrict__ dpp, int H, int W, int C,
     int rpi, int P, int S, int M, int E, int stencil) {
-  extern __shared__ float smem[];
+  extern __shared__ unsigned long long smem[];
   const int PP = P * P;
-  float* cy = smem;              // [PP][H]
-  float* cx = cy + PP * H;       // [PP][W]
-  float* dcy = cx + PP * W;      // [PP][H]
-  float* dcx = dcy + PP * H;     // [PP][W]
-  float* sy = dcx + PP * W;      // [PP] counts
-  float* sx = sy + PP;           // [PP]
-  float* gnum = sx + PP;         // [PP] sum_c g * numer
-  int* win = (int*)(gnum + PP);  // [PP][8]: y lo, hi, dlo, dhi; x likewise
+  const int words = (PP + 63) / 64;
+  unsigned long long* rowmask = smem;           // [H][words]
+  unsigned long long* colmask = smem + H * words;  // [W][words]
+  float* cy = (float*)(colmask + W * words);    // [PP][H]
+  float* cx = cy + PP * H;                      // [PP][W]
+  float* dcy = cx + PP * W;                     // [PP][H]
+  float* dcx = dcy + PP * H;                    // [PP][W]
+  float* sy = dcx + PP * W;                     // [PP] counts
+  float* sx = sy + PP;                          // [PP]
+  float* gnum = sx + PP;                        // [PP] sum_c g * numer
+  float* rden = gnum + PP;                      // [PP] 1/max(n,1), 0 at n<=0
+  int* win = (int*)(rden + PP);   // [PP][8]: y lo, hi, dlo, dhi; x likewise
+  int* box = win + PP * 8;        // footprint rows [0..1], columns [2..3]
 
   const int r = blockIdx.x;
   const int b = r / rpi;
@@ -160,94 +322,107 @@ __global__ void pool_pass_bwd_kernel(
   const float sh = geom[r * 4 + 2];
   const float sw = geom[r * 4 + 3];
 
-  for (int i = threadIdx.x; i < PP * 2 * (H + W) + PP; i += blockDim.x) {
-    // cy, cx, dcy, dcx, then (after sy and sx) gnum
-    const int j = i < PP * 2 * (H + W) ? i : i + 2 * PP;
-    smem[j] = 0.0f;
+  // zero the masks and the float arrays (sy, sx and rden are set below)
+  const int nzero = (int)(((char*)win - (char*)smem) / 4);
+  for (int i = threadIdx.x; i < nzero; i += blockDim.x)
+    ((float*)smem)[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    box[0] = H;
+    box[1] = -1;
+    box[2] = W;
+    box[3] = -1;
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < PP; p += blockDim.x) {
-    const float py = stencil ? pypx[(size_t)r * 2 * PP + p] : 0.0f;
-    const float px = stencil ? pypx[(size_t)r * 2 * PP + PP + p] : 0.0f;
-    compose_axis_bwd(stencil, py, M + (p / P) * S, S, E, ys, sh, H,
-                     cy + p * H, &sy[p], win + p * 8);
-    compose_axis_bwd(stencil, px, M + (p % P) * S, S, E, xs, sw, W,
-                     cx + p * W, &sx[p], win + p * 8 + 4);
+
+  // phase 0: one thread per (bin, axis)
+  for (int i = threadIdx.x; i < 2 * PP; i += blockDim.x) {
+    const int p = i >> 1;
+    const float p0 = stencil ? pypx[(size_t)r * 2 * PP + (i & 1) * PP + p]
+                             : 0.0f;
+    if (i & 1)
+      compose_axis_bwd(stencil, p0, M + (p % P) * S, S, E, xs, sw, W,
+                       cx + p * W, &sx[p], win + p * 8 + 4);
+    else
+      compose_axis_bwd(stencil, p0, M + (p / P) * S, S, E, ys, sh, H,
+                       cy + p * H, &sy[p], win + p * 8);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * PP; i += blockDim.x) {
+    const int p = i >> 1;
+    const float n = __fmul_rn(sy[p], sx[p]);
+    if (!(n > 0.0f)) continue;  // dnum is zero: rden stays 0
+    if (i & 1) {
+      mark_support(cx + p * W, win + p * 8 + 4, p, words, colmask, box + 2);
+    } else {
+      rden[p] = __fdiv_rn(1.0f, fmaxf(n, 1.0f));
+      mark_support(cy + p * H, win + p * 8, p, words, rowmask, box);
+    }
   }
   __syncthreads();
 
   const float* fb = feat + (size_t)b * H * W * C;
-  float* db = dfeat + (size_t)b * H * W * C;
   const float* gr = g + (size_t)r * PP * C;
-  // every loop bound below is the same for the whole block, so all its
-  // threads reach each block_add together
-  for (int c0 = 0; c0 < C; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    const bool act = c < C;
-    for (int p = 0; p < PP; ++p) {
+
+  // phase 1 (stencil): the window-start sums, one warp per bin
+  if (stencil) {
+    for (int p = threadIdx.x >> 5; p < PP; p += blockDim.x >> 5) {
       const float n = __fmul_rn(sy[p], sx[p]);
       if (!(n > 0.0f)) continue;  // dnum and dn are zero
-      const float den = fmaxf(n, 1.0f);
-      const float gv = act ? gr[(size_t)p * C + c] : 0.0f;
-      const float dn_c = __fdiv_rn(gv, den);
-      const float* cyp = cy + p * H;
-      const float* cxp = cx + p * W;
-      const int* wp = win + p * 8;
-      const int ylo = wp[0], yhi = wp[1], xlo = wp[4], xhi = wp[5];
+      bin_start_sums<VEC>(fb, gr + (size_t)p * C, fmaxf(n, 1.0f), cy + p * H,
+                          cx + p * W, win + p * 8, W, C, dcy + p * H,
+                          dcx + p * W, &gnum[p]);
+    }
+  }
 
-      if (act) {  // dfeat over the forward's support
-        for (int h = ylo; h <= yhi; ++h) {
-          const float wyv = cyp[h];
-          if (wyv == 0.0f) continue;
-          const float t = __fmul_rn(wyv, dn_c);
-          float* drow = db + (size_t)h * W * C + c;
-          for (int w = xlo; w <= xhi; ++w) {
-            const float wxv = cxp[w];
-            if (wxv == 0.0f) continue;
-            atomicAdd(drow + (size_t)w * C, __fmul_rn(wxv, t));
+  // phase 2: dfeat over the footprint, one warp per cell, the lanes over
+  // its 4-channel vectors
+  if (box[1] >= box[0] && box[3] >= box[2]) {
+    const int lane = threadIdx.x & 31;
+    const int nv = C / VEC;
+    const int fw = box[3] - box[2] + 1;
+    const int cells = (box[1] - box[0] + 1) * fw;
+    float* db = dfeat + (size_t)b * H * W * C;
+    for (int cell = threadIdx.x >> 5; cell < cells; cell += blockDim.x >> 5) {
+      const int h = box[0] + cell / fw;
+      const int w = box[2] + cell % fw;
+      float* dcell = db + ((size_t)h * W + w) * C;
+      for (int v0 = 0; v0 < nv; v0 += 32 * kSlots) {
+        float acc[kSlots][VEC] = {};
+        bool any = false;  // the same for the whole warp
+        for (int k = 0; k < words; ++k) {
+          unsigned long long m =
+              rowmask[h * words + k] & colmask[w * words + k];
+          while (m) {
+            const int p = k * 64 + __ffsll((long long)m) - 1;
+            m &= m - 1;
+            const float wgt = cy[p * H + h] * cx[p * W + w] * rden[p];
+            const float* gp = gr + (size_t)p * C;
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+              const int v = v0 + lane + 32 * s;
+              if (v >= nv) continue;
+              float gv[VEC];
+              load_vec<VEC>(gp + v * VEC, gv);
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) acc[s][j] += wgt * gv[j];
+            }
+            any = true;
           }
         }
-      }
-      if (!stencil) continue;
-
-      // rows: the numerator's, and dcy over the derivative window
-      const int dylo = wp[2], dyhi = wp[3];
-      float numer = 0.0f;
-      for (int h = min(ylo, dylo); h <= max(yhi, dyhi); ++h) {
-        float big = 0.0f;
-        if (act) {
-          const float* frow = fb + (size_t)h * W * C + c;
-          for (int w = xlo; w <= xhi; ++w) {
-            const float wxv = cxp[w];
-            if (wxv == 0.0f) continue;
-            big = __fadd_rn(big, __fmul_rn(wxv, frow[(size_t)w * C]));
-          }
+        if (!any) break;  // no bin reaches this cell
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int v = v0 + lane + 32 * s;
+          if (v < nv) add_to<VEC>(dcell + v * VEC, acc[s]);
         }
-        numer = __fadd_rn(numer, __fmul_rn(cyp[h], big));
-        if (h >= dylo && h <= dyhi) block_add(&dcy[p * H + h],
-                                              __fmul_rn(dn_c, big));
       }
-      // columns: dcx over the derivative window
-      const int dxlo = wp[6], dxhi = wp[7];
-      for (int w = dxlo; w <= dxhi; ++w) {
-        float col = 0.0f;
-        if (act) {
-          const float* fcol = fb + (size_t)w * C + c;
-          for (int h = ylo; h <= yhi; ++h) {
-            const float wyv = cyp[h];
-            if (wyv == 0.0f) continue;
-            col = __fadd_rn(col, __fmul_rn(wyv, fcol[(size_t)h * W * C]));
-          }
-        }
-        block_add(&dcx[p * W + w], __fmul_rn(dn_c, col));
-      }
-      block_add(&gnum[p], __fmul_rn(gv, numer));
     }
   }
   if (!stencil) return;
   __syncthreads();
 
-  for (int p = threadIdx.x; p < PP; p += blockDim.x) {
+  for (int i = threadIdx.x; i < 2 * PP; i += blockDim.x) {
+    const int p = i >> 1;
     const float n = __fmul_rn(sy[p], sx[p]);
     const float den = fmaxf(n, 1.0f);
     const float tie = n == 1.0f ? 0.5f : 1.0f;
@@ -255,13 +430,36 @@ __global__ void pool_pass_bwd_kernel(
                          ? __fdiv_rn(__fmul_rn(-tie, gnum[p]),
                                      __fmul_rn(den, den))
                          : 0.0f;
-    const float py = pypx[(size_t)r * 2 * PP + p];
-    const float px = pypx[(size_t)r * 2 * PP + PP + p];
-    dpp[(size_t)r * 2 * PP + p] =
-        window_grad(py, S, E, ys, sh, H, dcy + p * H, __fmul_rn(dn, sx[p]));
-    dpp[(size_t)r * 2 * PP + PP + p] =
-        window_grad(px, S, E, xs, sw, W, dcx + p * W, __fmul_rn(dn, sy[p]));
+    const size_t at = (size_t)r * 2 * PP + (i & 1) * PP + p;
+    dpp[at] = (i & 1) ? window_grad(pypx[at], S, E, xs, sw, W, dcx + p * W,
+                                    __fmul_rn(dn, sy[p]))
+                      : window_grad(pypx[at], S, E, ys, sh, H, dcy + p * H,
+                                    __fmul_rn(dn, sx[p]));
   }
+}
+
+template <int VEC>
+int launch(const void* feat, const void* geom, const void* pypx,
+           const void* g, void* dfeat, void* dpp, int R, int H, int W, int C,
+           int rpi, int P, int S, int M, cudaStream_t st) {
+  // Opt in once per device to the most a block may have; the wrapper
+  // rejects any map that needs more.
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(pool_pass_bwd_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmemPerBlock);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) opted_in[dev] = true;
+  }
+  pool_pass_bwd_kernel<VEC><<<R, kThreads, smem_bytes(H, W, P), st>>>(
+      (const float*)feat, (const float*)geom, (const float*)pypx,
+      (const float*)g, (float*)dfeat, (float*)dpp, H, W, C, rpi, P, S, M,
+      P * S + 2 * M, pypx != nullptr);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,27 +469,14 @@ extern "C" int sniper_pool_pass_bwd(const void* feat, const void* geom,
                                     void* dfeat, void* dpp, int R, int H,
                                     int W, int C, int rpi, int P, int S,
                                     int M, void* stream) {
-  const int PP = P * P;
-  const int E = P * S + 2 * M;
-  const size_t smem = (size_t)PP * (2 * (H + W) + 3) * sizeof(float) +
-                      (size_t)PP * 8 * sizeof(int);
-  // Opt in once per device to the most a block may have; the wrapper
-  // rejects any map that needs more.
-  static bool opted_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(pool_pass_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmemPerBlock);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) opted_in[dev] = true;
-  }
-  const int threads = min(kMaxThreads, (C + 31) / 32 * 32);
-  pool_pass_bwd_kernel<<<R, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)feat, (const float*)geom, (const float*)pypx,
-      (const float*)g, (float*)dfeat, (float*)dpp, H, W, C, rpi, P, S, M, E,
-      pypx != nullptr);
-  return (int)cudaGetLastError();
+  if (smem_bytes(H, W, P) > (size_t)kMaxSmemPerBlock)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool aligned =
+      ((uintptr_t)feat | (uintptr_t)g | (uintptr_t)dfeat) % 16 == 0;
+  if (C % 4 == 0 && aligned)
+    return launch<4>(feat, geom, pypx, g, dfeat, dpp, R, H, W, C, rpi, P, S,
+                     M, st);
+  return launch<1>(feat, geom, pypx, g, dfeat, dpp, R, H, W, C, rpi, P, S, M,
+                   st);
 }

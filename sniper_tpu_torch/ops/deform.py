@@ -449,6 +449,16 @@ def pool_pass_bwd_plain(feat, geom, pypx, g, *, rois_per_image, P, S, M,
     return dfeat, dpp
 
 
+def pool_bwd_smem_bytes(H, W, P):
+    """Shared memory of one roi's block of csrc/fused_pool_bwd.cu
+    (``smem_bytes`` there): a row and a column mask of the P*P bins in
+    64-bit words, cy, cx and their gradients [P*P, H or W], four floats and
+    eight window bounds per bin, and the footprint box."""
+    PP = P * P
+    words = (PP + 63) // 64
+    return (H + W) * words * 8 + PP * (2 * (H + W) + 4) * 4 + PP * 32 + 16
+
+
 def _pool_pass_bwd_kernel(feat, geom, pypx, g, *, rois_per_image, P, S, M,
                           dfeat=None):
     B, H, W, C = feat.shape
@@ -459,7 +469,7 @@ def _pool_pass_bwd_kernel(feat, geom, pypx, g, *, rois_per_image, P, S, M,
     cuda.require(g, "g", torch.float32, (R, PP, C))
     if pypx is not None:
         cuda.require(pypx, "pypx", torch.float32, (R, 2, PP))
-    smem = PP * (2 * (H + W) + 3) * 4 + PP * 8 * 4
+    smem = pool_bwd_smem_bytes(H, W, P)
     if smem > 227 * 1024:
         raise ValueError(f"pool_pass_bwd: a {H}x{W} map at P={P} needs "
                          f"{smem} B of shared memory, more than a block has")

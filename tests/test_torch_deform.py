@@ -144,17 +144,62 @@ def test_rcnn_head_fused_matches_jax(rng):
                                    rtol=1e-4)
 
 
+# im2col edge cases, (B, H, W, C, G, dilation, offsets): the kernel's pixel
+# tile is 16 wide and its vector 8 bf16 or 4 fp32 channels
+IM2COL_EDGES = {
+    # W = 17: a ragged tile of one pixel; 16-channel groups (whole vectors)
+    "ragged": (2, 13, 17, 64, 4, 2, "random"),
+    # 3-channel groups: below and not a multiple of either vector width
+    "narrow": (1, 6, 33, 12, 4, 2, "random"),
+    # 6-channel groups (not a multiple of 4 or 8), one group
+    "odd": (2, 5, 9, 6, 1, 1, "random"),
+    # 4-channel groups: whole fp32 vectors, below the bf16 vector
+    "half": (1, 7, 20, 16, 4, 2, "random"),
+    # every sample clamps: offsets of +-40 on a 5x6 map, and exact borders
+    "clamp": (2, 5, 6, 32, 2, 2, "clamp"),
+    # the smallest map the kernel takes
+    "tiny": (1, 2, 2, 8, 1, 1, "random"),
+}
+
+
+def _im2col_edge(rng, case):
+    B, H, W, C, G, d, kind = IM2COL_EDGES[case]
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    if kind == "clamp":
+        # past every border: each sample clamps onto an edge or a corner
+        off = rng.choice(np.float32([-40.0, 40.0, -(H + 3.0), W + 3.0]),
+                         (B, H, W, G * 18))
+        # the centre tap (t = 4, no dilation shift) lands exactly on the
+        # top and the right border: sy = 0, sx = W - 1 (x0 = W - 2, lx = 1)
+        off[..., 8::18] = -np.arange(H)[None, :, None, None]
+        off[..., 9::18] = (W - 1) - np.arange(W)[None, None, :, None]
+    else:
+        off = rng.uniform(-6, 6, (B, H, W, G * 18))
+    return x, off.astype(np.float32), dict(num_groups=G, dilation=d)
+
+
+@pytest.mark.parametrize("case", sorted(IM2COL_EDGES))
+def test_deform_im2col_edges_match_jax(rng, case):
+    """The plain im2col against the JAX one at the kernel's edge cases."""
+    x, off, kw = _im2col_edge(rng, case)
+    want = jdeform._make_im2col(kw["num_groups"], 3, kw["dilation"])(
+        jnp.asarray(x), jnp.asarray(off))
+    got = tdeform.deform_im2col(torch.from_numpy(x), torch.from_numpy(off),
+                                **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-6)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(IM2COL_EDGES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_im2col_kernel_matches_plain(rng, dtype):
+def test_im2col_kernel_matches_plain(rng, dtype, case):
     dev = cuda_or_skip()
-    x = torch.from_numpy(rng.randn(2, 13, 17, 64).astype(np.float32))
-    off = torch.from_numpy(rng.uniform(-6, 6, (2, 13, 17, 72))
-                           .astype(np.float32))
-    x, off = x.to(dev, dtype), off.to(dev)
-    a = tdeform.deform_im2col(x, off, num_groups=4, dilation=2)
-    b = tdeform.deform_im2col_plain(x, off, num_groups=4, kernel_size=3,
-                                    dilation=2)
+    x, off, kw = _im2col_edge(rng, case)
+    x = torch.from_numpy(x).to(dev, dtype)
+    off = torch.from_numpy(off).to(dev)
+    a = tdeform.deform_im2col(x, off, **kw)
+    b = tdeform.deform_im2col_plain(x, off, kernel_size=3, **kw)
     assert torch.equal(a, b)  # same fp32 ops in the same order
 
 

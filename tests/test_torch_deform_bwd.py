@@ -180,14 +180,47 @@ def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime):
         assert bool((err <= 2 * 2.0 ** -8 * px.float().abs() + floor).all())
 
 
+def _whole_map_rois(rng, B, rpi, H, W):
+    """Random rois, the first two of each image covering the whole H x W
+    map at stride 16 (and past it), so that their footprint is the map."""
+    rois = _random_rois(rng, B, rpi, span=16 * max(H, W))
+    for b in range(B):
+        rois[b * rpi] = [b, -40, -40, 16 * W + 40, 16 * H + 40]
+        rois[b * rpi + 1] = [b, 0, 0, 16 * W - 1, 16 * H - 1]
+    return rois
+
+
+@pytest.mark.parametrize("fc_scale,C", [(0.0, 5), (0.05, 8)])
+def test_pool_grads_whole_map_rois_match_jax(rng, fc_scale, C):
+    """The plain pool backward against jax.grad on rois whose footprint is
+    the whole map, with a channel count that is not a multiple of 4."""
+    P, B, H, W, rpi = 7, 1, 12, 14, 4
+    rois = _whole_map_rois(rng, B, rpi, H, W)
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    off_k = (rng.randn(P * P * C, 2 * P * P) * fc_scale).astype(np.float32)
+    off_b = (rng.randn(2 * P * P) * fc_scale).astype(np.float32)
+    gct = rng.randn(B * rpi, P * P * C).astype(np.float32)
+    args = (feat, rois, off_k, off_b, gct, rpi, 1)
+    want = _pool_grads_jax(*args)
+    got = _pool_grads_torch(*args)
+    for name, a, b in zip(("dfeat", "doff_k", "doff_b"), got, want):
+        _close(a, b, name=name)
+
+
+# the kernel's channel tile is 32 lanes x 2 vectors x 4 channels = 256
 @pytest.mark.cuda
-@pytest.mark.parametrize("fc_scale,tie", [(0.0, False), (0.05, False),
-                                          (0.0, True)])
-def test_pool_bwd_kernel_matches_plain(rng, fc_scale, tie):
+@pytest.mark.parametrize("fc_scale,tie,C,whole", [
+    (0.0, False, 160, False), (0.05, False, 160, False),
+    (0.0, True, 160, False), (0.05, False, 100, True),
+    (0.0, False, 37, True), (0.05, False, 300, True)])
+def test_pool_bwd_kernel_matches_plain(rng, fc_scale, tie, C, whole):
     dev = cuda_or_skip()
-    P, S, M, C = 7, 4, 4, 160
+    P, S, M = 7, 4, 4
     if tie:
         B, H, W, rpi, rois = 1, 20, 28, 3, TIE_ROIS
+    elif whole:  # footprints up to the whole map, and 32x32 as in training
+        B, H, W, rpi = 2, 32, 32, 12
+        rois = _whole_map_rois(rng, B, rpi, H, W)
     else:
         B, H, W, rpi = 2, 30, 44, 20
         rois = _random_rois(rng, B, rpi, span=600)
