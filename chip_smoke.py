@@ -19,11 +19,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the mask branch's shapes of every test scale of
    configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
    route of the 14x14 pool held against the composed-tent pool kernels: the
-   errors, the kernel's and the plain version's times (the im2col's also as
-   an effective rate, the pool backward's per pass), the least time the
-   card could take (bytes over 3.35 TB/s or fp32 operations over 67
-   TFLOP/s, whichever is larger) and, where one PyTorch call computes the
-   same function, that call's time.
+   errors, the kernel's and the plain version's times (the im2col's and its
+   backward's also as an effective rate, the backward's at zero, +-0.5 px
+   and +-6 px offsets, the pool's and its backward's per pass), the least
+   time the card could take (bytes over 3.35 TB/s or fp32 operations over
+   67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
+   the same function, that call's time.
 3. Inference end to end at full R101 width with seeded random weights:
    (a) the kernel path against the plain path on a small input, (b) the
    port's run_detection over a few synthetic 640x480 images, with the
@@ -324,8 +325,9 @@ def check_pool(dev, sh):
         ok &= bool(torch.allclose(a, b, atol=POOL_ATOL, rtol=POOL_RTOL))
         worst = max(worst, err)
         parts.append(f"{name} {err:.3e}")
-    ms = (time_ms(lambda: deform.pool_pass(feat, geom, None, **kw), 10)
-          + time_ms(lambda: deform.pool_pass(feat, geom, pypx, **kw), 10))
+    ms_a = time_ms(lambda: deform.pool_pass(feat, geom, None, **kw), 10)
+    ms_b = time_ms(lambda: deform.pool_pass(feat, geom, pypx, **kw), 10)
+    ms = ms_a + ms_b
     plain_ms = (
         time_ms(lambda: deform.pool_pass_plain(feat, geom, None, **kw), 2)
         + time_ms(lambda: deform.pool_pass_plain(feat, geom, pypx, **kw), 2))
@@ -337,7 +339,8 @@ def check_pool(dev, sh):
                + R * 2 * P * P * 4, 2 * 8.0 * R * P * P * S * S * C)
     print(f"fused_pool [{sh['label']}]: B={B} rpi={rpi} C={C} map {H}x{W}, "
           f"{clamped:.1%} of window starts on the margin clamp; max abs err "
-          f"{', '.join(parts)}; kernel (pass A + pass B) {ms:.4f} ms, plain "
+          f"{', '.join(parts)}; kernel pass A {ms_a:.4f} ms + pass B "
+          f"{ms_b:.4f} ms = {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}), no single torch call")
     return r
@@ -424,8 +427,10 @@ def check_pool_bwd(dev, sh):
 
 
 def check_im2col_bwd(dev, sh):
-    """The DCN im2col's VJP at the C5 training shapes, bf16, at zero and at
-    random offsets (+-6 px: many samples clamp onto the border)."""
+    """The DCN im2col's VJP at the C5 training shapes, bf16, at zero
+    offsets (a fresh model's), at +-0.5 px (a trained model's small
+    offsets: every corner weighs) and at +-6 px (many samples clamp onto
+    the border)."""
     from sniper_tpu_torch.ops import deform
 
     B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], sh["C5"], 4, 3, 2
@@ -433,10 +438,12 @@ def check_im2col_bwd(dev, sh):
     x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
     gcol = torch.randn(B, H, W, K * K, C, generator=g).to(dev, torch.bfloat16)
     kw = dict(num_groups=G, kernel_size=K, dilation=d)
-    ok, worst, parts = True, 0.0, []
-    for label, scale in (("zero offsets", 0.0), ("offsets +-6 px", 6.0)):
+    ok, worst, parts, offs = True, 0.0, [], []
+    for label, scale in (("zero offsets", 0.0), ("offsets +-0.5 px", 0.5),
+                         ("offsets +-6 px", 6.0)):
         off = ((torch.rand(B, H, W, G * K * K * 2, generator=g) * 2 - 1)
                * scale).to(dev)
+        offs.append(off)
         gx, goff = deform.deform_im2col_bwd(x, off, gcol, **kw)
         px, poff = deform.deform_im2col_bwd_plain(x, off, gcol, **kw)
         torch.cuda.synchronize()
@@ -453,6 +460,12 @@ def check_im2col_bwd(dev, sh):
                     float((gx.float() - px.float()).abs().max()))
         parts.append(f"{label}: goff {e_off:.2e}, gx within {n_steps:.2f} "
                      "bf16 steps")
+    # the time at +-6 px is the kernel's; at zero offsets three of a
+    # sample's four corner weights are zero
+    ms_zero = time_ms(lambda: deform.deform_im2col_bwd(x, offs[0], gcol,
+                                                       **kw), 10)
+    ms_small = time_ms(lambda: deform.deform_im2col_bwd(x, offs[1], gcol,
+                                                        **kw), 10)
     ms = time_ms(lambda: deform.deform_im2col_bwd(x, off, gcol, **kw), 10)
     plain_ms = time_ms(lambda: deform.deform_im2col_bwd_plain(x, off, gcol,
                                                               **kw), 2)
@@ -466,13 +479,16 @@ def check_im2col_bwd(dev, sh):
     # x, offsets and gcol in, gx and goff out; per (pixel, tap, channel)
     # ~20 fp32 ops (four corner weights and scatters, the two sample
     # derivatives and their products with gcol)
-    r = result(ok, worst, ms, plain_ms,
-               2 * x.numel() * 2 + gcol.numel() * 2 + 2 * off.numel() * 4,
-               20.0 * gcol.numel(), lib_ms)
+    nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * off.numel() * 4
+    r = result(ok, worst, ms, plain_ms, nbytes, 20.0 * gcol.numel(), lib_ms)
     print(f"deform_im2col_bwd [training]: x [{B},{H},{W},{C}] bf16, G={G}, "
-          f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms, plain "
+          f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms at +-6 px "
+          f"({nbytes / ms / 1e6:.0f} GB/s effective), {ms_small:.4f} ms at "
+          f"+-0.5 px, {ms_zero:.4f} ms at zero offsets, plain "
           f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}), library grid_sampler_2d_backward (fp32) "
+          f"({r['bound_by']}, {nbytes / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s), library "
+          f"grid_sampler_2d_backward (fp32) "
           f"{lib_ms:.4f} ms")
     return r
 

@@ -1,20 +1,39 @@
 #!/usr/bin/env python3
-"""Where the time of the DCN im2col (X1) and the pool backward (P3) kernels
-goes, by building variants of their sources.
+"""Where the time of four of the port's kernels goes, by building variants
+of their sources: the pool forward (P1/P2), the pool backward (P3), the DCN
+im2col (X1) and its backward (X2).
 
-Each ``--pool-bwd SRC`` is a version of csrc/fused_pool_bwd.cu (the
-repository's by default; pass an older copy beside it to compare the two
-in one run). The script compiles, in a temporary directory, the source as
-it is and variants with one part of the work removed by a text edit (the
-global atomics into dfeat, the cross-thread reductions of the window-start
-sums, the feature reads, the gather loads of g; for the current design
-also each of its two channel phases whole), and times pass B
-(stencil) and pass A (avg) of each at the training shapes of
-configs/sniper_res101_e2e.yml: 16 chips of 512x512 (a 32x32 map at stride
-16), 300 rois per chip with sides of 8 to 480 px, C 256, P 7, S 4, margin
-4, window starts from random offsets. A part's share is the full kernel's
-time less the variant's: the parts overlap on the card, so the shares need
-not add up to the whole.
+Each ``--pool SRC`` is a version of csrc/fused_pool.cu (pass your own copy
+of an older one beside the repository's to compare the two in one run),
+each ``--pool-bwd SRC`` one of csrc/fused_pool_bwd.cu, each
+``--im2col-bwd SRC`` one of csrc/deform_im2col_bwd.cu. The script compiles,
+in a temporary directory, the source as it is and variants with one part of
+the work removed by a text edit, and times them:
+
+- the pool forward, pass A (avg) and pass B (stencil) at the shapes
+  chip_smoke.py:check_pool gives them (the three test scales of
+  configs/sniper_res101_e2e.yml and training, random rois, window starts
+  from a random offset FC). Parts: the shared-memory zeroing, the per-bin
+  composition, the feature reads (the first design's zeroing is timed by
+  doing it twice, since without it the tap loop reads stale weights);
+- the pool backward, pass B and pass A at the training shapes: 16 chips of
+  512x512 (a 32x32 map at stride 16), 300 rois per chip with sides of 8 to
+  480 px, C 256, P 7, S 4, margin 4, window starts from random offsets.
+  Parts: the global atomics into dfeat, the cross-thread reductions of the
+  window-start sums, the feature reads, the gather loads of g, and for the
+  current design each of its two channel phases whole;
+- the im2col backward at chip_smoke.py:check_im2col_bwd's training shapes
+  (x [16,32,32,512] bf16, G 4, dilation 2), at zero offsets, at +-0.5 px
+  (a trained model's small offsets: all four corners of a sample weigh)
+  and at +-6 px.
+  Parts: the gx atomics, the goff reductions, the x corner reads, the
+  per-channel geometry.
+
+A part's share is the full kernel's time less the variant's ("with a
+second" variants add the part once more: their excess over the full kernel
+is the part's cost; "all of these" then means the removals plus that
+addition). The parts
+overlap on the card, so the shares need not add up to the whole.
 
 Each ``--im2col SRC`` is a version of csrc/deform_im2col.cu, timed as it is
 at the shapes chip_smoke.py checks it at (x bf16 with C 512 on the C5 maps
@@ -22,10 +41,12 @@ of the three test scales and of training, offsets of +-6 px), with its
 effective write rate.
 
 Times are CUDA events over REPS launches after one warm-up, on one card,
-all versions in one process.
+all versions in one process. With no source named, the repository's four
+sources are timed.
 
-    python3 scripts/profile_torch_kernel_split.py \
-        [--pool-bwd SRC ...] [--im2col SRC ...] [--reps 10]
+    python3 scripts/profile_torch_kernel_split.py [--pool SRC ...] \
+        [--pool-bwd SRC ...] [--im2col SRC ...] [--im2col-bwd SRC ...] \
+        [--reps 10]
 """
 
 from __future__ import annotations
@@ -44,47 +65,144 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from chip_smoke import random_rois  # noqa: E402
 from sniper_tpu_torch.ops import cuda, deform  # noqa: E402
 
 CSRC = os.path.join(ROOT, "sniper_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-POOL_SIG = [_P] * 6 + [_I] * 8 + [_P]
+POOL_SIG = [_P] * 4 + [_I] * 9 + [_P]
+POOL_BWD_SIG = [_P] * 6 + [_I] * 8 + [_P]
 IM2COL_SIG = [_P, _P, _P] + [_I] * 8 + [_P]
+IM2COL_BWD_SIG = [_P] * 5 + [_I] * 8 + [_P]
 
-# (part removed, [(text, replacement), ...]) per version of the source,
-# told apart by a line only that version has. Each edit keeps the values it
-# no longer computes alive through a branch that never runs.
-POOL_VARIANTS = {
-    # the first design: threads over channels, one block per roi
-    "block_add(": [
-        ("dfeat atomics", [(
-            "atomicAdd(drow + (size_t)w * C, __fmul_rn(wxv, t));",
-            "if (wxv == 1e-30f) drow[(size_t)w * C] = t;")]),
-        ("block reductions", [(
-            "  v = warp_sum(v);\n  if ((threadIdx.x & 31) == 0) atomicAdd(dst, v);",
-            "  if (v == 1e-30f) *dst = v;")]),
-        ("feature reads", [
-            ("frow[(size_t)w * C]", "(float)w"),
-            ("fcol[(size_t)h * W * C]", "(float)h")]),
-    ],
-    # warps own bins, dfeat gathered per footprint cell
-    "bin_start_sums": [
-        ("dfeat atomics", [(
-            "if (v < nv) add_to<VEC>(dcell + v * VEC, acc[s]);",
-            "{ float t = 0.0f; for (int j = 0; j < VEC; ++j) t += acc[s][j]; "
-            "if (v < nv && t == 1e-30f) dcell[v * VEC] = t; }")]),
-        ("warp reductions", [("s = warp_sum(s);", "")]),
-        ("feature reads", [(
-            "load_vec<VEC>(fl + h * WC + (size_t)w * C + 32 * VEC * k, f);",
-            "for (int j = 0; j < VEC; ++j) f[j] = (float)(h + w + j);")]),
-        ("gather loads of g", [(
-            "load_vec<VEC>(gp + v * VEC, gv);",
-            "for (int j = 0; j < VEC; ++j) gv[j] = (float)(p + j);")]),
-    ],
+# Per kernel: {a line only that version of the source has: [(part removed,
+# [(text, replacement), ...]), ...]}. Each edit keeps the values it no
+# longer computes alive through a branch that never runs.
+VARIANTS = {
+    "pool": {
+        # the first design: one block per (roi, 128 channels), dense cy, cx
+        "compose_axis(stencil": [
+            ("a second shared-memory zeroing", [(
+                "smem[i] = 0.0f;\n  __syncthreads();",
+                "smem[i] = 0.0f;\n  __syncthreads();\n"
+                "  for (int i = threadIdx.x; i < PP * (H + W); "
+                "i += blockDim.x) smem[i] = 0.0f;\n  __syncthreads();")]),
+            ("per-bin composition over all E cells (only the cells in "
+             "reach, factor 1)", [(
+                 "  for (int e = 0; e < E; ++e) {\n"
+                 "    const float f = bin_factor(stencil, p0, first, S, e);",
+                 "  const int ea = stencil ? max(0, (int)p0) : first;\n"
+                 "  const int ez = min(E, ea + (stencil && p0 != (int)p0 "
+                 "? S + 1 : S));\n"
+                 "  for (int e = ea; e < ez; ++e) {\n"
+                 "    const float f = 1.0f;")]),
+            ("feature reads", [(
+                "inner += wxv * frow[(size_t)w * C];",
+                "inner += wxv * (float)w;")]),
+        ],
+        # one block per roi, compact weight lists, warps own bins
+        "compose_list(": [
+            ("per-bin composition (the lists of the first bin's tent)", [(
+                "  for (int i = threadIdx.x; i < 2 * PP; i += blockDim.x) {",
+                "  for (int i = threadIdx.x; i < 2; i += blockDim.x) {"), (
+                "const int li = 2 * p;", "const int li = 0;")]),
+            ("feature reads", [(
+                "load_vec<VEC>(src + 32 * VEC * k, f[u][k]);",
+                "for (int q = 0; q < VEC; ++q) "
+                "f[u][k][q] = (float)(j + u + q);")]),
+            ("output stores", [(
+                "store_vec<VEC>(ob + c, o);",
+                "{ float t = 0.0f; for (int q = 0; q < VEC; ++q) t += o[q]; "
+                "if (t == 1e-30f) ob[c] = t; }")]),
+        ],
+    },
+    "pool_bwd": {
+        # the first design: threads over channels, one block per roi
+        "block_add(": [
+            ("dfeat atomics", [(
+                "atomicAdd(drow + (size_t)w * C, __fmul_rn(wxv, t));",
+                "if (wxv == 1e-30f) drow[(size_t)w * C] = t;")]),
+            ("block reductions", [(
+                "  v = warp_sum(v);\n  if ((threadIdx.x & 31) == 0) atomicAdd(dst, v);",
+                "  if (v == 1e-30f) *dst = v;")]),
+            ("feature reads", [
+                ("frow[(size_t)w * C]", "(float)w"),
+                ("fcol[(size_t)h * W * C]", "(float)h")]),
+        ],
+        # warps own bins, dfeat gathered per footprint cell
+        "bin_start_sums": [
+            ("dfeat atomics", [(
+                "if (v < nv) add_to<VEC>(dcell + v * VEC, acc[s]);",
+                "{ float t = 0.0f; for (int j = 0; j < VEC; ++j) t += acc[s][j]; "
+                "if (v < nv && t == 1e-30f) dcell[v * VEC] = t; }")]),
+            ("warp reductions", [("s = warp_sum(s);", "")]),
+            ("feature reads", [(
+                "load_vec<VEC>(fl + h * WC + (size_t)w * C + 32 * VEC * k, f);",
+                "for (int j = 0; j < VEC; ++j) f[j] = (float)(h + w + j);")]),
+            ("gather loads of g", [(
+                "load_vec<VEC>(gp + v * VEC, gv);",
+                "for (int j = 0; j < VEC; ++j) gv[j] = (float)(p + j);")]),
+        ],
+    },
+    "im2col_bwd": {
+        # the first design: one block per (pixel, tap), scalar channels
+        "sample_at(o + g * KK * 2, py, px, ky, kx, dilation,\n": [
+            ("gx atomics", [(
+                "      atomicAdd(gxb + base, __fmul_rn(__fmul_rn(mly, mlx), gv));\n"
+                "      atomicAdd(gxb + base + C, __fmul_rn(__fmul_rn(mly, s.lx), gv));\n"
+                "      atomicAdd(gxb + base + (int64_t)W * C,\n"
+                "                __fmul_rn(__fmul_rn(s.ly, mlx), gv));\n"
+                "      atomicAdd(gxb + base + (int64_t)W * C + C,\n"
+                "                __fmul_rn(__fmul_rn(s.ly, s.lx), gv));\n",
+                "      if (gv == 1e-30f) gxb[base] = __fmul_rn(mly, mlx);\n")]),
+            ("goff reductions", [(
+                "    if (warp_groups) {\n"
+                "      gy = warp_sum(gy);\n"
+                "      gxv = warp_sum(gxv);\n"
+                "      if ((threadIdx.x & 31) == 0 && c < C) {\n"
+                "        atomicAdd(&red[2 * g], gy);\n"
+                "        atomicAdd(&red[2 * g + 1], gxv);\n"
+                "      }\n"
+                "    } else if (c < C) {\n"
+                "      atomicAdd(&red[2 * g], gy);\n"
+                "      atomicAdd(&red[2 * g + 1], gxv);\n"
+                "    }\n",
+                "    if (gy == 1e-30f && gxv == 1e-30f) red[2 * g] = gy;\n")]),
+            ("x corner reads", [
+                ("to_float(xc[0])", "(float)c"),
+                ("to_float(xc[C])", "(float)(c + 1)"),
+                ("to_float(xc[(int64_t)W * C])", "(float)(c + 2)"),
+                ("to_float(xc[(int64_t)W * C + C])", "(float)(c + 3)")]),
+            ("per-channel geometry (group 0's, once per block)", [(
+                "  for (int c0 = 0; c0 < C; c0 += blockDim.x) {",
+                "  const Sample s0 = sample_at(o, py, px, ky, kx, dilation, "
+                "half, H, W);\n"
+                "  for (int c0 = 0; c0 < C; c0 += blockDim.x) {"), (
+                "      const Sample s = sample_at(o + g * KK * 2, py, px, ky, "
+                "kx, dilation,\n                                 half, H, W);",
+                "      const Sample s = s0;")]),
+        ],
+        # a 16-pixel row tile per block, 16-byte vectors and vector atomics
+        "scatter<V>(": [
+            ("gx atomics", [(
+                "if (w[q] != 0.0f) add_corner<V>(gb + corner[q], w[q], g);",
+                "if (g[0] == 1e-30f) gb[q] = w[q];")]),
+            ("goff reductions", [(
+                "dy += __shfl_xor_sync(0xffffffffu, dy, m);\n"
+                "          dx += __shfl_xor_sync(0xffffffffu, dx, m);",
+                "")]),
+            ("x corner reads", [(
+                "Io<T, V>::load(base + corner[q], xv[q]);",
+                "for (int k = 0; k < V; ++k) xv[q][k] = (float)(q + k);")]),
+            ("gcol reads", [(
+                "Io<T, V>::load_stream(grow + c, gv);",
+                "for (int k = 0; k < V; ++k) gv[k] = (float)(c + k);")]),
+        ],
+    },
 }
-# whole phases of the current design, each removed on its own: what is left
-# without both is the per-roi geometry (phase 0 and the final d(py, px))
-POOL_PHASES = {
+# whole phases of the current P3 design, each removed on its own: what is
+# left without both is the per-roi geometry (phase 0 and the final d(py,px))
+POOL_BWD_PHASES = {
     "bin_start_sums": [
         ("phase 1 (window-start sums)", [(
             "  if (stencil) {\n    for (int p = threadIdx.x >> 5;",
@@ -111,17 +229,27 @@ def edit(text: str, edits) -> str:
     return text
 
 
-def pool_variants(text: str) -> list[tuple[str, str]]:
-    """(label, source) for the full kernel, each part removed, all removed."""
-    marker = next((m for m in POOL_VARIANTS if m in text), None)
+def variants(kind: str, text: str) -> list[tuple[str, str]]:
+    """(label, source) for the full kernel, each part removed, all removed
+    (and, for P3, its phases)."""
+    table = VARIANTS[kind]
+    marker = next((m for m in table if m in text), None)
     if marker is None:
-        raise ValueError("unknown fused_pool_bwd.cu version")
-    parts = POOL_VARIANTS[marker]
+        raise ValueError(f"unknown version of the {kind} source")
     out = [("full", text)]
-    out += [(f"without {name}", edit(text, e)) for name, e in parts]
+    parts = []
+    for name, e in table[marker]:
+        try:
+            edit(text, e)
+            parts.append((name, e))
+        except ValueError:
+            print(f"{kind}: no variant without {name} (its text is not in "
+                  "this source)")
+    out += [(f"{'with' if name.startswith('a second') else 'without'} "
+             f"{name}", edit(text, e)) for name, e in parts]
     every = [x for _, e in parts for x in e]
     out.append(("without all of these", edit(text, every)))
-    phases = POOL_PHASES.get(marker, [])
+    phases = POOL_BWD_PHASES.get(marker, []) if kind == "pool_bwd" else []
     out += [(f"without {name}", edit(text, e)) for name, e in phases]
     if phases:
         both = [x for _, e in phases for x in e]
@@ -166,7 +294,71 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _entry(lib, name, sig):
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = sig, ctypes.c_int
+
+    def call(*args):
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+
+    return call
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# (label, B, H, W, rois per image): the C5 maps and roi counts of the test
+# scales of configs/sniper_res101_e2e.yml and of training
+SHAPES = (("scale 0", 4, 88, 128, 300), ("scale 1", 8, 52, 80, 200),
+          ("scale 2", 8, 32, 32, 100), ("training", 16, 32, 32, 300))
+
+
 def pool_inputs(dev):
+    """chip_smoke.py:check_pool's inputs at each shape."""
+    out = []
+    C, P, S, M = 256, 7, 4, 4
+    for label, B, H, W, rpi in SHAPES:
+        g = torch.Generator().manual_seed(3)
+        feat = torch.randn(B, H, W, C, generator=g).to(dev)
+        R = B * rpi
+        rois = random_rois(B, rpi, H, W, g).to(dev)
+        off_w = (torch.randn(2 * P * P, P * P * C, generator=g) * 0.03).to(dev)
+        off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
+        geom, roi_h, roi_w, sub_h, sub_w = deform.pool_geometry(
+            rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+        kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
+        pass1 = deform.pool_pass_plain(feat, geom, None, **kw)
+        off = pass1.reshape(R, -1) @ off_w.t() + off_b
+        pypx = deform.window_starts(off, roi_h, roi_w, sub_h, sub_w, P=P, S=S,
+                                    M=M, trans_std=0.1)
+        out.append((label, feat, geom, pypx,
+                    dict(R=R, H=H, W=W, C=C, rpi=rpi, P=P, S=S, M=M)))
+    return out
+
+
+def run_pool(lib, inputs, reps):
+    call = _entry(lib, "sniper_pool_pass", POOL_SIG)
+    lines = []
+    for label, feat, geom, pypx, d in inputs:
+        out = torch.empty(d["R"], d["P"] ** 2, d["C"], device=feat.device)
+
+        def run(bins):
+            call(feat.data_ptr(), geom.data_ptr(),
+                 None if bins is None else bins.data_ptr(), out.data_ptr(),
+                 d["R"], d["H"], d["W"], d["C"], d["rpi"], d["P"], d["S"],
+                 d["M"], int(bins is not None), stream())
+
+        a_ms = time_ms(lambda: run(None), reps)
+        b_ms = time_ms(lambda: run(pypx), reps)
+        lines.append(f"[{label}]: pass A {a_ms:.4f} ms, pass B {b_ms:.4f} "
+                     f"ms, both {a_ms + b_ms:.4f} ms")
+    return lines
+
+
+def pool_bwd_inputs(dev):
     """chip_smoke.py:check_pool_bwd's training inputs, random offsets."""
     B, rpi, C, H, W, P, S, M, chip = 16, 300, 256, 32, 32, 7, 4, 4, 512
     R = B * rpi
@@ -187,94 +379,126 @@ def pool_inputs(dev):
     return feat, geom, pypx, gout, dims
 
 
-def run_pool(lib, feat, geom, pypx, gout, dims, reps):
-    fn = lib.sniper_pool_pass_bwd
-    fn.argtypes, fn.restype = POOL_SIG, ctypes.c_int
-    d = dims
+def run_pool_bwd(lib, inputs, reps):
+    call = _entry(lib, "sniper_pool_pass_bwd", POOL_BWD_SIG)
+    feat, geom, pypx, gout, d = inputs
     dfeat = torch.zeros_like(feat)
     dpp = torch.empty(d["R"], 2, d["P"] ** 2, device=feat.device)
-    st = torch.cuda.current_stream().cuda_stream
 
-    def call(bins):
-        code = fn(feat.data_ptr(), geom.data_ptr(),
-                  None if bins is None else bins.data_ptr(), gout.data_ptr(),
-                  dfeat.data_ptr(), None if bins is None else dpp.data_ptr(),
-                  d["R"], d["H"], d["W"], d["C"], d["rpi"], d["P"], d["S"],
-                  d["M"], st)
-        if code:
-            raise RuntimeError(f"sniper_pool_pass_bwd: CUDA error {code}")
+    def run(bins):
+        call(feat.data_ptr(), geom.data_ptr(),
+             None if bins is None else bins.data_ptr(), gout.data_ptr(),
+             dfeat.data_ptr(), None if bins is None else dpp.data_ptr(),
+             d["R"], d["H"], d["W"], d["C"], d["rpi"], d["P"], d["S"],
+             d["M"], stream())
 
-    return (time_ms(lambda: call(pypx), reps),
-            time_ms(lambda: call(None), reps))
+    b_ms = time_ms(lambda: run(pypx), reps)
+    a_ms = time_ms(lambda: run(None), reps)
+    return [f"[training]: pass B {b_ms:.4f} ms, pass A {a_ms:.4f} ms, both "
+            f"{b_ms + a_ms:.4f} ms"]
 
 
-def im2col_shapes():
-    # (label, B, H, W): the C5 maps of the test scales and of training
-    return (("scale 0", 4, 88, 128), ("scale 1", 8, 52, 80),
-            ("scale 2", 8, 32, 32), ("training", 16, 32, 32))
+def im2col_bwd_inputs(dev):
+    """chip_smoke.py:check_im2col_bwd's training inputs: zero offsets and
+    offsets of +-6 px."""
+    B, H, W, C, G, K = 16, 32, 32, 512, 4, 3
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
+    gcol = torch.randn(B, H, W, K * K, C, generator=g).to(dev, torch.bfloat16)
+    offs = []
+    for label, scale in (("zero offsets", 0.0), ("offsets +-0.5 px", 0.5),
+                         ("offsets +-6 px", 6.0)):
+        offs.append((label, ((torch.rand(B, H, W, G * K * K * 2, generator=g)
+                              * 2 - 1) * scale).to(dev)))
+    return x, gcol, offs, dict(B=B, H=H, W=W, C=C, G=G, K=K, d=2)
+
+
+def run_im2col_bwd(lib, inputs, reps):
+    call = _entry(lib, "sniper_deform_im2col_bwd", IM2COL_BWD_SIG)
+    x, gcol, offs, d = inputs
+    gx = torch.zeros(x.shape, device=x.device)
+    goff = torch.empty(offs[0][1].shape, device=x.device)
+    nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * goff.numel() * 4
+    lines = []
+    for label, off in offs:
+        ms = time_ms(lambda: call(
+            x.data_ptr(), off.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
+            goff.data_ptr(), 1, d["B"], d["H"], d["W"], d["C"], d["G"],
+            d["K"], d["d"], stream()), reps)
+        lines.append(f"[training, {label}]: {ms:.4f} ms, "
+                     f"{nbytes / ms / 1e6:.1f} GB/s effective")
+    return lines
 
 
 def run_im2col(lib, dev, reps):
-    fn = lib.sniper_deform_im2col
-    fn.argtypes, fn.restype = IM2COL_SIG, ctypes.c_int
-    out = []
-    for label, B, H, W in im2col_shapes():
+    call = _entry(lib, "sniper_deform_im2col", IM2COL_SIG)
+    lines = []
+    for label, B, H, W, _ in SHAPES:
         C, G, K, d = 512, 4, 3, 2
         g = torch.Generator().manual_seed(2)
         x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
         off = ((torch.rand(B, H, W, G * K * K * 2, generator=g) * 2 - 1)
                * 6.0).to(dev)
         col = torch.empty(B, H, W, K * K, C, device=dev, dtype=torch.bfloat16)
-        st = torch.cuda.current_stream().cuda_stream
-
-        def call():
-            code = fn(x.data_ptr(), off.data_ptr(), col.data_ptr(), 1, B, H,
-                      W, C, G, K, d, st)
-            if code:
-                raise RuntimeError(f"sniper_deform_im2col: CUDA error {code}")
-
-        ms = time_ms(call, reps)
+        ms = time_ms(lambda: call(x.data_ptr(), off.data_ptr(),
+                                  col.data_ptr(), 1, B, H, W, C, G, K, d,
+                                  stream()), reps)
         nbytes = x.numel() * 2 + off.numel() * 4 + col.numel() * 2
-        out.append((label, ms, nbytes / ms / 1e6))
-    return out
+        lines.append(f"[{label}]: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s "
+                     "effective")
+    return lines
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--pool", action="append", default=[])
     ap.add_argument("--pool-bwd", action="append", default=[])
     ap.add_argument("--im2col", action="append", default=[])
+    ap.add_argument("--im2col-bwd", action="append", default=[])
     ap.add_argument("--reps", type=int, default=10)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernel_split: needs a CUDA device")
-    if not a.pool_bwd and not a.im2col:
+    if not (a.pool or a.pool_bwd or a.im2col or a.im2col_bwd):
+        a.pool = [os.path.join(CSRC, "fused_pool.cu")]
         a.pool_bwd = [os.path.join(CSRC, "fused_pool_bwd.cu")]
         a.im2col = [os.path.join(CSRC, "deform_im2col.cu")]
+        a.im2col_bwd = [os.path.join(CSRC, "deform_im2col_bwd.cu")]
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
     jobs = []
-    for src in a.pool_bwd:
-        with open(src) as f:
-            jobs += [(("pool", src, label), text)
-                     for label, text in pool_variants(f.read())]
+    for kind, srcs in (("pool", a.pool), ("pool_bwd", a.pool_bwd),
+                       ("im2col_bwd", a.im2col_bwd)):
+        for src in srcs:
+            with open(src) as f:
+                jobs += [((kind, src, label), text)
+                         for label, text in variants(kind, f.read())]
     for src in a.im2col:
         with open(src) as f:
             jobs.append((("im2col", src, "full"), f.read()))
+    inputs = {}
+    if a.pool:
+        inputs["pool"] = pool_inputs(dev)
+    if a.pool_bwd:
+        inputs["pool_bwd"] = pool_bwd_inputs(dev)
+    if a.im2col_bwd:
+        inputs["im2col_bwd"] = im2col_bwd_inputs(dev)
+    names = {"pool": "fused_pool", "pool_bwd": "fused_pool_bwd",
+             "im2col": "deform_im2col", "im2col_bwd": "deform_im2col_bwd"}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(jobs, tmp)
-        if a.pool_bwd:
-            inputs = pool_inputs(dev)
         for (kind, src, label), lib in libs.items():
             if kind == "pool":
-                b_ms, a_ms = run_pool(lib, *inputs, a.reps)
-                print(f"fused_pool_bwd {src} [{label}]: pass B {b_ms:.4f} ms, "
-                      f"pass A {a_ms:.4f} ms, both {b_ms + a_ms:.4f} ms "
-                      f"[{card}]")
+                lines = run_pool(lib, inputs[kind], a.reps)
+            elif kind == "pool_bwd":
+                lines = run_pool_bwd(lib, inputs[kind], a.reps)
+            elif kind == "im2col_bwd":
+                lines = run_im2col_bwd(lib, inputs[kind], a.reps)
             else:
-                for shape, ms, rate in run_im2col(lib, dev, a.reps):
-                    print(f"deform_im2col {src} [{shape}]: {ms:.4f} ms, "
-                          f"{rate:.1f} GB/s effective [{card}]")
+                lines = run_im2col(lib, dev, a.reps)
+            for line in lines:
+                print(f"{names[kind]} {src} [{label}] {line} [{card}]")
     return 0
 
 

@@ -65,7 +65,8 @@ namespace {
 using sniper_pool::AxisTent;
 using sniper_pool::axis_tent;
 using sniper_pool::bin_dfactor;
-using sniper_pool::bin_factor;
+using sniper_pool::for_bin_cells;
+using sniper_pool::tent_cells;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemPerBlock = 227 * 1024;  // Hopper's opt-in maximum
@@ -108,18 +109,6 @@ __device__ __forceinline__ void add_to(float* dst, const float* a) {
     atomicAdd(dst, a[0]);
 }
 
-// Patch cells [e0, e1] outside which the tent stack at window start p0
-// and its derivative are exactly zero: |p0 + k - e| <= 1 for some k < S
-// needs floor(p0) - 1 <= e <= floor(p0) + S. p0 is held to [-4, 1e6]
-// first (no cell of [0, E) lies in the stack's reach beyond), which also
-// maps a NaN start to an empty stack, as the full loop finds it.
-__device__ __forceinline__ void tent_cells(float p0, int S, int* e0,
-                                           int* e1) {
-  const int f0 = (int)floorf(fminf(fmaxf(p0, -4.0f), 1e6f));
-  *e0 = f0 - 1;
-  *e1 = f0 + S + 1;
-}
-
 // One bin, one axis: scatter the composed weights into row[0..n) as the
 // forward does, and return the count sum_e f*v, the forward's support
 // window [lo, hi] and the derivative window [dlo, dhi]: the map cells
@@ -130,37 +119,33 @@ __device__ void compose_axis_bwd(bool stencil, float p0, int first, int S,
                                  int* win) {
   float cnt = 0.0f;
   int a = n, z = -1, da = n, dz = -1;
-  int e0 = first, e1 = first + S - 1;
-  if (stencil) tent_cells(p0, S, &e0, &e1);
-  for (int e = max(e0, 0); e <= min(e1, E - 1); ++e) {
-    const float f = bin_factor(stencil, p0, first, S, e);
-    const float df = stencil ? bin_dfactor(p0, S, e) : 0.0f;
-    if (f == 0.0f && df == 0.0f) continue;
-    const AxisTent t = axis_tent(start, step, e, n);
-    if (f != 0.0f) {
-      cnt = __fadd_rn(cnt, __fmul_rn(f, t.v));
-      if (t.wa != 0.0f) {
-        row[t.lo] = __fadd_rn(row[t.lo], __fmul_rn(f, t.wa));
-        a = min(a, t.lo);
-        z = max(z, t.lo);
-      }
-      if (t.wb != 0.0f) {
-        row[t.lo + 1] = __fadd_rn(row[t.lo + 1], __fmul_rn(f, t.wb));
-        a = min(a, t.lo + 1);
-        z = max(z, t.lo + 1);
-      }
-    }
-    if (df != 0.0f) {
-      if (t.wa != 0.0f) {
-        da = min(da, t.lo);
-        dz = max(dz, t.lo);
-      }
-      if (t.wb != 0.0f) {
-        da = min(da, t.lo + 1);
-        dz = max(dz, t.lo + 1);
-      }
-    }
-  }
+  for_bin_cells(stencil, stencil, p0, first, S, E, start, step, n,
+                [&](float f, float df, const AxisTent& t) {
+                  if (f != 0.0f) {
+                    cnt = __fadd_rn(cnt, __fmul_rn(f, t.v));
+                    if (t.wa != 0.0f) {
+                      row[t.lo] = __fadd_rn(row[t.lo], __fmul_rn(f, t.wa));
+                      a = min(a, t.lo);
+                      z = max(z, t.lo);
+                    }
+                    if (t.wb != 0.0f) {
+                      row[t.lo + 1] =
+                          __fadd_rn(row[t.lo + 1], __fmul_rn(f, t.wb));
+                      a = min(a, t.lo + 1);
+                      z = max(z, t.lo + 1);
+                    }
+                  }
+                  if (df != 0.0f) {
+                    if (t.wa != 0.0f) {
+                      da = min(da, t.lo);
+                      dz = max(dz, t.lo);
+                    }
+                    if (t.wb != 0.0f) {
+                      da = min(da, t.lo + 1);
+                      dz = max(dz, t.lo + 1);
+                    }
+                  }
+                });
   *count = cnt;
   win[0] = a;
   win[1] = z;

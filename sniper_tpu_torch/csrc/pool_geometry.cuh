@@ -66,4 +66,37 @@ __device__ __forceinline__ float bin_dfactor(float p0, int S, int e) {
   return dw;
 }
 
+// Patch cells [e0, e1] outside which the tent stack at window start p0
+// and its derivative are exactly zero: |p0 + k - e| <= 1 for some k < S
+// needs floor(p0) - 1 <= e <= floor(p0) + S. p0 is held to [-4, 1e6]
+// first (no cell of [0, E) lies in the stack's reach beyond), which also
+// maps a NaN start to an empty stack, as the full loop finds it.
+__device__ __forceinline__ void tent_cells(float p0, int S, int* e0,
+                                           int* e1) {
+  const int f0 = (int)floorf(fminf(fmaxf(p0, -4.0f), 1e6f));
+  *e0 = f0 - 1;
+  *e1 = f0 + S + 1;
+}
+
+// The composition of one bin's weights on one axis: visit, in e order, the
+// patch cells of [0, E) whose bin factor f (or, with `deriv`, the tent
+// stack's derivative df) is nonzero, with the cell's resize tent on the
+// map: fn(f, df, tent). Only the cells in reach are visited (the bin's S
+// interior cells in pass A, tent_cells in pass B): every other cell's f and
+// df are exactly zero, so sums taken in e order equal the full loop's.
+template <typename Fn>
+__device__ __forceinline__ void for_bin_cells(bool stencil, bool deriv,
+                                              float p0, int first, int S,
+                                              int E, float start, float step,
+                                              int n, Fn fn) {
+  int e0 = first, e1 = first + S - 1;
+  if (stencil) tent_cells(p0, S, &e0, &e1);
+  for (int e = max(e0, 0); e <= min(e1, E - 1); ++e) {
+    const float f = bin_factor(stencil, p0, first, S, e);
+    const float df = deriv ? bin_dfactor(p0, S, e) : 0.0f;
+    if (f == 0.0f && df == 0.0f) continue;
+    fn(f, df, axis_tent(start, step, e, n));
+  }
+}
+
 }  // namespace sniper_pool

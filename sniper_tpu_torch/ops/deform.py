@@ -354,6 +354,13 @@ def pool_pass_plain(feat, geom, pypx, *, rois_per_image, P, S, M):
     return torch.where(n > 0, numer / n.clamp_min(1.0), 0.0)
 
 
+def pool_smem_bytes(P, S):
+    """Shared memory of one roi's block of csrc/fused_pool.cu (``smem_bytes``
+    there): per bin and axis, a list of at most 2(S+1) (map cell, weight)
+    pairs, its length and its count. It does not depend on the map."""
+    return 2 * P * P * (2 * (S + 1) * 8 + 8)
+
+
 def _pool_pass_kernel(feat, geom, pypx, *, rois_per_image, P, S, M):
     B, H, W, C = feat.shape
     R = geom.shape[0]
@@ -361,10 +368,10 @@ def _pool_pass_kernel(feat, geom, pypx, *, rois_per_image, P, S, M):
     cuda.require(geom, "geom", torch.float32, (B * rois_per_image, 4))
     if pypx is not None:
         cuda.require(pypx, "pypx", torch.float32, (R, 2, P * P))
-    smem = P * P * (H + W + 1) * 4 + P * P * 16
+    smem = pool_smem_bytes(P, S)
     if smem > 227 * 1024:
-        raise ValueError(f"pool_pass: a {H}x{W} map at P={P} needs {smem} B "
-                         "of shared memory, more than a block has")
+        raise ValueError(f"pool_pass: P={P}, S={S} needs {smem} B of shared "
+                         "memory, more than a block has")
     out = torch.empty((R, P * P, C), dtype=torch.float32, device=feat.device)
     lib = cuda.library()
     cuda.FUSED_POOL.launches += 1

@@ -17,7 +17,7 @@ import torch
 from sniper_tpu.ops import deform as jdeform
 from sniper_tpu.ops.pallas.fused_pool import fused_pool_pallas
 from sniper_tpu_torch.ops import deform as tdeform
-from torch_port import cuda_or_skip
+from torch_port import IM2COL_EDGES, cuda_or_skip, im2col_edge, whole_map_rois
 
 
 def _random_rois(rng, B, rpi, span=400):
@@ -144,44 +144,10 @@ def test_rcnn_head_fused_matches_jax(rng):
                                    rtol=1e-4)
 
 
-# im2col edge cases, (B, H, W, C, G, dilation, offsets): the kernel's pixel
-# tile is 16 wide and its vector 8 bf16 or 4 fp32 channels
-IM2COL_EDGES = {
-    # W = 17: a ragged tile of one pixel; 16-channel groups (whole vectors)
-    "ragged": (2, 13, 17, 64, 4, 2, "random"),
-    # 3-channel groups: below and not a multiple of either vector width
-    "narrow": (1, 6, 33, 12, 4, 2, "random"),
-    # 6-channel groups (not a multiple of 4 or 8), one group
-    "odd": (2, 5, 9, 6, 1, 1, "random"),
-    # 4-channel groups: whole fp32 vectors, below the bf16 vector
-    "half": (1, 7, 20, 16, 4, 2, "random"),
-    # every sample clamps: offsets of +-40 on a 5x6 map, and exact borders
-    "clamp": (2, 5, 6, 32, 2, 2, "clamp"),
-    # the smallest map the kernel takes
-    "tiny": (1, 2, 2, 8, 1, 1, "random"),
-}
-
-
-def _im2col_edge(rng, case):
-    B, H, W, C, G, d, kind = IM2COL_EDGES[case]
-    x = rng.randn(B, H, W, C).astype(np.float32)
-    if kind == "clamp":
-        # past every border: each sample clamps onto an edge or a corner
-        off = rng.choice(np.float32([-40.0, 40.0, -(H + 3.0), W + 3.0]),
-                         (B, H, W, G * 18))
-        # the centre tap (t = 4, no dilation shift) lands exactly on the
-        # top and the right border: sy = 0, sx = W - 1 (x0 = W - 2, lx = 1)
-        off[..., 8::18] = -np.arange(H)[None, :, None, None]
-        off[..., 9::18] = (W - 1) - np.arange(W)[None, None, :, None]
-    else:
-        off = rng.uniform(-6, 6, (B, H, W, G * 18))
-    return x, off.astype(np.float32), dict(num_groups=G, dilation=d)
-
-
 @pytest.mark.parametrize("case", sorted(IM2COL_EDGES))
 def test_deform_im2col_edges_match_jax(rng, case):
     """The plain im2col against the JAX one at the kernel's edge cases."""
-    x, off, kw = _im2col_edge(rng, case)
+    x, off, kw = im2col_edge(rng, case)
     want = jdeform._make_im2col(kw["num_groups"], 3, kw["dilation"])(
         jnp.asarray(x), jnp.asarray(off))
     got = tdeform.deform_im2col(torch.from_numpy(x), torch.from_numpy(off),
@@ -195,7 +161,7 @@ def test_deform_im2col_edges_match_jax(rng, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_im2col_kernel_matches_plain(rng, dtype, case):
     dev = cuda_or_skip()
-    x, off, kw = _im2col_edge(rng, case)
+    x, off, kw = im2col_edge(rng, case)
     x = torch.from_numpy(x).to(dev, dtype)
     off = torch.from_numpy(off).to(dev)
     a = tdeform.deform_im2col(x, off, **kw)
@@ -203,32 +169,67 @@ def test_im2col_kernel_matches_plain(rng, dtype, case):
     assert torch.equal(a, b)  # same fp32 ops in the same order
 
 
+# pool kernel cases, (B, H, W, C, rpi, P, margin_bins, rois): the kernel
+# composes per-bin weight lists (at most 2(S+1) pairs per axis) and its
+# lanes own 4-channel vectors
+POOL_CASES = {
+    "random": (2, 30, 44, 160, 20, 7, 1, "random"),
+    # the mask branch's 14x14 pool
+    "p14": (2, 30, 44, 160, 20, 14, 1, "random"),
+    # footprints up to the whole map, as in training
+    "whole": (2, 32, 32, 100, 12, 7, 1, "whole"),
+    # a channel count that is not a multiple of 4: scalar channels
+    "c37": (2, 30, 44, 37, 20, 7, 1, "random"),
+    "margin2": (2, 30, 44, 160, 20, 7, 2, "random"),
+    # rois off the map (all-zero output) and sub-pixel rois
+    "offmap": (1, 10, 12, 8, 6, 7, 1, "offmap"),
+    # a map wider than the first design's dense weights could hold
+    "wide": (1, 48, 1200, 8, 16, 7, 1, "random"),
+}
+
+
+def _pool_case_rois(rng, case):
+    B, H, W, _, rpi, _, _, kind = POOL_CASES[case]
+    if kind == "whole":
+        return whole_map_rois(rng, B, rpi, H, W)
+    rois = _random_rois(rng, B, rpi, span=600)
+    if kind == "offmap":
+        rois[:4, 1:] = [[-500, -500, -400, -400], [5000, 5000, 6000, 6000],
+                        [40, 40, 41, 41], [100, 60, 100, 60]]
+    return rois
+
+
 @pytest.mark.cuda
-def test_pool_kernel_matches_plain(rng):
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_pool_kernel_matches_plain(rng, case):
     dev = cuda_or_skip()
-    B, H, W, C, rpi = 2, 30, 44, 160, 20
+    B, H, W, C, rpi, P, margin_bins, _ = POOL_CASES[case]
+    S, M = 4, 4 * margin_bins
     feat = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32)).to(dev)
-    rois = torch.from_numpy(_random_rois(rng, B, rpi, span=600)).to(dev)
-    off_k, off_b = _offset_fc(rng, C, scale=0.03)
+    rois = torch.from_numpy(_pool_case_rois(rng, case)).to(dev)
+    off_k, off_b = _offset_fc(rng, C, P=P, scale=0.03)
     off_w = torch.from_numpy(off_k.T.copy()).to(dev)
     off_b = torch.from_numpy(off_b).to(dev)
     geom, roi_h, roi_w, sub_h, sub_w = tdeform.pool_geometry(
-        rois, P=7, S=4, M=4, spatial_scale=1 / 16)
-    kw = dict(rois_per_image=rpi, P=7, S=4, M=4)
+        rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+    kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
     # fp32 sums in another order than the plain version's: 1e-4
     pass1 = tdeform.pool_pass_plain(feat, geom, None, **kw)
     torch.testing.assert_close(tdeform.pool_pass(feat, geom, None, **kw),
                                pass1, atol=1e-4, rtol=1e-4)
     off = pass1.reshape(B * rpi, -1) @ off_w.t() + off_b
-    pypx = tdeform.window_starts(off, roi_h, roi_w, sub_h, sub_w, P=7, S=4,
-                                 M=4, trans_std=0.1)
+    pypx = tdeform.window_starts(off, roi_h, roi_w, sub_h, sub_w, P=P, S=S,
+                                 M=M, trans_std=0.1)
     pooled = tdeform.pool_pass_plain(feat, geom, pypx, **kw)
     torch.testing.assert_close(tdeform.pool_pass(feat, geom, pypx, **kw),
                                pooled, atol=1e-4, rtol=1e-4)
     got = tdeform.fused_offset_pool(feat, rois, off_w, off_b,
-                                    rois_per_image=rpi)
+                                    rois_per_image=rpi, pooled_size=P,
+                                    margin_bins=margin_bins)
     torch.testing.assert_close(got, pooled.reshape(B * rpi, -1), atol=1e-4,
                                rtol=1e-4)
+    if case == "offmap":
+        assert float(got[:2].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -241,3 +242,8 @@ def test_kernels_reject_what_they_do_not_take():
     geom = torch.zeros(2, 4, device=dev)
     with pytest.raises(ValueError):
         tdeform.pool_pass(feat, geom, None, rois_per_image=2, P=7, S=4, M=4)
+    # the pool's shared memory grows with P*P*S, not with the map: P=40
+    # needs 2*1600*(2*5*8 + 8) B, more than a block has
+    feat = torch.zeros(1, 5, 5, 8, device=dev)
+    with pytest.raises(ValueError):
+        tdeform.pool_pass(feat, geom, None, rois_per_image=2, P=40, S=4, M=4)

@@ -30,7 +30,12 @@ import torch
 from sniper_tpu.ops import deform as jdeform
 from sniper_tpu.ops.pallas.fused_pool import fused_pool_vjp
 from sniper_tpu_torch.ops import deform as tdeform
-from torch_port import cuda_or_skip
+from torch_port import (
+    IM2COL_EDGES,
+    cuda_or_skip,
+    im2col_edge,
+    whole_map_rois,
+)
 
 
 def _close(got, want, rel=2e-5, name=""):
@@ -154,18 +159,43 @@ def test_pool_offset_telemetry_is_detached(rng):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("case", sorted(IM2COL_EDGES))
+def test_deform_im2col_bwd_edges_match_jax(rng, case):
+    """The plain im2col backward against jax.vjp of the JAX im2col at the
+    kernels' edge cases (ragged tiles, narrow and odd groups, clamping)."""
+    x, off, kw = im2col_edge(rng, case)
+    B, H, W, C = x.shape
+    gcol = rng.randn(B, H, W, 9, C).astype(np.float32)
+    im2col = jdeform._make_im2col(kw["num_groups"], 3, kw["dilation"])
+    _, vjp = jax.vjp(im2col, jnp.asarray(x), jnp.asarray(off))
+    want_gx, want_goff = vjp(jnp.asarray(gcol))
+    gx, goff = tdeform.deform_im2col_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(off), torch.from_numpy(gcol),
+        kernel_size=3, **kw)
+    _close(gx, want_gx, name="gx")
+    _close(goff, want_goff, name="goff")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,regime", [
-    (torch.float32, "zero"), (torch.float32, "border"),
-    (torch.bfloat16, "small"), (torch.bfloat16, "border")])
-def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime):
+@pytest.mark.parametrize("dtype,regime,case", [
+    (torch.float32, "zero", None), (torch.float32, "border", None),
+    (torch.bfloat16, "small", None), (torch.bfloat16, "border", None)] + [
+    (dtype, None, case) for case in sorted(IM2COL_EDGES)
+    for dtype in (torch.float32, torch.bfloat16)])
+def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime, case):
     dev = cuda_or_skip()
-    B, H, W, C, G = 2, 13, 17, 256, 4
-    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
-    off = torch.from_numpy(_offsets(rng, regime, (B, H, W, G * 18)))
+    if case is None:
+        B, H, W, C, G = 2, 13, 17, 256, 4
+        x = rng.randn(B, H, W, C).astype(np.float32)
+        off = _offsets(rng, regime, (B, H, W, G * 18))
+        kw = dict(num_groups=G, kernel_size=3, dilation=2)
+    else:  # the forward's edge cases: ragged tiles, narrow groups, clamps
+        x, off, kw = im2col_edge(rng, case)
+        B, H, W, C = x.shape
+        kw["kernel_size"] = 3
     gcol = torch.from_numpy(rng.randn(B, H, W, 9, C).astype(np.float32))
-    x, off, gcol = x.to(dev, dtype), off.to(dev), gcol.to(dev, dtype)
-    kw = dict(num_groups=G, kernel_size=3, dilation=2)
+    x, off = torch.from_numpy(x).to(dev, dtype), torch.from_numpy(off).to(dev)
+    gcol = gcol.to(dev, dtype)
     gx, goff = tdeform.deform_im2col_bwd(x, off, gcol, **kw)
     px, poff = tdeform.deform_im2col_bwd_plain(x, off, gcol, **kw)
     assert gx.dtype == dtype and goff.dtype == torch.float32
@@ -180,22 +210,12 @@ def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime):
         assert bool((err <= 2 * 2.0 ** -8 * px.float().abs() + floor).all())
 
 
-def _whole_map_rois(rng, B, rpi, H, W):
-    """Random rois, the first two of each image covering the whole H x W
-    map at stride 16 (and past it), so that their footprint is the map."""
-    rois = _random_rois(rng, B, rpi, span=16 * max(H, W))
-    for b in range(B):
-        rois[b * rpi] = [b, -40, -40, 16 * W + 40, 16 * H + 40]
-        rois[b * rpi + 1] = [b, 0, 0, 16 * W - 1, 16 * H - 1]
-    return rois
-
-
 @pytest.mark.parametrize("fc_scale,C", [(0.0, 5), (0.05, 8)])
 def test_pool_grads_whole_map_rois_match_jax(rng, fc_scale, C):
     """The plain pool backward against jax.grad on rois whose footprint is
     the whole map, with a channel count that is not a multiple of 4."""
     P, B, H, W, rpi = 7, 1, 12, 14, 4
-    rois = _whole_map_rois(rng, B, rpi, H, W)
+    rois = whole_map_rois(rng, B, rpi, H, W)
     feat = rng.randn(B, H, W, C).astype(np.float32)
     off_k = (rng.randn(P * P * C, 2 * P * P) * fc_scale).astype(np.float32)
     off_b = (rng.randn(2 * P * P) * fc_scale).astype(np.float32)
@@ -220,7 +240,7 @@ def test_pool_bwd_kernel_matches_plain(rng, fc_scale, tie, C, whole):
         B, H, W, rpi, rois = 1, 20, 28, 3, TIE_ROIS
     elif whole:  # footprints up to the whole map, and 32x32 as in training
         B, H, W, rpi = 2, 32, 32, 12
-        rois = _whole_map_rois(rng, B, rpi, H, W)
+        rois = whole_map_rois(rng, B, rpi, H, W)
     else:
         B, H, W, rpi = 2, 30, 44, 20
         rois = _random_rois(rng, B, rpi, span=600)

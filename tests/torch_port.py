@@ -28,6 +28,60 @@ def close_to_scale(got, want, rtol=1e-4):
                                atol=1e-4 * scale)
 
 
+# DCN im2col edge cases, (B, H, W, C, G, dilation, offsets): the kernels'
+# pixel tile is 16 wide and their vector 8 bf16 or 4 fp32 channels
+IM2COL_EDGES = {
+    # W = 17: a ragged tile of one pixel; 16-channel groups (whole vectors)
+    "ragged": (2, 13, 17, 64, 4, 2, "random"),
+    # 3-channel groups: below and not a multiple of either vector width
+    "narrow": (1, 6, 33, 12, 4, 2, "random"),
+    # 6-channel groups (not a multiple of 4 or 8), one group
+    "odd": (2, 5, 9, 6, 1, 1, "random"),
+    # 4-channel groups: whole fp32 vectors, below the bf16 vector
+    "half": (1, 7, 20, 16, 4, 2, "random"),
+    # every sample clamps: offsets of +-40 on a 5x6 map, and exact borders
+    "clamp": (2, 5, 6, 32, 2, 2, "clamp"),
+    # the smallest map the kernels take
+    "tiny": (1, 2, 2, 8, 1, 1, "random"),
+}
+
+
+def im2col_edge(rng, case):
+    """x [B,H,W,C] and offsets [B,H,W,G*18] fp32 of an IM2COL_EDGES case,
+    and the im2col's keyword arguments."""
+    B, H, W, C, G, d, kind = IM2COL_EDGES[case]
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    if kind == "clamp":
+        # past every border: each sample clamps onto an edge or a corner
+        off = rng.choice(np.float32([-40.0, 40.0, -(H + 3.0), W + 3.0]),
+                         (B, H, W, G * 18))
+        # the centre tap (t = 4, no dilation shift) lands exactly on the
+        # top and the right border: sy = 0, sx = W - 1 (x0 = W - 2, lx = 1)
+        off[..., 8::18] = -np.arange(H)[None, :, None, None]
+        off[..., 9::18] = (W - 1) - np.arange(W)[None, None, :, None]
+    else:
+        off = rng.uniform(-6, 6, (B, H, W, G * 18))
+    return x, off.astype(np.float32), dict(num_groups=G, dilation=d)
+
+
+def whole_map_rois(rng, B, rpi, H, W):
+    """Random image-contiguous rois [B*rpi, 5], the first two of each image
+    covering the whole H x W map at stride 16 (and past it), so that their
+    footprint is the map."""
+    span = 16 * max(H, W)
+    R = B * rpi
+    rois = np.zeros((R, 5), np.float32)
+    rois[:, 0] = np.repeat(np.arange(B), rpi)
+    rois[:, 1] = rng.uniform(-40, span, R)
+    rois[:, 2] = rng.uniform(-40, span, R)
+    rois[:, 3] = rois[:, 1] + rng.uniform(3, span, R)
+    rois[:, 4] = rois[:, 2] + rng.uniform(3, span, R)
+    for b in range(B):
+        rois[b * rpi] = [b, -40, -40, 16 * W + 40, 16 * H + 40]
+        rois[b * rpi + 1] = [b, 0, 0, 16 * W - 1, 16 * H - 1]
+    return rois
+
+
 TINY = dict(num_classes=5, num_anchors=9, anchor_scales=(2, 4, 7),
             anchor_ratios=(0.5, 1, 2), units=(1, 1, 1, 1),
             pre_nms_top_n=200, post_nms_top_n=16)
