@@ -18,7 +18,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    sample on a kink) and at random offsets, and the ROI patch extraction at
    the mask branch's shapes of every test scale of
    configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
-   route of the 14x14 pool held against the composed-tent pool kernels: the
+   route of the 14x14 pool held against the composed-tent pool kernels, and
+   NMS through both entries (``nms`` sorting unsorted input, ``nms_sorted``,
+   the proposal op's, on it sorted) on clustered boxes with distinct scores
+   and on saturated ones, tied and repeated as a random RPN emits them: the
    errors, the kernel's and the plain version's times (the im2col's and its
    backward's also as an effective rate, the backward's at zero, +-0.5 px
    and +-6 px offsets, the pool's and its backward's per pass), the least
@@ -178,40 +181,106 @@ def main_path_shapes(cfg) -> list[dict]:
     return shapes
 
 
+NMS_INPUTS = ("clustered", "saturated")
+
+
+def nms_input(kind: str, B: int, N: int, H: int, W: int, seed: int):
+    """Unsorted boxes [B,N,4] and scores [B,N] on the CPU, on an image of
+    W x H px. "clustered": 60 clusters of jittered boxes with distinct
+    scores. "saturated": as a random-weight RPN emits them after the decode
+    and clip, large boxes of which 40% repeat 30 boxes per image (the whole
+    image among them), 1% inverted (area <= 0), half the scores exactly 1.0
+    and a third on a 1/256 grid below it (ties), 5% at NEG_INF (the
+    min-size filter)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "clustered":
+        span = torch.tensor([W, H], dtype=torch.float32)
+        ctr = torch.rand(B, 60, 2, generator=g) * span
+        pick = torch.randint(0, 60, (B, N), generator=g)
+        c = torch.gather(ctr, 1, pick[..., None].expand(B, N, 2))
+        c = c + torch.randn(B, N, 2, generator=g) * 24.0
+        wh = torch.exp(torch.randn(B, N, 2, generator=g) * 0.5) * 96.0
+        boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
+        # distinct scores: a random permutation of N levels (no ties)
+        scores = torch.stack([torch.randperm(N, generator=g)
+                              for _ in range(B)])
+        return boxes, (scores.float() + 1.0) / (N + 1)
+    from sniper_tpu_torch.ops.nms import NEG_INF
+
+    hi = torch.tensor([W - 1.0, H - 1.0, W - 1.0, H - 1.0])
+
+    def large(n):
+        c = torch.rand(B, n, 2, generator=g) * torch.tensor([W, H])
+        wh = torch.exp(torch.randn(B, n, 2, generator=g) * 0.7) * 600.0
+        b = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
+        return torch.minimum(b.clamp_min(0.0), hi)
+
+    reps = large(30)
+    reps[:, 0] = torch.tensor([0.0, 0.0, W - 1.0, H - 1.0])
+    boxes = large(N)
+    u = torch.rand(B, N, generator=g)
+    pick = torch.randint(0, 30, (B, N), generator=g)
+    boxes = torch.where((u < 0.4)[..., None],
+                        torch.gather(reps, 1, pick[..., None].expand(B, N, 4)),
+                        boxes)
+    inv = (u > 0.99)[..., None]
+    boxes = torch.where(inv, boxes[..., [2, 3, 0, 1]] - 2.0, boxes)
+    v = torch.rand(B, N, generator=g)
+    scores = torch.where(
+        v < 0.5, 1.0,
+        torch.where(v < 0.8, 1.0 - torch.randint(1, 26, (B, N), generator=g)
+                    / 256.0, torch.rand(B, N, generator=g)))
+    return boxes, torch.where(v > 0.95, NEG_INF, scores).float()
+
+
 def check_nms(dev, sh):
-    from sniper_tpu_torch.ops.nms import nms, nms_plain
+    """Both entries against the plain version on both inputs: ``nms`` on
+    unsorted input, ``nms_sorted`` (the proposal op's) on that input
+    sorted as the top-k leaves it. The result's time is the sorted entry's
+    on the clustered input."""
+    from sniper_tpu_torch.ops.nms import nms, nms_plain, nms_sorted
 
     B, N, max_out, thresh = sh["B"], sh["pre_nms"], sh["rois"], 0.7
-    g = torch.Generator().manual_seed(1)
-    span = torch.tensor([sh["W"] * 16.0, sh["H"] * 16.0])
-    ctr = torch.rand(B, 60, 2, generator=g) * span
-    pick = torch.randint(0, 60, (B, N), generator=g)
-    c = torch.gather(ctr, 1, pick[..., None].expand(B, N, 2))
-    c = c + torch.randn(B, N, 2, generator=g) * 24.0
-    wh = torch.exp(torch.randn(B, N, 2, generator=g) * 0.5) * 96.0
-    boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1).to(dev)
-    # distinct scores: a random permutation of N levels (no ties)
-    scores = torch.stack([torch.randperm(N, generator=g) for _ in range(B)])
-    scores = ((scores.float() + 1.0) / (N + 1)).to(dev)
-
-    keep_k, valid_k = nms(boxes, scores, max_out, thresh)
-    keep_p, valid_p = nms_plain(boxes, scores, max_out, thresh)
-    torch.cuda.synchronize()
-    same = torch.equal(keep_k, keep_p) and torch.equal(valid_k, valid_p)
-    diff = int((keep_k.long() - keep_p.long()).abs().max())
-    ms = time_ms(lambda: nms(boxes, scores, max_out, thresh), 20)
-    plain_ms = time_ms(lambda: nms_plain(boxes, scores, max_out, thresh), 2)
-    kept = int(valid_k.sum())
-    # bytes: boxes and scores in, keep and valid out; operations: ~14 fp32
-    # ops for the IoU test of every kept box against every candidate
-    r = result(same, diff, ms, plain_ms,
-               B * N * 20 + B * max_out * 5, 14.0 * kept * N)
-    print(f"nms [{sh['label']}]: B={B} N={N} -> {max_out} at {thresh}: keep "
-          f"lists {'identical' if same else 'DIFFER'} (max index diff "
-          f"{diff}), {kept} kept; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}), no single torch call")
-    return r
+    out = None
+    for kind in NMS_INPUTS:
+        boxes, scores = nms_input(kind, B, N, sh["H"] * 16, sh["W"] * 16, 1)
+        boxes, scores = boxes.to(dev), scores.to(dev)
+        s_scores, order = torch.sort(scores, dim=1, descending=True,
+                                     stable=True)
+        s_boxes = torch.gather(boxes, 1, order[..., None].expand(B, N, 4))
+        pairs = [(nms(boxes, scores, max_out, thresh),
+                  nms_plain(boxes, scores, max_out, thresh)),
+                 (nms_sorted(s_boxes, s_scores, max_out, thresh),
+                  nms_plain(s_boxes, s_scores, max_out, thresh))]
+        torch.cuda.synchronize()
+        same = all(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                   for k, p in pairs)
+        diff = max(int((k[0].long() - p[0].long()).abs().max())
+                   for k, p in pairs)
+        ms = time_ms(lambda: nms(boxes, scores, max_out, thresh), 20)
+        sorted_ms = time_ms(
+            lambda: nms_sorted(s_boxes, s_scores, max_out, thresh), 20)
+        plain_ms = (time_ms(lambda: nms_plain(s_boxes, s_scores, max_out,
+                                              thresh), 2)
+                    if out is None else out["plain_ms"])
+        kept = int(pairs[1][0][1].sum())
+        # bytes: boxes and scores in, keep and valid out; operations: ~14
+        # fp32 ops for the IoU test of every kept box against every
+        # candidate
+        r = result(same, diff, sorted_ms, plain_ms,
+                   B * N * 20 + B * max_out * 5, 14.0 * kept * N)
+        print(f"nms [{sh['label']}, {kind}]: B={B} N={N} -> {max_out} at "
+              f"{thresh}: keep lists {'identical' if same else 'DIFFER'} "
+              f"for both entries (max index diff {diff}), {kept} kept; "
+              f"nms_sorted {sorted_ms:.4f} ms, nms with its sort "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no single torch "
+              f"call")
+        if out is None:
+            out = r
+        else:
+            out.update(ok=out["ok"] and r["ok"], err=max(out["err"], diff))
+    return out
 
 
 def check_im2col(dev, sh):
@@ -709,18 +778,20 @@ def plain_versions():
     from sniper_tpu_torch.ops import deform, nms, proposals
 
     saved = (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
-             deform.pool_pass_bwd, deform.extract_patches, proposals.nms)
+             deform.pool_pass_bwd, deform.extract_patches,
+             proposals.nms_sorted)
     deform.deform_im2col = deform.deform_im2col_plain
     deform.pool_pass = deform.pool_pass_plain
     deform.deform_im2col_bwd = deform.deform_im2col_bwd_plain
     deform.pool_pass_bwd = deform.pool_pass_bwd_plain
     deform.extract_patches = deform.extract_patches_plain
-    proposals.nms = nms.nms_plain
+    proposals.nms_sorted = nms.nms_plain
     try:
         yield
     finally:
         (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
-         deform.pool_pass_bwd, deform.extract_patches, proposals.nms) = saved
+         deform.pool_pass_bwd, deform.extract_patches,
+         proposals.nms_sorted) = saved
 
 
 def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:

@@ -141,10 +141,12 @@ def main():
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / args.reps
         per_kernel = collections.Counter()
+        launches = collections.Counter()  # per batch, by group
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 per_kernel[e.name] += (e.time_range.elapsed_us() / 1e3
                                        / args.reps)
+                launches[group_of(e.name)] += 1 / args.reps
         busy = sum(per_kernel.values())
         groups = collections.Counter()
         for name, ms in per_kernel.items():
@@ -154,7 +156,8 @@ def main():
               f"{busy:.2f} ms ({busy / wall:.0%}), idle "
               f"{max(0.0, 1 - busy / wall):.0%} [{card}]")
         for g, ms in groups.most_common():
-            print(f"  {g:34s} {ms:9.3f} ms  {ms / busy:6.1%}")
+            print(f"  {g:34s} {ms:9.3f} ms  {ms / busy:6.1%}  "
+                  f"{launches[g]:5.0f} launches")
         for name, ms in per_kernel.most_common(8):
             print(f"    {ms:9.3f} ms  {name[:100]}")
         spans = collections.defaultdict(list)

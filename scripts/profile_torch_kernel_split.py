@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of four of the port's kernels goes, by building variants
+"""Where the time of five of the port's kernels goes, by building variants
 of their sources: the pool forward (P1/P2), the pool backward (P3), the DCN
-im2col (X1) and its backward (X2).
+im2col (X1) and its backward (X2), and greedy NMS (P4).
 
 Each ``--pool SRC`` is a version of csrc/fused_pool.cu (pass your own copy
 of an older one beside the repository's to compare the two in one run),
@@ -35,18 +35,30 @@ is the part's cost; "all of these" then means the removals plus that
 addition). The parts
 overlap on the card, so the shares need not add up to the whole.
 
+Each ``--nms SRC`` is a version of csrc/nms.cu, timed at chip_smoke.py's
+check_nms shapes (N 6000 -> 300, 200, 100 at batches 4, 8, 8 and the
+training batch 16 -> 300) on its two inputs (clustered boxes with distinct
+scores; saturated ones, tied at 1.0 and repeated, as a random-weight RPN
+emits them): the kernel on the sorted input (what the proposal op runs),
+and the wrapper's stable sort and gather followed by the kernel (what
+``nms`` runs). Parts: the scan (without it, the mask kernel alone: with
+the scan state cleared, every range's rows in full, so the whole upper
+triangle) and the mask kernel (without it, the scan alone, reading the
+mask the full kernel wrote); the sort and gather alone are timed once per
+input. The full kernel's keep lists are held against nms_plain.
+
 Each ``--im2col SRC`` is a version of csrc/deform_im2col.cu, timed as it is
 at the shapes chip_smoke.py checks it at (x bf16 with C 512 on the C5 maps
 of the three test scales and of training, offsets of +-6 px), with its
 effective write rate.
 
 Times are CUDA events over REPS launches after one warm-up, on one card,
-all versions in one process. With no source named, the repository's four
+all versions in one process. With no source named, the repository's five
 sources are timed.
 
     python3 scripts/profile_torch_kernel_split.py [--pool SRC ...] \
         [--pool-bwd SRC ...] [--im2col SRC ...] [--im2col-bwd SRC ...] \
-        [--reps 10]
+        [--nms SRC ...] [--reps 10]
 """
 
 from __future__ import annotations
@@ -65,8 +77,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import random_rois  # noqa: E402
-from sniper_tpu_torch.ops import cuda, deform  # noqa: E402
+from chip_smoke import NMS_INPUTS, nms_input, random_rois  # noqa: E402
+from sniper_tpu_torch.ops import cuda, deform, nms  # noqa: E402
 
 CSRC = os.path.join(ROOT, "sniper_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -74,6 +86,7 @@ POOL_SIG = [_P] * 4 + [_I] * 9 + [_P]
 POOL_BWD_SIG = [_P] * 6 + [_I] * 8 + [_P]
 IM2COL_SIG = [_P, _P, _P] + [_I] * 8 + [_P]
 IM2COL_BWD_SIG = [_P] * 5 + [_I] * 8 + [_P]
+NMS_SIG = [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P] * 4
 
 # Per kernel: {a line only that version of the source has: [(part removed,
 # [(text, replacement), ...]), ...]}. Each edit keeps the values it no
@@ -197,6 +210,16 @@ VARIANTS = {
             ("gcol reads", [(
                 "Io<T, V>::load_stream(grow + c, gv);",
                 "for (int k = 0; k < V; ++k) gv[k] = (float)(c + k);")]),
+        ],
+    },
+    "nms": {
+        # both designs launch the two kernels from sniper_nms (the second
+        # once per range of tiles)
+        "nms_scan_kernel<<<": [
+            ("the scan", [("  nms_scan_kernel<<<",
+                           "  if (false) nms_scan_kernel<<<")]),
+            ("the mask kernel", [("  nms_mask_kernel<<<",
+                                  "  if (false) nms_mask_kernel<<<")]),
         ],
     },
 }
@@ -430,6 +453,74 @@ def run_im2col_bwd(lib, inputs, reps):
     return lines
 
 
+def nms_inputs(dev, reps):
+    """chip_smoke.py:check_nms's inputs at each shape and input kind: the
+    sorted arrays, the identity order, the plain keep lists, a mask buffer
+    each source's variants share (the full kernel's mask is what the scan
+    alone reads), and the unsorted arrays with the sort's own time."""
+    out = []
+    N, thresh = 6000, 0.7
+    for label, B, H, W, rpi in SHAPES:
+        for kind in NMS_INPUTS:
+            boxes, scores = nms_input(kind, B, N, H * 16, W * 16, 1)
+            boxes, scores = boxes.to(dev), scores.to(dev)
+
+            def sort(boxes=boxes, scores=scores, B=B):
+                s_scores, order = torch.sort(scores, dim=1, descending=True,
+                                             stable=True)
+                return (torch.gather(boxes, 1,
+                                     order[..., None].expand(B, N, 4)),
+                        s_scores, order)
+
+            s_boxes, s_scores, _ = sort()
+            want = nms.nms_plain(s_boxes, s_scores, rpi, thresh)
+            sort_ms = time_ms(sort, reps)
+            # the scratch: the mask, then the scan state (1 + N rows of
+            # stride words and 2 more per image)
+            scratch = torch.empty(nms.scratch_words(B, N), dtype=torch.int64,
+                                  device=dev)
+            stride = (nms.scratch_words(1, N) - 2) // (N + 1)
+            out.append(dict(
+                label=f"{label}, {kind}", B=B, N=N, max_out=rpi,
+                thresh=thresh, sort=sort, sort_ms=sort_ms, s_boxes=s_boxes,
+                s_scores=s_scores, want=want,
+                ident=torch.arange(N, device=dev).expand(B, N).contiguous(),
+                mask=scratch, state=scratch[B * N * stride:],
+                keep=torch.empty(B, rpi, dtype=torch.int32, device=dev),
+                valid=torch.empty(B, rpi, dtype=torch.bool, device=dev)))
+    return out
+
+
+def run_nms(lib, inputs, reps, full):
+    call = _entry(lib, "sniper_nms", NMS_SIG)
+    lines = []
+    for d in inputs:
+        def launch(boxes, scores, order, d=d):
+            call(boxes.data_ptr(), scores.data_ptr(), order.data_ptr(),
+                 d["B"], d["N"], d["max_out"], d["thresh"], nms.NEG_INF / 2,
+                 d["mask"].data_ptr(), d["keep"].data_ptr(),
+                 d["valid"].data_ptr(), stream())
+
+        def with_sort(d=d, launch=launch):
+            launch(*d["sort"]())
+
+        # a cleared scan state: without the scan, every range's mask rows
+        # are computed (no image done, no box removed)
+        d["state"].zero_()
+        ms = time_ms(lambda: launch(d["s_boxes"], d["s_scores"], d["ident"]),
+                     reps)
+        check = ""
+        if full:
+            same = (torch.equal(d["keep"], d["want"][0])
+                    and torch.equal(d["valid"], d["want"][1]))
+            check = (f", keep lists {'identical to' if same else 'DIFFER from'}"
+                     f" nms_plain ({int(d['want'][1].sum())} kept)")
+        sort_ms = time_ms(with_sort, reps)
+        lines.append(f"[{d['label']}]: kernel on sorted input {ms:.4f} ms, "
+                     f"with the sort and gather {sort_ms:.4f} ms{check}")
+    return lines
+
+
 def run_im2col(lib, dev, reps):
     call = _entry(lib, "sniper_deform_im2col", IM2COL_SIG)
     lines = []
@@ -455,21 +546,23 @@ def main() -> int:
     ap.add_argument("--pool-bwd", action="append", default=[])
     ap.add_argument("--im2col", action="append", default=[])
     ap.add_argument("--im2col-bwd", action="append", default=[])
+    ap.add_argument("--nms", action="append", default=[])
     ap.add_argument("--reps", type=int, default=10)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernel_split: needs a CUDA device")
-    if not (a.pool or a.pool_bwd or a.im2col or a.im2col_bwd):
+    if not (a.pool or a.pool_bwd or a.im2col or a.im2col_bwd or a.nms):
         a.pool = [os.path.join(CSRC, "fused_pool.cu")]
         a.pool_bwd = [os.path.join(CSRC, "fused_pool_bwd.cu")]
         a.im2col = [os.path.join(CSRC, "deform_im2col.cu")]
         a.im2col_bwd = [os.path.join(CSRC, "deform_im2col_bwd.cu")]
+        a.nms = [os.path.join(CSRC, "nms.cu")]
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
     jobs = []
     for kind, srcs in (("pool", a.pool), ("pool_bwd", a.pool_bwd),
-                       ("im2col_bwd", a.im2col_bwd)):
+                       ("im2col_bwd", a.im2col_bwd), ("nms", a.nms)):
         for src in srcs:
             with open(src) as f:
                 jobs += [((kind, src, label), text)
@@ -484,8 +577,14 @@ def main() -> int:
         inputs["pool_bwd"] = pool_bwd_inputs(dev)
     if a.im2col_bwd:
         inputs["im2col_bwd"] = im2col_bwd_inputs(dev)
+    if a.nms:
+        inputs["nms"] = nms_inputs(dev, a.reps)
+        for d in inputs["nms"]:
+            print(f"nms sort and gather [{d['label']}]: {d['sort_ms']:.4f} "
+                  f"ms [{card}]")
     names = {"pool": "fused_pool", "pool_bwd": "fused_pool_bwd",
-             "im2col": "deform_im2col", "im2col_bwd": "deform_im2col_bwd"}
+             "im2col": "deform_im2col", "im2col_bwd": "deform_im2col_bwd",
+             "nms": "nms"}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(jobs, tmp)
         for (kind, src, label), lib in libs.items():
@@ -495,6 +594,8 @@ def main() -> int:
                 lines = run_pool_bwd(lib, inputs[kind], a.reps)
             elif kind == "im2col_bwd":
                 lines = run_im2col_bwd(lib, inputs[kind], a.reps)
+            elif kind == "nms":
+                lines = run_nms(lib, inputs[kind], a.reps, label == "full")
             else:
                 lines = run_im2col(lib, dev, a.reps)
             for line in lines:

@@ -149,8 +149,11 @@ def build_test_dataset(cfg):
     if name == "coco":
         from sniper_tpu_torch.data.coco import COCODataset
 
+        # a mask config's test roidb carries gt_masks, cached under the
+        # mask key, as the JAX CLI's does
         return COCODataset(str(cfg.dataset.test_image_set),
-                           cfg.dataset.root_path, cfg.dataset.dataset_path)
+                           cfg.dataset.root_path, cfg.dataset.dataset_path,
+                           load_mask=bool(cfg.TRAIN.WITH_MASK))
     if name == "PascalVOC":
         from sniper_tpu_torch.data.pascal_voc import PascalVOC
 

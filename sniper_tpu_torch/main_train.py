@@ -105,8 +105,20 @@ def build_roidb(cfg, log=print, datasets=None):
     return roidb
 
 
-def check_ported(cfg):
-    """Raise NotImplementedError for the options of later slices."""
+def num_devices(cfg, device) -> int:
+    """parallel.num_devices as the JAX CLI reads it: -1 is every visible
+    device, which is every visible card for a CUDA ``device`` and one
+    for the CPU."""
+    n = int(cfg.parallel.num_devices)
+    if n != -1:
+        return n
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+
+
+def check_ported(cfg, device):
+    """Raise NotImplementedError for the options of later slices, training
+    on ``device`` included."""
     todo = [
         (cfg.TRAIN.WITH_MASK, "the mask branch (TRAIN.WITH_MASK)", 8),
         (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 8),
@@ -117,8 +129,9 @@ def check_ported(cfg):
          "the loader process (TRAIN.LOADER_PROCESS)", 7),
         (str(cfg.network.pretrained or "").strip(),
          "pretrained-weight import (network.pretrained)", 7),
-        (int(cfg.parallel.num_devices) > 1,
-         "data parallelism (parallel.num_devices > 1)", 9),
+        (num_devices(cfg, device) > 1,
+         "data parallelism (parallel.num_devices > 1, or -1 with several "
+         "cards)", 9),
     ]
     for on, what, item in todo:
         if on:
@@ -152,7 +165,7 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     that many steps; ``step_hook(step, metrics)`` runs after every step
     (metrics are 0-d device tensors). Returns the last epoch's metric
     means and the step count."""
-    check_ported(cfg)
+    check_ported(cfg, device)
     model.to(device)
     n_chips = loader.reset()
     log(f"epoch {cfg.TRAIN.begin_epoch}: {n_chips} chips")
@@ -240,7 +253,7 @@ def main(argv=None):
                    help="config overrides: key value ...")
     args = p.parse_args(argv)
     cfg = load_config(args.cfg, args.overrides)
-    check_ported(cfg)
+    check_ported(cfg, args.device)
     logger, out_dir = create_logger(cfg.output_path or "./output",
                                     config_name(args.cfg),
                                     str(cfg.dataset.image_set))

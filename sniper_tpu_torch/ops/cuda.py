@@ -42,8 +42,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # boxes, scores, order, B, N, max_out, thresh, live_above, mask, keep,
-    # valid, stream
+    # boxes, scores, order, B, N, max_out, thresh, live_above, scratch,
+    # keep, valid, stream
     "sniper_nms": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     # x, offsets, col, dtype, B, H, W, C, G, K, dilation, stream
     "sniper_deform_im2col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

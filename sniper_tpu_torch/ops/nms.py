@@ -10,8 +10,10 @@ the batched CUDA kernel.
   ``ovr = 0`` where ``denom <= 0``, the chosen box always retired, only
   scores above NEG_INF/2 selectable; keep [B, max_out] int32 padded with -1,
   plus valid. On a CPU tensor it runs the plain version (nms_jax's
-  argmax/suppress loop, batched); on a CUDA tensor the kernel in
-  csrc/nms.cu.
+  argmax/suppress loop, batched); on a CUDA tensor it sorts and runs the
+  kernel in csrc/nms.cu.
+- ``nms_sorted`` is the same for input that is already sorted (the proposal
+  op's top-k): the kernel runs on it as it is, with no sort.
 """
 
 from __future__ import annotations
@@ -315,35 +317,66 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     return keep, valid
 
 
-def _nms_kernel(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+# the kernel's mask rows are padded to a multiple of 8 words of 64 boxes;
+# its removed words take at most 12 KB of shared memory
+MASK_ROW_WORDS = 8
+MAX_KERNEL_BOXES = 12 * 1024 // 8 * 64
+
+
+def scratch_words(b: int, n: int) -> int:
+    """64-bit words of the kernel's scratch: the suppression mask (n rows
+    of the padded word count per image), then the scan's state (the count,
+    the done flag and the removed words per image)."""
+    words = -(-n // 64)
+    stride = -(-words // MASK_ROW_WORDS) * MASK_ROW_WORDS
+    return b * n * stride + b * (stride + 2)
+
+
+def _nms_kernel(boxes: torch.Tensor, scores: torch.Tensor,
+                order: torch.Tensor | None, max_out: int,
                 thresh: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/nms.cu on sorted boxes and scores; keep indexes the
+    sorted arrays, or ``order`` where it is given."""
     B, N = scores.shape
     cuda.require(boxes, "boxes", torch.float32, (B, N, 4))
     cuda.require(scores, "scores", torch.float32, (B, N))
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned")
     if N < 1 or max_out < 1:
         raise ValueError(f"nms needs N >= 1 and max_out >= 1, got {N}, "
                          f"{max_out}")
-    col_blocks = -(-N // 64)
-    if col_blocks * 8 > 48 * 1024:
-        raise ValueError(f"nms kernel takes at most {48 * 1024 * 8} boxes, "
-                         f"got {N}")
-    # stable descending order: ties keep the lower index first, which is
-    # what nms_jax's argmax picks
-    sorted_scores, order = torch.sort(scores, dim=1, descending=True,
-                                      stable=True)
-    sorted_boxes = torch.gather(
-        boxes, 1, order[..., None].expand(B, N, 4)).contiguous()
-    mask = torch.empty((B, N, col_blocks), dtype=torch.int64,
-                       device=boxes.device)
+    if N > MAX_KERNEL_BOXES:
+        raise ValueError(f"nms kernel takes at most {MAX_KERNEL_BOXES} "
+                         f"boxes, got {N}")
+    if order is not None:
+        cuda.require(order, "order", torch.int64, (B, N))
+    scratch = torch.empty(scratch_words(B, N), dtype=torch.int64,
+                          device=boxes.device)
     keep = torch.empty((B, max_out), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((B, max_out), dtype=torch.bool, device=boxes.device)
     lib = cuda.library()
     cuda.NMS.launches += 1
     cuda.check(lib.sniper_nms(
-        sorted_boxes.data_ptr(), sorted_scores.data_ptr(), order.data_ptr(),
-        B, N, max_out, thresh, NEG_INF / 2, mask.data_ptr(), keep.data_ptr(),
-        valid.data_ptr(), cuda.stream(boxes)), "nms")
+        boxes.data_ptr(), scores.data_ptr(),
+        None if order is None else order.data_ptr(), B, N, max_out, thresh,
+        NEG_INF / 2, scratch.data_ptr(), keep.data_ptr(), valid.data_ptr(),
+        cuda.stream(boxes)), "nms")
     return keep, valid
+
+
+def nms_sorted(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+               thresh: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``nms`` for scores already sorted in descending order, ties in index
+    order and entries at or below NEG_INF/2 last, as a stable descending
+    sort leaves them; keep indexes the arrays given. The kernel does not
+    check the order: on input that is not sorted it answers as if the scan
+    order were the score order.
+
+    boxes [B,N,4], scores [B,N] fp32. CPU tensors take the plain version;
+    CUDA tensors the kernel, which raises on anything it does not take."""
+    if boxes.is_cuda or scores.is_cuda:
+        return _nms_kernel(boxes, scores, None, max_out, thresh)
+    return nms_plain(boxes, scores, max_out, thresh)
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
@@ -351,7 +384,14 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     """Batched greedy NMS with nms_jax's contract (module docstring).
 
     boxes [B,N,4], scores [B,N] fp32. CPU tensors take the plain version;
-    CUDA tensors the kernel, which raises on anything it does not take."""
-    if boxes.is_cuda or scores.is_cuda:
-        return _nms_kernel(boxes, scores, max_out, thresh)
-    return nms_plain(boxes, scores, max_out, thresh)
+    CUDA tensors a stable descending sort (ties keep the lower index first,
+    which is what nms_jax's argmax picks), then the kernel of
+    ``nms_sorted``, which raises on anything it does not take."""
+    if not (boxes.is_cuda or scores.is_cuda):
+        return nms_plain(boxes, scores, max_out, thresh)
+    B, N = scores.shape
+    cuda.require(boxes, "boxes", torch.float32, (B, N, 4))
+    sorted_scores, order = torch.sort(scores, dim=1, descending=True,
+                                      stable=True)
+    sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(B, N, 4))
+    return _nms_kernel(sorted_boxes, sorted_scores, order, max_out, thresh)

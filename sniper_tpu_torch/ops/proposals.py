@@ -6,8 +6,9 @@ explicit tensor ops in place of ``jax.vmap``:
 
 - ``proposals``: decode -> clip -> min-size filter -> top-k -> greedy NMS ->
   a fixed ``post_nms`` boxes per image. The top-k keeps ``lax.top_k``'s tie
-  order (lower index first). The NMS is ``ops.nms.nms``: the CUDA kernel for
-  CUDA tensors, the plain version on the CPU.
+  order (lower index first), so its output is already in NMS order: the NMS
+  is ``ops.nms.nms_sorted``, the CUDA kernel for CUDA tensors without a
+  second sort, the plain version on the CPU.
 - ``multi_proposal_target``: the same proposals, with the GT boxes appended
   as candidates, labelled by IoU matching under SNIPER's per-chip valid
   ranges, then a stratified fg/bg sample of ``num_rois`` per image with
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from sniper_tpu_torch.ops.boxes import bbox_pred, bbox_transform, clip_boxes
-from sniper_tpu_torch.ops.nms import NEG_INF, nms
+from sniper_tpu_torch.ops.nms import NEG_INF, nms_sorted
 
 
 def _decode(fg_probs, deltas, im_info, anchors, min_size):
@@ -59,8 +60,10 @@ def select(props, scores, *, pre_nms, post_nms, thresh):
     # decides which boxes survive
     top_scores, top_idx = _top_k(scores, k)
     top_props = torch.gather(props, 1, top_idx[..., None].expand(B, k, 4))
-    keep, valid = nms(top_props.contiguous(), top_scores.contiguous(),
-                      post_nms, thresh)
+    # sorted as nms_sorted takes it: descending, ties in index order, the
+    # NEG_INF of filtered boxes last
+    keep, valid = nms_sorted(top_props, top_scores.contiguous(), post_nms,
+                             thresh)
     safe = keep.clamp_min(0).long()
     boxes = torch.where(
         valid[..., None],

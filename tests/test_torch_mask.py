@@ -175,6 +175,26 @@ def _synth_coco(root, n_images=2):
                    "categories": cats}, f)
 
 
+def test_mask_config_test_roidb_carries_masks(tmp_path):
+    """build_test_dataset reads a mask config's test set with its masks,
+    cached under the mask key, as the JAX CLI does."""
+    from sniper_tpu_torch.main_test import build_test_dataset
+
+    cfg = load_config(os.path.join(ROOT, "configs",
+                                   "sniper_res101_e2e_mask.yml"))
+    assert cfg.dataset.dataset == "coco" and cfg.TRAIN.WITH_MASK
+    cfg.dataset.test_image_set = "val"
+    cfg.dataset.root_path = str(tmp_path)
+    cfg.dataset.dataset_path = str(tmp_path)
+    _synth_coco(str(tmp_path))
+    roidb = build_test_dataset(cfg).gt_roidb()
+    assert len(roidb) == 2
+    for entry in roidb:
+        assert len(entry["gt_masks"]) == len(entry["boxes"]) == 3
+    assert [os.path.basename(p) for p in glob.glob(
+        str(tmp_path / "cache" / "*.pkl"))] == ["COCO_val_gt_roidb_mask.pkl"]
+
+
 def test_run_detection_with_masks(tmp_path):
     """The mask config's inference chain on the CPU: detection with masks
     at two scales, aggregation, then both COCO evaluations of the port's

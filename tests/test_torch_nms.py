@@ -1,9 +1,10 @@
 """The port's NMS and proposal op against the JAX package, on the CPU.
 
 Inputs come from a numpy seed and go through both frameworks in fp32.
-Boxes carry no tied scores: nms_jax's first-index tie rule holds in both,
-but lax.top_k's and torch.topk's tie orders differ. Keep lists must be
-identical (the plain torch NMS computes the IoU in nms_jax's fp32 order).
+Keep lists must be identical (the plain torch NMS computes the IoU in
+nms_jax's fp32 order). Tied scores, repeated and inverted boxes, as a
+random-weight RPN emits them, enter the sorted entry's cases, whose order
+is fixed by a stable sort before either framework sees it.
 
 The proposal op is held in two halves. The box decode agrees to fp32
 rounding (exp differs in the last ulp between XLA and torch): atol 1e-3 px,
@@ -172,15 +173,184 @@ def test_multi_proposal_matches_jax(rng, min_size):
                                   .reshape(B, post_nms))
 
 
+def _tied_batch(rng, b, n, hw=(256, 256)):
+    """As a random-weight RPN emits boxes: 40% repeats of 12 boxes per
+    image (the whole canvas among them), 1% inverted (area <= 0), half the
+    scores exactly 1.0 and a third on a 1/256 grid below it."""
+    h, w = hw
+    dets = np.stack([random_boxes(rng, n, hw=hw, max_size=min(h, w) // 2)
+                     for _ in range(b)])
+    reps = dets[:, :12, :4].copy()
+    reps[:, 0] = [0.0, 0.0, w - 1.0, h - 1.0]
+    u = rng.uniform(size=(b, n))
+    pick = rng.randint(0, 12, (b, n))
+    dets[..., :4] = np.where((u < 0.4)[..., None],
+                             np.take_along_axis(reps, pick[..., None], 1),
+                             dets[..., :4])
+    inv = u > 0.99
+    dets[inv, :4] = dets[inv][:, [2, 3, 0, 1]] - 2.0
+    v = rng.uniform(size=(b, n))
+    dets[..., 4] = np.where(
+        v < 0.5, 1.0, np.where(v < 0.8, 1.0 - rng.randint(1, 26, (b, n))
+                               / 256.0, dets[..., 4]))
+    return dets
+
+
+def _nms_case(rng, kind, b, n, hw=(256, 256)):
+    """[b, n, 5] boxes and scores: "distinct" scores, "tied" (_tied_batch)
+    or "padded" (tied, with all but a sixth of each image at NEG_INF;
+    "half-padded": all but a half)."""
+    if kind == "distinct":
+        return _boxes_batch(rng, b, n, hw)
+    dets = _tied_batch(rng, b, n, hw)
+    if kind.endswith("padded"):
+        dets[:, n // (2 if kind == "half-padded" else 6):, 4] = jnms.NEG_INF
+        for d in dets:
+            rng.shuffle(d)
+    return dets
+
+
+def _sorted(dets):
+    """dets sorted as the proposal op's top-k leaves them: descending,
+    ties in index order, NEG_INF last; and the order."""
+    order = np.argsort(-dets[..., 4], axis=1, kind="stable")
+    return np.take_along_axis(dets, order[..., None], 1), order
+
+
+def _nms_both(fn, dets, max_out, thresh, dev="cpu"):
+    t = torch.from_numpy(np.ascontiguousarray(dets)).to(dev)
+    return fn(t[..., :4].contiguous(), t[..., 4].contiguous(), max_out,
+              thresh)
+
+
+def _threshold_pairs(rng, k, thresh=0.7):
+    """[k, 2, 5] images of two boxes of one size, the second shifted by dx
+    near the shift at which their IoU is thresh, kept where the fp32 IoU
+    in nms_jax's order lies within 3 ulps of thresh: ties at the threshold
+    and its neighbours on both sides."""
+    w = rng.uniform(20, 500, 40 * k).astype(np.float32)
+    h = rng.uniform(20, 500, 40 * k).astype(np.float32)
+    t = np.float32(thresh)
+    dx0 = (w * (1 - t) / (1 + t)).astype(np.float32)
+    dx = (dx0 + rng.randint(-40, 41, 40 * k) * np.spacing(dx0)).astype(
+        np.float32)
+    one = np.float32(1)
+    a = np.stack([np.zeros_like(w), np.zeros_like(w), w - one, h - one], 1)
+    b = np.stack([dx, np.zeros_like(w), dx + w - one, h - one], 1)
+    iw = np.maximum(np.float32(0), np.minimum(a[:, 2], b[:, 2])
+                    - np.maximum(a[:, 0], b[:, 0]) + one)
+    ih = np.maximum(np.float32(0), np.minimum(a[:, 3], b[:, 3])
+                    - np.maximum(a[:, 1], b[:, 1]) + one)
+    inter = iw * ih
+    area_a = (a[:, 2] - a[:, 0] + one) * (a[:, 3] - a[:, 1] + one)
+    area_b = (b[:, 2] - b[:, 0] + one) * (b[:, 3] - b[:, 1] + one)
+    ovr = inter / (area_a + area_b - inter)
+    ulps = np.abs(ovr.view(np.int32) - t.view(np.int32))
+    pick = np.flatnonzero(ulps <= 3)[:k]
+    dets = np.zeros((len(pick), 2, 5), np.float32)
+    dets[:, 0, :4], dets[:, 1, :4] = a[pick], b[pick]
+    dets[:, :, 4] = [1.0, 0.5]
+    return dets, ovr[pick]
+
+
+@pytest.mark.parametrize("kind", ["distinct", "tied", "padded"])
+def test_sorted_entry_matches_nms_and_jax(rng, kind):
+    """nms_sorted on sorted input (its CPU route) gives nms's and
+    nms_jax's keep lists; on the unsorted input nms keeps the same boxes,
+    by their original indices. N = 300 is not a multiple of 64; in
+    "padded" max_out is above the live count."""
+    dets = _nms_case(rng, kind, 2, 300)
+    sdets, order = _sorted(dets)
+    ks, vs = _nms_both(tnms.nms_sorted, sdets, 64, 0.7)
+    kn, vn = _nms_both(tnms.nms, sdets, 64, 0.7)
+    np.testing.assert_array_equal(ks.numpy(), kn.numpy())
+    np.testing.assert_array_equal(vs.numpy(), vn.numpy())
+    for i in range(2):
+        jk, jv = _jax_keep(sdets[i], 64, 0.7)
+        np.testing.assert_array_equal(ks[i].numpy(), jk)
+        np.testing.assert_array_equal(vs[i].numpy(), jv)
+    ku, vu = _nms_both(tnms.nms, dets, 64, 0.7)
+    mapped = np.take_along_axis(order, ks.clamp_min(0).long().numpy(), 1)
+    np.testing.assert_array_equal(ku.numpy(),
+                                  np.where(vs.numpy(), mapped, -1))
+    np.testing.assert_array_equal(vu.numpy(), vs.numpy())
+    if kind == "padded":
+        assert not vs.numpy()[:, -1].any()
+    if kind == "tied":
+        assert (sdets[..., 4] == 1.0).mean() > 0.4
+
+
+# (B, N, max_out, input, canvas): the earlier random case, the main path's
+# shapes (the three test scales and training), and the edges: N not a
+# multiple of 64, N = 1, max_out above the live count, scans past 1024
+# boxes
+NMS_KERNEL_CASES = {
+    "random-3x3000": (3, 3000, 300, "distinct", (800, 1200)),
+    **{f"{label}-{kind}": (b, 6000, m, kind, (1408, 2048))
+       for label, b, m in (("scale0", 4, 300), ("scale1", 8, 200),
+                           ("scale2", 8, 100), ("training", 16, 300))
+       for kind in ("distinct", "tied")},
+    "n1000-tied": (2, 1000, 300, "tied", (256, 256)),
+    "n1": (1, 1, 5, "distinct", (256, 256)),
+    "n700-padded": (3, 700, 300, "padded", (256, 256)),
+    # scans that run on past the first range of tiles the kernel resumes
+    # from its saved state: to the last tile, and to a dead box in tile 5
+    "n6000-deep": (2, 6000, 6000, "distinct", (4096, 4096)),
+    "n6000-half-padded": (2, 6000, 3000, "half-padded", (4096, 4096)),
+}
+
+
+def test_plain_nms_at_the_threshold(rng):
+    """nms_plain against nms_jax on pairs whose IoU ties the threshold or
+    misses it by an ulp or two: the kernel's cases below."""
+    dets, ovr = _threshold_pairs(rng, 256)
+    assert (ovr == np.float32(0.7)).any() and (ovr < np.float32(0.7)).any()
+    keep, valid = _nms_both(tnms.nms_sorted, dets, 2, 0.7)
+    np.testing.assert_array_equal(valid[:, 1].numpy(),
+                                  ovr < np.float32(0.7))
+    for i in range(0, len(dets), 37):
+        jk, jv = _jax_keep(dets[i], 2, 0.7)
+        np.testing.assert_array_equal(keep[i].numpy(), jk)
+
+
 @pytest.mark.cuda
-def test_nms_kernel_matches_plain(rng):
+def test_nms_kernel_exact_at_the_threshold(rng):
+    """The kernel's IoU rounds as nms_plain's does (no FMA contraction):
+    4096 two-box images at, and an ulp or two around, IoU 0.7."""
     dev = cuda_or_skip()
-    dets = _boxes_batch(rng, 3, 3000, hw=(800, 1200))
-    boxes = torch.from_numpy(dets[..., :4].copy()).to(dev)
-    scores = torch.from_numpy(dets[..., 4].copy()).to(dev)
-    k1, v1 = tnms.nms(boxes, scores, 300, 0.7)
-    k2, v2 = tnms.nms_plain(boxes, scores, 300, 0.7)
+    dets, ovr = _threshold_pairs(rng, 4096)
+    assert len(dets) > 1000 and (ovr == np.float32(0.7)).sum() > 50
+    k1, v1 = _nms_both(tnms.nms_sorted, dets, 2, 0.7, dev)
+    k2, v2 = _nms_both(tnms.nms_plain, dets, 2, 0.7, dev)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [-0.5, 0.0, 0.3, 1.0, 1.5])
+def test_nms_kernel_thresholds(rng, thresh):
+    """Thresholds at which every pair suppresses (<= 0: empty
+    intersections too), the usual ones, and those that leave every box
+    (> 1), on tied input with inverted boxes."""
+    dev = cuda_or_skip()
+    dets = _nms_case(rng, "tied", 3, 700)
+    for fn, d in ((tnms.nms, dets), (tnms.nms_sorted, _sorted(dets)[0])):
+        k1, v1 = _nms_both(fn, d, 100, thresh, dev)
+        k2, v2 = _nms_both(tnms.nms_plain, d, 100, thresh, dev)
+        assert torch.equal(k1, k2) and torch.equal(v1, v2), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(NMS_KERNEL_CASES))
+def test_nms_kernel_matches_plain(rng, case):
+    """Both entries' kernel against nms_plain: nms on the unsorted input,
+    nms_sorted on it sorted."""
+    dev = cuda_or_skip()
+    b, n, max_out, kind, hw = NMS_KERNEL_CASES[case]
+    dets = _nms_case(rng, kind, b, n, hw)
+    for fn, d in ((tnms.nms, dets), (tnms.nms_sorted, _sorted(dets)[0])):
+        k1, v1 = _nms_both(fn, d, max_out, 0.7, dev)
+        k2, v2 = _nms_both(tnms.nms_plain, d, max_out, 0.7, dev)
+        assert torch.equal(k1, k2) and torch.equal(v1, v2), fn.__name__
 
 
 @pytest.mark.cuda
@@ -189,3 +359,9 @@ def test_nms_kernel_rejects_what_it_does_not_take():
     boxes = torch.zeros(1, 10, 4, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
         tnms.nms(boxes, torch.zeros(1, 10, device=dev), 5, 0.5)
+    with pytest.raises(ValueError):
+        tnms.nms_sorted(boxes, torch.zeros(1, 10, device=dev), 5, 0.5)
+    flat = torch.zeros(41, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tnms.nms_sorted(flat[1:].view(1, 10, 4), torch.zeros(1, 10, device=dev),
+                        5, 0.5)

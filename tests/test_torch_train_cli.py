@@ -15,7 +15,12 @@ import torch
 
 from sniper_tpu.config import default_config
 from sniper_tpu_torch.data.loader import ChipLoader
-from sniper_tpu_torch.main_train import build_roidb, check_ported, run_training
+from sniper_tpu_torch.main_train import (
+    build_roidb,
+    check_ported,
+    num_devices,
+    run_training,
+)
 from sniper_tpu_torch.train.checkpoint import latest_epoch
 from torch_port import TINY, synth_image_loader, tiny_torch_detector
 
@@ -114,4 +119,22 @@ def test_unported_training_options_raise(key, value, item):
     group, name = key.split(".")
     setattr(getattr(cfg, group), name, value)
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        check_ported(cfg)
+        check_ported(cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("count", [1, 2])
+def test_all_devices_resolves_to_the_visible_cards(monkeypatch, count):
+    """parallel.num_devices = -1 is every visible card on a CUDA device
+    (the JAX CLI's reading) and one device on the CPU; more than one
+    raises until data parallelism is ported."""
+    cfg = make_cfg()
+    cfg.parallel.num_devices = -1
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    assert num_devices(cfg, "cuda") == count
+    assert num_devices(cfg, torch.device("cpu")) == 1
+    check_ported(cfg, torch.device("cpu"))
+    if count > 1:
+        with pytest.raises(NotImplementedError, match="data parallelism"):
+            check_ported(cfg, torch.device("cuda", 0))
+    else:
+        check_ported(cfg, torch.device("cuda", 0))
