@@ -43,20 +43,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    and peak memory: a smoke reading.
 5. Training at full R101 width: (a) one step's losses and named gradients,
    kernel path against plain path, on 2 chips of 256x256 with an fp32
-   trunk; (b) the port's
-   run_training from its ChipLoader over synthetic images at
-   BATCH_IMAGES 16 and 512x512 chips, WARMUP_STEPS then TIMED_STEPS steps,
-   with the counters zeroed just before and read after the warm-up and at
-   the end: every step's losses, the step times on the host clock (a smoke
-   reading), chips per second, peak memory, the loader's own time per
-   batch and the launches of the five kernels training runs (all but the
-   patch extraction) over the timed steps.
+   trunk; then the flagship recipe of configs/sniper_res101_e2e.yml
+   (scripts/train_neg_props_and_sniper.sh's phases) over N_TRAIN_IMAGES
+   synthetic images at BATCH_IMAGES 16 and 512x512 chips:
+   (r1) a synthetic ImageNet-style R101 backbone written as an MXNet
+   .params file and imported with load_pretrained, every loaded tensor
+   held against the file; (r2) RPN-only training (TRAIN.ONLY_PROPOSAL):
+   the one-step check of (a) for the RPN-only detector, then run_training
+   from the imported backbone, its checkpoint written; (r3) proposal
+   extraction (TEST.EXTRACT_PROPOSALS) from that checkpoint, restored by
+   restore_inference_state, over the training images at the three test
+   scales, the kernel path against the plain path on a small batch first;
+   (r4) the recipe's SNIPER training from the same backbone with negative
+   chips mined from the extracted proposals, twice with the same steps:
+   the thread loader, then the loader process (TRAIN.LOADER_PROCESS). Each
+   run_training takes WARMUP_STEPS then TIMED_STEPS steps, with the counters
+   zeroed just before and read after every step: every step's losses, the
+   step times on the host clock (a smoke reading), chips per second, peak
+   memory, the loader's own time per batch and the kernels' launches.
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches from the mask inference run, or from the training run for the two
-backward kernels, with every path's counts beside them); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script raises at
-once.
+launches from the mask inference run, or from the recipe's training run
+for the two backward kernels, with every path's counts beside them); the
+last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script raises at once.
 """
 
 from __future__ import annotations
@@ -82,8 +92,10 @@ MASK_REPS = 5  # the same for phase 4 (c)
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
-N_TRAIN_IMAGES = 40  # synthetic roidb of phase 5 (b), before flips
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+N_TRAIN_IMAGES = 40  # synthetic roidb of the recipe, before flips
+# 25 timed steps: the ~4 batches the loaders buffer during the warm-up
+# weigh little in the median
+WARMUP_STEPS, TIMED_STEPS = 3, 25
 
 
 def card_line() -> str:
@@ -1086,7 +1098,7 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: training
+# phase 5: training, the flagship recipe
 # ---------------------------------------------------------------------------
 
 TRAIN_SIZES = ((480, 640), (640, 480), (600, 800), (375, 500), (768, 1024),
@@ -1094,7 +1106,8 @@ TRAIN_SIZES = ((480, 640), (640, 480), (600, 800), (375, 500), (768, 1024),
 
 
 def synth_train_image(name: str) -> np.ndarray:
-    """A deterministic BGR image for roidb entry 't<i>:<h>x<w>'."""
+    """A deterministic BGR image for roidb entry 't<i>:<h>x<w>' (module
+    level: the loader process unpickles it)."""
     i, hw = name.split(":")
     h, w = (int(v) for v in hw.split("x"))
     rng = np.random.RandomState(2000 + int(i.removeprefix("t")))
@@ -1139,40 +1152,44 @@ class SynthTrainDataset:
             })
         return roidb
 
-    def write_proposals(self, path: str, roidb) -> None:
-        """RPN proposals for negative-chip mining, as a proposal file."""
-        import pickle
-
-        rng = np.random.RandomState(8)
-        boxes = []
-        for r in roidb:
-            n = 300
-            w, h = r["width"], r["height"]
-            s = np.exp(rng.uniform(np.log(16), np.log(0.7 * min(w, h)), n))
-            x1, y1 = rng.uniform(0, w - s - 1), rng.uniform(0, h - s - 1)
-            boxes.append(np.stack([x1, y1, x1 + s, y1 + s, rng.rand(n)], 1)
-                         .astype(np.float32))
-        with open(path, "wb") as f:
-            pickle.dump({"boxes": boxes}, f)
-
 
 def train_cfg(cfg):
     """The yml's training settings at full width, with this run's cuts: one
-    epoch, no pretrained weights (their import is not ported), proposals
-    from ``proposal_path`` set by the caller."""
+    epoch, and the synthetic image set's name."""
     import copy
 
     cfg = copy.deepcopy(cfg)
-    cfg.network.pretrained = ""
     cfg.TRAIN.begin_epoch, cfg.TRAIN.end_epoch = 0, 1
+    cfg.dataset.image_set = SynthTrainDataset.name
     return cfg
 
 
-# leaves whose gradients phase 5 (a) compares, kernel path against plain
-# path: the head, and trunk leaves that the backward kernels feed
+def recipe_cfgs(cfg, tmp: str):
+    """(phase 1 and 2's config, phase 3's), as the README's commands set
+    them: phase 1 ``TRAIN.ONLY_PROPOSAL True TRAIN.USE_NEG_CHIPS False``;
+    phase 2 also ``TEST.EXTRACT_PROPOSALS True``, ``TEST.TEST_EPOCH`` the
+    epoch phase 1 wrote and ``dataset.test_image_set`` the training set;
+    phase 3 the yml's, reading the proposals phase 2 wrote."""
+    import copy
+
+    cfg.output_path = os.path.join(tmp, "output")
+    cfg.proposal_path = os.path.join(tmp, "proposals")
+    rpn = copy.deepcopy(cfg)
+    rpn.TRAIN.ONLY_PROPOSAL, rpn.TRAIN.USE_NEG_CHIPS = True, False
+    rpn.TEST.EXTRACT_PROPOSALS = True
+    rpn.TEST.TEST_EPOCH = rpn.TRAIN.end_epoch
+    rpn.dataset.test_image_set = SynthTrainDataset.name
+    rpn.TEST.PROPOSAL_SAVE_PATH = cfg.proposal_path
+    return rpn, cfg
+
+
+# leaves whose gradients the one-step checks compare, kernel path against
+# plain path: the head, and trunk leaves that the backward kernels feed
 HEAD_LEAVES = ("rcnn.offset.weight", "rcnn.offset.bias",
                "rcnn.fc_new_1.weight", "rcnn.cls_score.weight")
-TRUNK_LEAVES = ("conv_new_1.weight", "trunk.stage4_unit3.offset.weight",
+RPN_LEAVES = ("rpn.rpn_conv_3x3.weight", "rpn.rpn_cls_score.weight",
+              "rpn.rpn_bbox_pred.weight")
+TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
                 "trunk.stage4_unit1.conv2_weight",
                 "trunk.stage3_unit23.conv1.weight",
                 "trunk.stage2_unit1.bn1.weight")
@@ -1183,14 +1200,16 @@ TRUNK_LEAVES = ("conv_new_1.weight", "trunk.stage4_unit3.offset.weight",
 STEP_LOSS_REL, HEAD_GRAD_REL, TRUNK_GRAD_REL = 1e-5, 1e-4, 1e-4
 
 
-def train_step_check(dev, cfg) -> bool:
-    """(a) One training forward and backward on 2 chips of 256x256 at full
+def train_step_check(dev, cfg, tag: str) -> bool:
+    """One training forward and backward on 2 chips of 256x256 at full
     width, once through the kernels and once through their plain versions
-    on the card, from the same weights, batch and sampler priorities. The
-    trunk runs in fp32 here, so that a fixed bound holds: in bf16 one
-    rounding step apart early in the backward decorrelates every later
-    bf16 rounding of the trunk's gradients (phase 2 holds each kernel
-    against its plain version in bf16, and (b) trains in bf16)."""
+    on the card, from the same weights, batch and sampler priorities: the
+    detector of ``cfg`` (RPN-only under TRAIN.ONLY_PROPOSAL, where only the
+    DCN im2col and its backward differ between the paths). The trunk runs
+    in fp32 here, so that a fixed bound holds: in bf16 one rounding step
+    apart early in the backward decorrelates every later bf16 rounding of
+    the trunk's gradients (phase 2 holds each kernel against its plain
+    version in bf16, and the recipe's runs train in bf16)."""
     import copy
 
     from sniper_tpu_torch.models.init import init_detector
@@ -1200,6 +1219,7 @@ def train_step_check(dev, cfg) -> bool:
 
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.bf16 = False
+    rpn_only = bool(cfg.TRAIN.ONLY_PROPOSAL)
     model = init_detector(get_model(cfg), seed=0).to(dev).train()
     for name, p in model.named_parameters():
         p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
@@ -1227,17 +1247,19 @@ def train_step_check(dev, cfg) -> bool:
     pri = (torch.rand(B, n_cand, generator=g).to(dev),
            torch.rand(B, n_cand, generator=g).to(dev))
     params = dict(model.named_parameters())
+    heads = RPN_LEAVES if rpn_only else HEAD_LEAVES
+    trunk = TRUNK_LEAVES if rpn_only else ("conv_new_1.weight",) + TRUNK_LEAVES
 
     def one_step():
         model.zero_grad(set_to_none=True)
         out = model(batch["data"], batch["im_info"], batch["gt_boxes"],
                     batch["valid_ranges"], train=True, priorities=pri)
-        _, m = total_loss(out, batch, B, cfg.TRAIN.RPN_BATCH_SIZE)
+        _, m = total_loss(out, batch, B, cfg.TRAIN.RPN_BATCH_SIZE,
+                          rpn_only=rpn_only)
         m["loss"].backward()
         torch.cuda.synchronize()
         return ({k: float(v.detach()) for k, v in m.items()},
-                {k: params[k].grad.float().clone()
-                 for k in HEAD_LEAVES + TRUNK_LEAVES})
+                {k: params[k].grad.float().clone() for k in heads + trunk})
 
     torch.backends.cudnn.deterministic = True
     try:
@@ -1254,77 +1276,129 @@ def train_step_check(dev, cfg) -> bool:
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
     parts = []
-    for names, base in ((HEAD_LEAVES, HEAD_GRAD_REL),
-                        (TRUNK_LEAVES, TRUNK_GRAD_REL)):
+    for names, base in ((heads, HEAD_GRAD_REL), (trunk, TRUNK_GRAD_REL)):
         for k in names:
             e = rel(gk[k], gp[k])
             ok &= e <= base and float(gp[k].norm()) > 0
             parts.append(f"{k} {e:.2e}")
-    print(f"train (a) 2 chips of {S}x{S}, fp32 trunk, one forward and "
+    print(f"{tag} 2 chips of {S}x{S}, fp32 trunk, one forward and "
           f"backward, kernel path vs plain path on the card: losses {mk}; "
           f"max relative loss error {loss_err:.2e} (tolerance "
           f"{STEP_LOSS_REL}); gradients, relative L2 error, tolerance "
-          f"{HEAD_GRAD_REL} (head) and {TRUNK_GRAD_REL} (trunk leaves): "
-          f"{'; '.join(parts)}: {'PASS' if ok else 'FAIL'}")
+          f"{HEAD_GRAD_REL} ({'RPN' if rpn_only else 'head'}) and "
+          f"{TRUNK_GRAD_REL} (trunk leaves): {'; '.join(parts)}: "
+          f"{'PASS' if ok else 'FAIL'}")
     del model
     torch.cuda.empty_cache()
     return ok
 
 
-def loader_ms_per_batch(roidb, cfg, n=4) -> float:
-    """The chip loader's own time per batch: a fresh loader's epoch
-    re-roll aside, n batches assembled on the host, no device."""
-    import copy
+def synthetic_backbone(model, path: str) -> dict:
+    """An ImageNet-style R101 backbone as an MXNet .params file: seeded
+    arrays under the trunk's MXNet names and layouts (convs N(0, 1/fan_in),
+    BatchNorm near identity), no offset or detection-layer names, plus the
+    1000-way classifier the reference's backbones carry. Returns the
+    arrays."""
+    from sniper_tpu_torch.train.pretrained import (
+        mapping_rows,
+        save_mxnet_params,
+    )
 
-    from sniper_tpu_torch.data.loader import ChipLoader
+    rng = np.random.RandomState(101)
+    state = model.state_dict()
+    flat = {}
+    for key, mx in mapping_rows(model):
+        if not key.startswith("trunk.") or "_offset_" in mx:
+            continue
+        shape = tuple(state[key].shape)
+        if mx.endswith("_weight"):
+            a = rng.randn(*shape) / math.sqrt(np.prod(shape[1:]))
+        elif mx.endswith("_moving_var"):
+            a = rng.uniform(0.8, 1.2, shape)
+        elif mx.endswith("_gamma"):
+            a = 1.0 + 0.05 * rng.randn(*shape)
+        else:  # beta, moving_mean
+            a = 0.05 * rng.randn(*shape)
+        flat[f"{'aux' if '_moving_' in mx else 'arg'}:{mx}"] = a.astype(
+            np.float32)
+    flat["arg:fc1_weight"] = (rng.randn(1000, 2048) * 0.01).astype(np.float32)
+    flat["arg:fc1_bias"] = np.zeros(1000, np.float32)
+    save_mxnet_params(path, flat)
+    return {k[4:]: v for k, v in flat.items()}
 
-    loader = ChipLoader(copy.deepcopy(roidb), cfg, cfg.TRAIN.BATCH_IMAGES,
-                        image_loader=synth_train_image, seed=1)
-    loader.reset()
-    it = iter(loader)
-    next(it)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        next(it)
-    return (time.perf_counter() - t0) * 1e3 / n
 
-
-def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
-    """Returns (ok, {kernel name: launches in run_training})."""
-    from sniper_tpu_torch.data.loader import ChipLoader
-    from sniper_tpu_torch.main_train import build_roidb, run_training
+def pretrained_import(cfg, tmp: str) -> tuple[bool, str]:
+    """(r1) Write the synthetic backbone, import it into the RPN-only R101
+    with load_pretrained, and hold every loaded tensor against the file.
+    Returns (ok, the network.pretrained prefix)."""
     from sniper_tpu_torch.models.init import init_detector
     from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    prefix = os.path.join(tmp, "resnet_mx_101")
+    path = f"{prefix}-0000.params"
+    model = init_detector(get_model(cfg), seed=0)
+    flat = synthetic_backbone(model, path)
+    cfg.network.pretrained = prefix
+    t0 = time.perf_counter()
+    report = load_pretrained(cfg, model, lambda m: print(f"recipe (r1) {m}"))
+    secs = time.perf_counter() - t0
+    state = model.state_dict()
+    equal = all(np.array_equal(state[key].numpy(), flat[mx])
+                for key, mx in report.loaded)
+    trunk = sum(1 for k in state if k.startswith("trunk."))
+    classifier = ["fc1_bias", "fc1_weight"]  # in the file, not in the model
+    ok = (equal and not report.mismatched
+          and len(report.loaded) == len(flat) - len(classifier)
+          and report.unmapped_keys == classifier)
+    kept = sorted(k for k, _ in report.missing)
+    print(f"recipe (r1) pretrained import of a synthetic ImageNet-style R101 "
+          f"backbone ({os.path.getsize(path) / 2**20:.1f} MB MXNet .params, "
+          f"seeded, no weights downloaded) into the RPN-only detector: "
+          f"{len(report.loaded)} tensors loaded (of {trunk} trunk tensors), "
+          f"{len(kept)} kept at init ({kept[:4]} ...), "
+          f"{len(report.unmapped_keys)} unused {report.unmapped_keys}, "
+          f"{secs:.2f} s; every loaded tensor equal to the file's "
+          f"{equal}; FIXED_PARAMS {list(cfg.network.FIXED_PARAMS)} verified: "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok, prefix
+
+
+def loader_ms_per_batch(roidb, cfg, n=8) -> float:
+    """The chip loader's own time per batch (in a spawned process under
+    TRAIN.LOADER_PROCESS): a fresh loader's epoch re-roll aside, n batches
+    assembled on the host, no device."""
+    import copy
+
+    from sniper_tpu_torch.main_train import make_loader
+
+    loader = make_loader(copy.deepcopy(roidb), cfg, 1,
+                         image_loader=synth_train_image)
+    try:
+        loader.reset()
+        it = iter(loader)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        it.close()
+    finally:
+        loader.close()
+    return ms
+
+
+def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
+                   out_dir=None, every_step=(), idle=()):
+    """run_training for WARMUP_STEPS + TIMED_STEPS steps with the launch
+    counters zeroed just before and read after every step. Passes when the
+    losses are finite, every kernel of ``every_step`` launched at every
+    step, every other training kernel in the timed steps unless it is in
+    ``idle``, whose kernels must not launch at all. Returns (ok, launches
+    over the whole run, median ms per step)."""
+    from sniper_tpu_torch.main_train import run_training
     from sniper_tpu_torch.ops import cuda
 
-    cfg = train_cfg(cfg)
-    ok = train_step_check(dev, cfg)
-
-    # (b) run_training from the port's ChipLoader
-    ds = SynthTrainDataset()
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg.proposal_path = tmp
-        ds.write_proposals(os.path.join(tmp, f"{ds.name}_rpn.pkl"),
-                           ds.gt_roidb())
-        roidb = build_roidb(cfg, lambda m: print(f"train (b) {m}"),
-                            datasets=[ds])
-    bs = cfg.TRAIN.BATCH_IMAGES
-    print(f"train (b) loader: {loader_ms_per_batch(roidb, cfg):.1f} ms per "
-          f"batch of {bs} chips of {cfg.TRAIN.CHIP_SIZE}x"
-          f"{cfg.TRAIN.CHIP_SIZE} on the host (NUM_THREAD "
-          f"{cfg.TRAIN.NUM_THREAD})")
-    loader = ChipLoader(roidb, cfg, bs, image_loader=synth_train_image,
-                        seed=0)
-    model = init_detector(get_model(cfg), seed=0)
-    print(f"train (b) {CONFIG}: units {model.trunk.units}, "
-          f"{cfg.dataset.NUM_CLASSES} classes, {cfg.network.NUM_ANCHORS} "
-          f"anchors, BATCH_IMAGES {bs}, chips {cfg.TRAIN.CHIP_SIZE}, "
-          f"pre/post-NMS {cfg.TRAIN.RPN_PRE_NMS_TOP_N}/"
-          f"{cfg.TRAIN.RPN_POST_NMS_TOP_N}, {model.num_rois} rois per chip, "
-          f"FG_FRACTION {cfg.TRAIN.FG_FRACTION}, trunk dtype {model.dtype}, "
-          f"FIXED_PARAMS {list(cfg.network.FIXED_PARAMS)}; seeded random "
-          f"weights (the offset convs and the head's offset FC at zero, as "
-          f"the flax init)")
     n_steps = WARMUP_STEPS + TIMED_STEPS
     times, snaps, losses = [], [], []
     t_last = [0.0]
@@ -1337,41 +1411,253 @@ def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         snaps.append({k.name: k.launches for k in cuda.KERNELS})
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m)
-        print(f"train (b) step {step}: " + ", ".join(
+        print(f"{tag} step {step}: " + ", ".join(
             f"{k} {m[k]:.5f}" for k in sorted(m)))
 
     for k in cuda.KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_last[0] = time.perf_counter()
-    res = run_training(cfg, model, loader, dev,
-                       log=lambda m: print(f"train (b) {m}"),
+    res = run_training(cfg, model, loader, dev, out_dir=out_dir,
+                       log=lambda m: print(f"{tag} {m}"),
                        max_steps=n_steps, step_hook=hook)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in cuda.KERNELS}
     timed = times[WARMUP_STEPS:]
     base = snaps[WARMUP_STEPS - 1]
     over_timed = {n: launches[n] - base[n] for n in launches}
-    every_step = all(
-        snaps[i][n] > (snaps[i - 1][n] if i else 0)
-        for i in range(len(snaps))
-        for n in (cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name))
+    each_step = all(snaps[i][n] > (snaps[i - 1][n] if i else 0)
+                    for i in range(len(snaps)) for n in every_step)
     finite = all(math.isfinite(v) for m in losses for v in m.values())
     good = (res["step"] == n_steps and len(timed) == TIMED_STEPS and finite
-            and all(over_timed[n] for n in TRAINING_KERNELS) and every_step)
+            and each_step and all(launches[n] == 0 for n in idle)
+            and all(over_timed[n] for n in TRAINING_KERNELS
+                    if n not in idle))
     srt = sorted(timed)
     med = srt[len(srt) // 2]
-    print(f"train (b) run_training, {n_steps} steps ({WARMUP_STEPS} warm-up, "
+    bs = cfg.TRAIN.BATCH_IMAGES
+    print(f"{tag} run_training, {n_steps} steps ({WARMUP_STEPS} warm-up, "
           f"{TIMED_STEPS} timed): median {med:.1f} ms per step (min "
           f"{srt[0]:.1f}, max {srt[-1]:.1f}), {bs * 1e3 / med:.1f} chips/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card}]; host clock around steps that end in a synchronize, "
-          f"random weights and synthetic images: a smoke reading, not a "
-          f"benchmark. Launches over the timed steps {over_timed}, over the "
-          f"whole run {launches}; pool and DCN backward every step "
-          f"{every_step}; losses finite {finite}: "
-          f"{'PASS' if good else 'FAIL'}")
+          f"synthetic images: a smoke reading, not a benchmark. Launches "
+          f"over the timed steps {over_timed}, over the whole run "
+          f"{launches}; {list(every_step)} every step {each_step}; "
+          f"{list(idle)} never launched {all(launches[n] == 0 for n in idle)}"
+          f"; losses finite {finite}: {'PASS' if good else 'FAIL'}")
+    return good, launches, med
+
+
+def rpn_training(dev, rcfg, roidb, card: str) -> tuple[bool, dict]:
+    """(r2) The one-step check of the RPN-only detector, then run_training
+    with TRAIN.ONLY_PROPOSAL from the imported backbone, its checkpoint
+    written where restore_inference_state looks: the DCN im2col and its
+    backward launch at every step, the pool, its backward and the NMS
+    never (no R-CNN head, no proposals). Returns (ok, launches)."""
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.main_train import make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    ok = train_step_check(dev, rcfg, "recipe (r2)")
+    model = init_detector(get_model(rcfg), seed=0)
+    load_pretrained(rcfg, model, lambda m: print(f"recipe (r2) {m}"))
+    out_dir = os.path.join(rcfg.output_path, config_name(CONFIG),
+                           rcfg.dataset.image_set)
+    modules = [n for n, _ in model.named_children()]
+    print(f"recipe (r2) {CONFIG} with TRAIN.ONLY_PROPOSAL True, "
+          f"TRAIN.USE_NEG_CHIPS False: units {model.trunk.units}, "
+          f"{rcfg.network.NUM_ANCHORS} anchors, BATCH_IMAGES "
+          f"{rcfg.TRAIN.BATCH_IMAGES}, chips {rcfg.TRAIN.CHIP_SIZE}, trunk "
+          f"dtype {model.dtype}, modules {modules}, from the imported "
+          f"backbone")
+    loader = make_loader(roidb, rcfg, 0, image_loader=synth_train_image)
+    good, launches, _ = timed_training(
+        dev, rcfg, model, loader, card, "recipe (r2)", out_dir=out_dir,
+        every_step=(cuda.DEFORM_IM2COL.name, cuda.DEFORM_IM2COL_BWD.name),
+        idle=(cuda.FUSED_POOL.name, cuda.POOL_BWD.name, cuda.NMS.name))
+    loader.close()
+    ckpt = os.path.join(out_dir, "checkpoints", "epoch_0001.pt")
+    good &= os.path.exists(ckpt)
+    print(f"recipe (r2) checkpoint {ckpt} written {os.path.exists(ckpt)}")
+    del model
+    torch.cuda.empty_cache()
     return ok and good, launches
+
+
+EXTRACT_ATOL = 1e-4  # px and score: the paths are expected to agree exactly
+
+
+def proposal_extraction(dev, rcfg, ds, card: str) -> tuple[bool, dict]:
+    """(r3) main_test's TEST.EXTRACT_PROPOSALS path over the training images
+    at the yml's three TEST.SCALES: the RPN-only detector restored from
+    (r2)'s checkpoint by restore_inference_state, the kernel path against
+    the plain path on one small batch, then run_proposal_extraction with
+    the counters zeroed just before and read after. Returns (ok,
+    launches)."""
+    import pickle
+
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.main_test import run_proposal_extraction
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
+
+    model = get_model(rcfg)
+    source = restore_inference_state(rcfg, model, config_name(CONFIG),
+                                     lambda m: print(f"recipe (r3) {m}"))
+    model.to(dev).eval()
+    ok = source == "checkpoint"
+
+    g = torch.Generator().manual_seed(12)
+    data = (torch.randn(2, 256, 320, 3, generator=g) * 50).to(dev)
+    info = torch.tensor([[256.0, 320.0, 1.0], [240.0, 300.0, 1.0]],
+                        device=dev)
+    with torch.inference_mode():
+        torch.backends.cudnn.deterministic = True
+        out_k = model(data, info)
+        with plain_versions():
+            out_p = model(data, info)
+        torch.backends.cudnn.deterministic = False
+    n_k = out_k["roi_valid"].sum(1).tolist()
+    n_p = out_p["roi_valid"].sum(1).tolist()
+    rerr = float((out_k["rois"] - out_p["rois"]).abs().max())
+    serr = float((out_k["roi_scores"] - out_p["roi_scores"]).abs().max())
+    good = n_k == n_p and rerr <= EXTRACT_ATOL and serr <= EXTRACT_ATOL
+    print(f"recipe (r3) 2 images of 256x320, RPN-only kernel path vs plain "
+          f"path on the card: valid rois {n_k} vs {n_p}, rois max abs err "
+          f"{rerr:.3e} px, scores max abs err {serr:.3e}; tolerance "
+          f"{EXTRACT_ATOL} (expected 0: X1 is bit-exact and the NMS keep "
+          f"lists identical): {'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    roidb = ds.gt_roidb()
+    for k in cuda.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    path = run_proposal_extraction(rcfg, model, None, roidb, ds, dev,
+                                   image_loader=synth_train_image)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    with open(path, "rb") as f:
+        boxes = pickle.load(f)["boxes"]
+    counts = sorted(len(b) for b in boxes)
+    finite = all(np.isfinite(b).all() and b.shape[1] == 5 for b in boxes)
+    good = (len(boxes) == len(roidb) and counts[0] > 0 and finite
+            and launches[cuda.NMS.name] > 0
+            and launches[cuda.DEFORM_IM2COL.name] > 0
+            and launches[cuda.FUSED_POOL.name] == 0)
+    print(f"recipe (r3) run_proposal_extraction over {len(roidb)} synthetic "
+          f"training images at scales {[tuple(s) for s in rcfg.TEST.SCALES]},"
+          f" batches {list(rcfg.TEST.BATCH_IMAGES)}, "
+          f"{model.post_nms_top_n} post-NMS rois per image and scale: "
+          f"{path}; proposals per image min {counts[0]}, median "
+          f"{counts[len(counts) // 2]}, finite [N,5] {finite}; "
+          f"{wall * 1e3 / len(roidb):.1f} ms per image over the three "
+          f"scales (host clock, image synthesis and first-call set-up "
+          f"included) [{card}]; launches {launches} (NMS and im2col > 0, "
+          f"pool 0): {'PASS' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok and good, launches
+
+
+def recipe_training(dev, cfg, ds, card: str) -> tuple[bool, dict, dict]:
+    """(r4) The recipe's phase 3: run_training of the full detector from the
+    imported backbone, negative chips mined from (r3)'s proposals, twice
+    with the same steps: the thread loader, then the loader process.
+    Returns (ok, launches of the thread-loader run, of the process run)."""
+    import copy
+
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    roidb = build_roidb(cfg, lambda m: print(f"recipe (r4) {m}"),
+                        datasets=[ds])
+    bs = cfg.TRAIN.BATCH_IMAGES
+    cfgs = {}
+    for process in (False, True):
+        cfgs[process] = copy.deepcopy(cfg)
+        cfgs[process].TRAIN.LOADER_PROCESS = process
+    # the loaders alone, in turns: threads, process, process, threads
+    loader_ms = {False: [], True: []}
+    for process in (False, True, True, False):
+        loader_ms[process].append(loader_ms_per_batch(roidb, cfgs[process]))
+    ok = True
+    runs = {}
+    for process in (False, True):
+        run_cfg = cfgs[process]
+        tag = f"recipe (r4, {'loader process' if process else 'threads'})"
+        model = init_detector(get_model(run_cfg), seed=0)
+        load_pretrained(run_cfg, model, lambda m: print(f"{tag} {m}"))
+        run_roidb = copy.deepcopy(roidb)
+        loader = make_loader(run_roidb, run_cfg, 0,
+                             image_loader=synth_train_image)
+        try:
+            good, launches, med = timed_training(
+                dev, run_cfg, model, loader, card, tag,
+                every_step=(cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name))
+        finally:
+            loader.close()
+        if not process:  # the thread loader's roidb holds the epoch's roll
+            mined = sum(len(r.get("neg_chips", [])) for r in run_roidb)
+            sampled = sum(len(r["crops"]) for r in run_roidb)
+            good &= mined > 0
+            print(f"{tag} negative chips mined from the extracted "
+                  f"proposals: {mined} (at most 2 per image sampled into "
+                  f"the epoch's {sampled} chips): "
+                  f"{'PASS' if mined > 0 else 'FAIL'}")
+        ok &= good
+        runs[process] = (launches, med)
+        del model
+        torch.cuda.empty_cache()
+    (l_t, med_t), (l_p, med_p) = runs[False], runs[True]
+
+    def ms(v):
+        return " and ".join(f"{x:.1f}" for x in v)
+
+    print(f"recipe (r4) {CONFIG} at BATCH_IMAGES {bs}, "
+          f"{cfg.TRAIN.CHIP_SIZE}x{cfg.TRAIN.CHIP_SIZE} chips, NUM_THREAD "
+          f"{cfg.TRAIN.NUM_THREAD}: thread loader median {med_t:.1f} ms per "
+          f"step (loader alone {ms(loader_ms[False])} ms per batch); loader "
+          f"process median {med_p:.1f} ms per step (loader alone "
+          f"{ms(loader_ms[True])} ms per batch; the loaders alone timed in "
+          f"turns threads, process, process, threads over 8 batches each) "
+          f"[{card}]; one call, host clock: a smoke reading")
+    return ok, l_t, l_p
+
+
+def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
+    """(a) the full detector's one-step check, then the recipe (r1)-(r4).
+    Returns (ok, {path: launches})."""
+    from sniper_tpu_torch.main_train import build_roidb
+
+    cfg = train_cfg(cfg)
+    ok = train_step_check(dev, cfg, "train (a)")
+    ds = SynthTrainDataset()
+    with tempfile.TemporaryDirectory() as tmp:
+        rcfg, cfg = recipe_cfgs(cfg, tmp)
+        ok_r1, prefix = pretrained_import(rcfg, tmp)
+        cfg.network.pretrained = prefix
+        rpn_roidb = build_roidb(rcfg, lambda m: print(f"recipe (r2) {m}"),
+                                datasets=[ds])
+        ok_r2, l_rpn = rpn_training(dev, rcfg, rpn_roidb, card)
+        ok_r3, l_ext = proposal_extraction(dev, rcfg, ds, card)
+        ok_r4, l_rec, l_proc = recipe_training(dev, cfg, ds, card)
+    print(f"recipe: (r1) {'PASS' if ok_r1 else 'FAIL'}, (r2) "
+          f"{'PASS' if ok_r2 else 'FAIL'}, (r3) {'PASS' if ok_r3 else 'FAIL'}"
+          f", (r4) {'PASS' if ok_r4 else 'FAIL'}")
+    return ok and ok_r1 and ok_r2 and ok_r3 and ok_r4, {
+        "rpn training": l_rpn, "proposal extraction": l_ext,
+        "training (recipe)": l_rec,
+        "training (recipe, loader process)": l_proc}
 
 
 def main() -> int:
@@ -1395,14 +1681,15 @@ def main() -> int:
     ok_t, launches_train = train_phase(dev, cfg, card)
     torch.cuda.synchronize()
 
-    # "launches": the mask-branch inference run, the path of this slice, for
-    # the four kernels it runs; the training run for the two backward
+    # "launches": the mask-branch inference run for the four kernels it
+    # runs; the recipe's phase 3 (thread loader) for the two backward
     # kernels, which only training runs. Every path's counts stand beside.
     def main_path(name):
-        return "mask inference" if name in INFERENCE_KERNELS else "training"
+        return ("mask inference" if name in INFERENCE_KERNELS
+                else "training (recipe)")
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
-               "training": launches_train}
+               **launches_train}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -1416,7 +1703,7 @@ def main() -> int:
     } for r in results]
     if not (ok_k and ok_e and ok_m and ok_t):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
-              f"mask inference {ok_m}, training {ok_t})")
+              f"mask inference {ok_m}, training and the recipe {ok_t})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@ A jax-free copy of sniper_tpu/data/anchor_targets.py, whose module reaches
 jax through sniper_tpu.ops, in its sparse form: the training loader ships
 (pid, value) pairs, and the loss gathers the predictions at the pids. The
 dense target grids and the AutoFocus FocusPixel map of the JAX copy come
-with the slices that read them (ROADMAP.md Queue 1 item 8).
+with the slices that read them (ROADMAP.md Queue 1 item 4).
 
 Re-derivation of the reference anchor_worker
 (reference lib/data_utils/data_workers.py:132-371) as a single

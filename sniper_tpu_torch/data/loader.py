@@ -4,10 +4,9 @@ A jax-free copy of sniper_tpu/data/loader.py:50-440 (``ChipLoader``,
 ``process_chip_image``) in the form the training step takes: uint8 chips,
 normalized on the device, and the sparse RPN targets. The image reader and
 ``Prefetcher`` are shared with data/test_loader.py. The mask targets
-(TRAIN.WITH_MASK), the AutoFocus labels (TRAIN.AUTO_FOCUS), the
-training-chip rendering (TRAIN.VISUALIZE) and the re-roll process pool
-(TRAIN.NUM_PROCESS > 1) are later slices of the port (ROADMAP.md Queue 1
-items 7 and 8) and raise NotImplementedError.
+(TRAIN.WITH_MASK), the AutoFocus labels (TRAIN.AUTO_FOCUS) and the
+training-chip rendering (TRAIN.VISUALIZE) are later slices of the port
+(ROADMAP.md Queue 1 items 3 to 5) and raise NotImplementedError.
 
 Rebuild of the reference MNIteratorE2E + im_worker + PrefetchingIter
 (reference lib/iterators/MNIteratorE2E.py:41-220,
@@ -41,7 +40,11 @@ the large-array NumPy work in the anchor assigner all release the GIL,
 so threads scale without fork/pickle overhead. TRAIN.NUM_THREAD sets
 the pool width (<=1 restores the serial path). Determinism is per-slot:
 each schedule position derives its own RandomState from the epoch seed,
-so results are independent of thread interleaving.
+so results are independent of thread interleaving. TRAIN.NUM_PROCESS > 1
+maps the per-epoch re-roll over a spawned process pool instead (the
+reference's Pool(NUM_PROCESS)), created once, reused across epochs and
+ended by ``close()``; per-image seeds make its results bit-identical to
+the in-process re-roll.
 """
 
 from __future__ import annotations
@@ -120,12 +123,10 @@ class ChipLoader:
                  seed=0):
         for on, what, item in (
                 (bool(getattr(cfg.TRAIN, "VISUALIZE", False)),
-                 "the training-chip rendering (TRAIN.VISUALIZE)", 7),
-                (int(getattr(cfg.TRAIN, "NUM_PROCESS", 0) or 0) > 1,
-                 "the re-roll process pool (TRAIN.NUM_PROCESS > 1)", 7),
-                (cfg.TRAIN.WITH_MASK, "mask targets (TRAIN.WITH_MASK)", 8),
+                 "the training-chip rendering (TRAIN.VISUALIZE)", 5),
+                (cfg.TRAIN.WITH_MASK, "mask targets (TRAIN.WITH_MASK)", 3),
                 (cfg.TRAIN.AUTO_FOCUS,
-                 "AutoFocus labels (TRAIN.AUTO_FOCUS)", 8)):
+                 "AutoFocus labels (TRAIN.AUTO_FOCUS)", 4)):
             if on:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP.md Queue 1 item "
@@ -154,6 +155,26 @@ class ChipLoader:
             ThreadPoolExecutor(max_workers=self.num_workers)
             if self.num_workers > 1 else None
         )
+        self._reroll_pool = None  # spawned on first use, lives to close()
+
+    def _mp_pool(self, nproc: int):
+        """The TRAIN.NUM_PROCESS re-roll pool, created once and reused
+        across epochs (spawning and importing take seconds)."""
+        if self._reroll_pool is None:
+            import multiprocessing as mp
+
+            self._reroll_pool = mp.get_context("spawn").Pool(nproc)
+        return self._reroll_pool
+
+    def close(self):
+        """End the re-roll process pool (idempotent)."""
+        if getattr(self, "_reroll_pool", None) is not None:
+            self._reroll_pool.terminate()
+            self._reroll_pool.join()
+            self._reroll_pool = None
+
+    def __del__(self):
+        self.close()
 
     def reset(self):
         """Per-epoch chip pipeline; returns total chip count.
@@ -184,7 +205,14 @@ class ChipLoader:
                     seed_i)
 
         tasks = [task(i) for i in range(len(self.roidb))]
-        if self._pool is not None:
+        nproc = int(getattr(cfg.TRAIN, "NUM_PROCESS", 0) or 0)
+        if nproc > 1:
+            # chunks amortize the pickling; per-image seeds keep the
+            # results those of the in-process re-roll
+            chunk = max(1, len(tasks) // (nproc * 4))
+            results = self._mp_pool(nproc).map(_reroll_image, tasks,
+                                               chunksize=chunk)
+        elif self._pool is not None:
             results = list(self._pool.map(_reroll_image, tasks))
         else:
             results = [_reroll_image(t) for t in tasks]

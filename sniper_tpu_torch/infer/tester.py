@@ -87,9 +87,10 @@ class Tester:
     ``forward_fn(data, im_info) -> dict`` must return the detector's
     test-mode outputs (rois [B,N,5], cls_prob [B,N,C], bbox_pred
     [B,N,4] std-denormalized, roi_valid [B,N], and mask_prob [B,N,S,S]
-    with the mask branch). The JAX Tester's AutoFocus-map, per-chip NMS and
-    proposal-extraction modes come with the slices that add those outputs
-    (ROADMAP.md Queue 1 items 5, 8).
+    with the mask branch); for ``extract_proposals`` an RPN-only forward's
+    rois, roi_scores and roi_valid. The JAX Tester's AutoFocus-map and
+    per-chip NMS modes come with the slices that add them (ROADMAP.md
+    Queue 1 items 4 and 5).
     """
 
     def __init__(self, forward_fn, cfg, num_classes: int):
@@ -124,6 +125,29 @@ class Tester:
             if mask_prob is not None:
                 masks_list.append(mask_prob[i])
         return scores_list, boxes_list, masks_list
+
+    def extract_proposals(self, batches, roidb):
+        """The proposal-extraction mode (tester.py:429-449): per valid
+        image, its kept rois divided by the image's scale [N,4] and their
+        scores [N,1], fp32, in the original image's coordinates."""
+        n_images = len(roidb)
+        boxes_out = [np.zeros((0, 4), np.float32) for _ in range(n_images)]
+        scores_out = [np.zeros((0, 1), np.float32) for _ in range(n_images)]
+        for batch in batches:
+            out = self.forward_fn(batch["data"], batch["im_info"])
+            rois = _host(out["rois"])
+            scores = _host(out["roi_scores"])
+            valid = _host(out["roi_valid"])
+            for i in range(rois.shape[0]):
+                if not batch["valid"][i]:
+                    continue
+                im_id = int(batch["im_ids"][i])
+                keep = valid[i]
+                boxes_out[im_id] = (
+                    rois[i, keep, 1:] / batch["im_scales"][i]
+                ).astype(np.float32)
+                scores_out[im_id] = scores[i, keep, None].astype(np.float32)
+        return boxes_out, scores_out
 
     def get_detections(self, batches, roidb, cls_thresh=1e-3,
                        do_pruning=False, with_masks=False):

@@ -1,20 +1,27 @@
 """SNIPER inference / evaluation CLI on one CUDA device.
 
-Port of main_test.py:52-79,137-163,174-280 (``make_forward``,
-``_scale_post_nms``, ``run_detection``), single device only: multi-scale
-detection over TEST.SCALES with the per-scale post-NMS roi counts of a
-list-valued TEST.N_PROPOSAL_PER_SCALE, aggregation with per-scale valid
-ranges and soft-NMS, then the dataset's evaluation. A detector with the
+Port of main_test.py:52-79,137-163,174-341 (``make_forward``,
+``_scale_post_nms``, ``run_detection``, ``run_proposal_extraction``),
+single device only: multi-scale detection over TEST.SCALES with the
+per-scale post-NMS roi counts of a list-valued TEST.N_PROPOSAL_PER_SCALE,
+aggregation with per-scale valid ranges and soft-NMS, then the dataset's
+evaluation. A detector with the
 mask branch (configs/sniper_res101_e2e_mask.yml) also carries each
 detection's mask through aggregation, and the dataset scores both boxes
 and masks.
 
   python -m sniper_tpu_torch.main_test --cfg configs/sniper_res101_e2e.yml \\
-      --weights model.pt
+      [--weights model.pt] [--set TEST.EXTRACT_PROPOSALS True ...]
 
 ``--weights`` is a ``torch.save``d state_dict of the port's detector (for a
-flax checkpoint: ``sniper_tpu_torch.convert.convert``). AutoFocus chips,
-proposal extraction and multi-device inference are later slices.
+flax checkpoint: ``sniper_tpu_torch.convert.convert``). Without it,
+``train.checkpoint.restore_inference_state`` restores the training run's
+checkpoint of epoch TEST.TEST_EPOCH, else ``network.pretrained``, else the
+seeded init. TEST.EXTRACT_PROPOSALS (with TRAIN.ONLY_PROPOSAL) runs the
+RPN over ``dataset.test_image_set`` at every TEST.SCALES entry and writes
+``<TEST.PROPOSAL_SAVE_PATH>/<dataset name>_rpn.pkl``, the proposals that
+training's negative-chip mining reads. AutoFocus chips and multi-device
+inference are later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import argparse
 import os
 import pickle
 
+import numpy as np
 import torch
 
 from sniper_tpu_torch.data.test_loader import (
@@ -87,7 +95,7 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
     if cfg.TEST.AUTO_FOCUS:
         raise NotImplementedError(
             "AutoFocus inference is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
+            "item 4)")
     init_inference_crops(roidb)
     if state is not None:
         model.load_state_dict(state)
@@ -144,6 +152,36 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
             "segm": dataset.evaluate_segmentations(final_masks, roidb)}
 
 
+def run_proposal_extraction(cfg, model, state, roidb, dataset, device,
+                            image_loader=None) -> str:
+    """RPN proposals of every image at every TEST.SCALES entry, stacked
+    per image ([N,5] boxes and score in the image's coordinates), pickled
+    as {"boxes": [...]} to TEST.PROPOSAL_SAVE_PATH/<dataset.name>_rpn.pkl
+    under a temporary name and renamed (existence means "done"). ``model``
+    is an RPN-only detector; ``state`` as in run_detection. Returns the
+    file's path."""
+    init_inference_crops(roidb)
+    forward = make_forward(model, state, device, cfg.network.PIXEL_MEANS)
+    tester = Tester(forward, cfg, dataset.num_classes)
+    loader_kw = {} if image_loader is None else {"image_loader": image_loader}
+    agg = None
+    for s in range(len(cfg.TEST.SCALES)):
+        batches = TestChipIterator(
+            roidb, cfg, s, _per_scale(cfg.TEST.BATCH_IMAGES, s), **loader_kw)
+        boxes, scores = tester.extract_proposals(iter(batches), roidb)
+        dets = [np.hstack([b, sc]) for b, sc in zip(boxes, scores)]
+        agg = dets if agg is None else [np.vstack([a, d])
+                                        for a, d in zip(agg, dets)]
+    os.makedirs(cfg.TEST.PROPOSAL_SAVE_PATH, exist_ok=True)
+    out = os.path.join(cfg.TEST.PROPOSAL_SAVE_PATH, f"{dataset.name}_rpn.pkl")
+    tmp = f"{out}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump({"boxes": agg}, f)
+    os.replace(tmp, out)
+    print(f"saved proposals to {out}")
+    return out
+
+
 def build_test_dataset(cfg):
     name = cfg.dataset.dataset
     if name == "coco":
@@ -165,26 +203,35 @@ def build_test_dataset(cfg):
 def main(argv=None):
     from sniper_tpu_torch.config import config_name, load_config
     from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
 
     p = argparse.ArgumentParser(description="Test a SNIPER detector (torch)")
     p.add_argument("--cfg", required=True)
-    p.add_argument("--weights", required=True,
-                   help="torch.save'd state_dict of the port's detector")
+    p.add_argument("--weights", default=None,
+                   help="torch.save'd state_dict of the port's detector "
+                        "(default: the training run's checkpoint, else "
+                        "network.pretrained)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--set", dest="overrides", nargs="*", default=[])
     args = p.parse_args(argv)
 
     cfg = load_config(args.cfg, args.overrides)
-    out_dir = os.path.join(cfg.output_path or "./output",
-                           config_name(args.cfg),
+    name = config_name(args.cfg)
+    out_dir = os.path.join(cfg.output_path or "./output", name,
                            str(cfg.dataset.test_image_set))
     os.makedirs(out_dir, exist_ok=True)
     dataset = build_test_dataset(cfg)
     roidb = dataset.gt_roidb()
     model = get_model(cfg)
-    state = torch.load(args.weights, map_location="cpu")
-    stats = run_detection(cfg, model, state, roidb, dataset, out_dir,
-                          torch.device(args.device))
+    if args.weights:
+        model.load_state_dict(torch.load(args.weights, map_location="cpu"))
+    else:
+        restore_inference_state(cfg, model, name)
+    device = torch.device(args.device)
+    if cfg.TEST.EXTRACT_PROPOSALS:
+        run_proposal_extraction(cfg, model, None, roidb, dataset, device)
+        return
+    stats = run_detection(cfg, model, None, roidb, dataset, out_dir, device)
     print(f"evaluation: {stats}")
 
 

@@ -2,23 +2,26 @@
 
 Port of main_train.py:19-346 without multi-host: config -> roidb (flips,
 filtering, RPN proposals for negative-chip mining, regression-target
-statistics) -> chip loader -> detector with seeded random weights -> the
+statistics) -> chip loader (in this process, or in a spawned one with
+TRAIN.LOADER_PROCESS) -> detector with seeded random weights, then the
+pretrained backbone of ``network.pretrained`` imported over them -> the
 epoch loop of ``run_training``:
 
   python -m sniper_tpu_torch.main_train --cfg configs/sniper_res101_e2e.yml \\
       [--set TRAIN.lr 0.01 ...]
 
-Each epoch re-rolls the chips, assembles batches in a background thread
-and uploads them (pinned memory, non-blocking copies) in a second one, so
-both overlap the device's steps; the step's metrics stay on the device
-until a log line reads them. A checkpoint per epoch goes to
+TRAIN.ONLY_PROPOSAL trains the RPN alone (the recipe's first phase, whose
+checkpoint main_test's TEST.EXTRACT_PROPOSALS reads). Each epoch re-rolls
+the chips, assembles batches in a background thread and uploads them
+(pinned memory, non-blocking copies) in a second one, so both overlap the
+device's steps; the step's metrics stay on the device until a log line
+reads them. A checkpoint per epoch goes to
 ``<output_path>/<cfg name>/<image_set>/checkpoints/epoch_<n>.pt``, and
 ``TRAIN.begin_epoch = n`` resumes from it.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the mask and AutoFocus branches, OHEM, RPN-only training, the loader
-process (TRAIN.LOADER_PROCESS), the import of pretrained weights
-(network.pretrained) and data parallelism (more than one device).
+the mask and AutoFocus branches, OHEM and data parallelism (more than one
+device).
 """
 
 from __future__ import annotations
@@ -120,18 +123,12 @@ def check_ported(cfg, device):
     """Raise NotImplementedError for the options of later slices, training
     on ``device`` included."""
     todo = [
-        (cfg.TRAIN.WITH_MASK, "the mask branch (TRAIN.WITH_MASK)", 8),
-        (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 8),
-        (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 6),
-        (cfg.TRAIN.ONLY_PROPOSAL, "RPN-only training (TRAIN.ONLY_PROPOSAL)",
-         6),
-        (getattr(cfg.TRAIN, "LOADER_PROCESS", False),
-         "the loader process (TRAIN.LOADER_PROCESS)", 7),
-        (str(cfg.network.pretrained or "").strip(),
-         "pretrained-weight import (network.pretrained)", 7),
+        (cfg.TRAIN.WITH_MASK, "the mask branch (TRAIN.WITH_MASK)", 3),
+        (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 4),
+        (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 5),
         (num_devices(cfg, device) > 1,
          "data parallelism (parallel.num_devices > 1, or -1 with several "
-         "cards)", 9),
+         "cards)", 7),
     ]
     for on, what, item in todo:
         if on:
@@ -160,11 +157,12 @@ def _epoch_telemetry(em: dict, cfg, log):
 def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
                  max_steps=None, step_hook=None):
     """Train ``model`` on ``device`` over TRAIN.begin_epoch..end_epoch of
-    ``loader`` (a ChipLoader), with the recipe's SGD, and checkpoint each
-    epoch under ``out_dir`` when given. ``max_steps`` ends the run after
-    that many steps; ``step_hook(step, metrics)`` runs after every step
-    (metrics are 0-d device tensors). Returns the last epoch's metric
-    means and the step count."""
+    ``loader`` (a ChipLoader or ProcessChipLoader), with the recipe's SGD,
+    and checkpoint each epoch under ``out_dir`` when given. ``max_steps``
+    ends the run after that many steps (an epoch cut short that way leaves
+    a ProcessChipLoader's child to be respawned); ``step_hook(step,
+    metrics)`` runs after every step (metrics are 0-d device tensors).
+    Returns the last epoch's metric means and the step count."""
     check_ported(cfg, device)
     model.to(device)
     n_chips = loader.reset()
@@ -175,7 +173,8 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     step_fn = make_train_step(
         model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
         rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
-        pixel_means=cfg.network.PIXEL_MEANS, generator=gen)
+        pixel_means=cfg.network.PIXEL_MEANS, generator=gen,
+        rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL))
     ckpt_dir = os.path.join(out_dir, "checkpoints") if out_dir else None
     step = 0
     if cfg.TRAIN.begin_epoch > 0:
@@ -199,8 +198,12 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
             pending.clear()
 
         # two stages, each in its own thread: batch assembly on the host,
-        # then the upload; the islice ends the producers with the epoch
-        host = Prefetcher(itertools.islice(iter(loader), n))
+        # then the upload. A whole epoch is read to its end (a loader
+        # process closes its epoch there); max_steps cuts it with islice
+        batches = iter(loader)
+        if n < len(loader):
+            batches = itertools.islice(batches, n)
+        host = Prefetcher(batches)
         for batch in Prefetcher(to_device(b, device) for b in host):
             metrics = step_fn(batch)
             pending.append(metrics)
@@ -241,10 +244,25 @@ def create_logger(output_path: str, cfg_name: str, image_set: str):
     return logger, out_dir
 
 
+def make_loader(roidb, cfg, seed, image_loader=None):
+    """The chip loader of TRAIN.BATCH_IMAGES: a ProcessChipLoader with
+    TRAIN.LOADER_PROCESS (main_train.py:149-160), else a ChipLoader.
+    ``image_loader`` replaces cv2.imread (a module-level function for the
+    loader process)."""
+    kw = {} if image_loader is None else {"image_loader": image_loader}
+    if bool(getattr(cfg.TRAIN, "LOADER_PROCESS", False)):
+        from sniper_tpu_torch.data.shm_loader import ProcessChipLoader
+
+        return ProcessChipLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES,
+                                 seed=seed, **kw)
+    return ChipLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES, seed=seed, **kw)
+
+
 def main(argv=None):
     from sniper_tpu_torch.config import config_name, load_config
     from sniper_tpu_torch.models.init import init_detector
     from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.pretrained import load_pretrained
 
     p = argparse.ArgumentParser(description="Train a SNIPER detector (torch)")
     p.add_argument("--cfg", required=True, help="experiment yaml")
@@ -258,13 +276,16 @@ def main(argv=None):
                                     config_name(args.cfg),
                                     str(cfg.dataset.image_set))
     roidb = build_roidb(cfg, logger.info)
-    loader = ChipLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES,
-                        seed=cfg.TRAIN.seed)
     # the bbox means/stds may have been measured on the roidb: build the
-    # model after build_roidb
+    # model after build_roidb; the import comes before the optimizer
     model = init_detector(get_model(cfg), seed=int(cfg.TRAIN.seed))
-    run_training(cfg, model, loader, torch.device(args.device),
-                 out_dir=out_dir, log=logger.info)
+    load_pretrained(cfg, model, logger.info)
+    loader = make_loader(roidb, cfg, int(cfg.TRAIN.seed))
+    try:
+        run_training(cfg, model, loader, torch.device(args.device),
+                     out_dir=out_dir, log=logger.info)
+    finally:
+        loader.close()
 
 
 if __name__ == "__main__":

@@ -13,11 +13,13 @@ cast to fp32, then
   roi's argmax foreground class -> softmax over the pair -> ``mask_prob``;
 - training: ``multi_proposal_target`` (proposals, GT candidates, valid
   ranges, the fg/bg sample) -> the head on the sampled rois, returning what
-  the losses need and the offset telemetry.
+  the losses need and the offset telemetry;
+- ``rpn_only`` (TRAIN.ONLY_PROPOSAL, detector.py:153-165): no
+  ``conv_new_1``, R-CNN or mask modules; training returns the RPN outputs
+  and the trunk's telemetry, inference the proposals of ``multi_proposal``.
 
-Mask training, AutoFocus and the RPN-only mode are later slices of the
-port (ROADMAP.md, Queue 1 items 6 and 8); asking for them raises
-``NotImplementedError``.
+Mask training and AutoFocus are later slices of the port (ROADMAP.md,
+Queue 1 items 3 and 4); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,11 +74,7 @@ class SNIPERDetector(nn.Module):
         if autofocus:
             raise NotImplementedError(
                 "the AutoFocus branch is not ported yet (ROADMAP.md Queue 1 "
-                "item 8)")
-        if rpn_only:
-            raise NotImplementedError(
-                "the RPN-only mode (TRAIN.ONLY_PROPOSAL) is not ported yet "
-                "(ROADMAP.md Queue 1 item 6)")
+                "item 4)")
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.anchor_ratios = tuple(anchor_ratios)
@@ -102,13 +100,16 @@ class SNIPERDetector(nn.Module):
                              persistent=False)
         self.trunk = ResNetTrunk(units=units, dtype=dtype)
         self.rpn = RPNHead(1024 + 2048, num_anchors)
-        self.conv_new_1 = nn.Conv2d(1024 + 2048, 256, 1)
-        self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
-                             fc_dim=head_fc_dim, margin_bins=head_margin_bins)
-        self.with_mask = with_mask
+        self.rpn_only = rpn_only
+        self.with_mask = with_mask and not rpn_only
         self.mask_size = 28  # the mask head's deconv doubles the 14x14 pool
         self.head_margin_bins = head_margin_bins
-        if with_mask:
+        if not rpn_only:
+            self.conv_new_1 = nn.Conv2d(1024 + 2048, 256, 1)
+            self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
+                                 fc_dim=head_fc_dim,
+                                 margin_bins=head_margin_bins)
+        if self.with_mask:
             # the 14x14 pool's offset FC: the first 196 outputs are dy
             self.mask_offset = nn.Linear(14 * 14 * 256, 2 * 14 * 14)
             self.mask = MaskHead(num_classes - 1)
@@ -123,17 +124,20 @@ class SNIPERDetector(nn.Module):
         return self._anchors[key]
 
     def _shared(self, data, stats=None):
-        """Trunk, RPN and conv_new_1: (feat, rpn cls logits [B,H,W,2,A],
-        rpn bbox [B,4A,H,W], fg probs [B,A,H,W], roi map [B,H,W,256] fp32)."""
+        """Trunk and RPN: (feat, rpn cls logits [B,H,W,2,A], rpn bbox
+        [B,4A,H,W], fg probs [B,A,H,W])."""
         x = data.permute(0, 3, 1, 2)  # channels_last NCHW view of NHWC data
         c4, c5 = self.trunk(x, stats)
         feat = torch.cat([c4.to(self.dtype), c5.to(self.dtype)], dim=1)
         rpn_cls_logits, rpn_bbox = self.rpn(feat)
         rpn_fg = torch.softmax(rpn_cls_logits, dim=3)[..., 1, :]
         rpn_fg = rpn_fg.permute(0, 3, 1, 2).contiguous()  # [B,A,H,W]
+        return feat, rpn_cls_logits, rpn_bbox, rpn_fg
+
+    def _roi_feat_map(self, feat):
+        """conv_new_1 + ReLU: the roi map [B,H,W,256] fp32."""
         roi_feat_map = torch.relu(conv(self.conv_new_1, feat)).float()
-        roi_feat_map = roi_feat_map.permute(0, 2, 3, 1).contiguous()
-        return feat, rpn_cls_logits, rpn_bbox, rpn_fg, roi_feat_map
+        return roi_feat_map.permute(0, 2, 3, 1).contiguous()
 
     def forward(self, data: torch.Tensor, im_info: torch.Tensor,
                 gt_boxes: torch.Tensor | None = None,
@@ -148,25 +152,30 @@ class SNIPERDetector(nn.Module):
         cls_prob [B,N,C] and bbox_pred [B,N,4] (std-denormalized), with N =
         ``post_nms_top_n`` (default: the model's), and with ``with_mask``
         mask_prob [B,N,S,S] (S = mask_size): each roi's foreground
-        probability for its argmax foreground class.
+        probability for its argmax foreground class. ``rpn_only`` returns
+        rois, roi_scores and roi_valid only.
 
         ``train=True`` also takes gt_boxes [B,G,5] and valid_ranges [B,2];
         the sampler draws from ``generator`` (or takes ``priorities``, see
         multi_proposal_target). It returns the RPN outputs, the sampled
         rois with their labels and targets, cls_score [B,R,C], bbox_pred
         [B,R,4] and ``stats``: the head's offset telemetry and the trunk's
-        dcn_offset_max, as 0-d tensors."""
+        dcn_offset_max, as 0-d tensors; ``rpn_only`` the RPN outputs and
+        ``stats`` with dcn_offset_max only."""
         if train:
             return self._train_forward(data, im_info, gt_boxes, valid_ranges,
                                        generator, priorities)
         n = post_nms_top_n or self.post_nms_top_n
-        feat, _, rpn_bbox, rpn_fg, roi_feat_map = self._shared(data)
+        feat, _, rpn_bbox, rpn_fg = self._shared(data)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
         rois, scores, valid = multi_proposal(
             rpn_fg, rpn_bbox, im_info, self.anchors(fh, fw, feat.device),
             pre_nms=self.pre_nms_top_n, post_nms=n,
             thresh=self.nms_thresh, min_size=self.rpn_min_size,
         )
+        if self.rpn_only:
+            return {"rois": rois, "roi_scores": scores, "roi_valid": valid}
+        roi_feat_map = self._roi_feat_map(feat)
         cls_score, bbox_pred = self.rcnn(roi_feat_map, rois.reshape(-1, 5))
         cls_prob = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
         out = {
@@ -205,10 +214,15 @@ class SNIPERDetector(nn.Module):
                        generator, priorities):
         if self.with_mask:
             raise NotImplementedError(
-                "mask training is not ported yet (ROADMAP.md Queue 1 item 8)")
+                "mask training is not ported yet (ROADMAP.md Queue 1 item 3)")
         dcn = []
-        feat, rpn_cls_logits, rpn_bbox, rpn_fg, roi_feat_map = self._shared(
-            data, dcn)
+        feat, rpn_cls_logits, rpn_bbox, rpn_fg = self._shared(data, dcn)
+        if self.rpn_only:
+            stats = ({"dcn_offset_max": torch.stack(dcn).amax()} if dcn
+                     else {})
+            return {"rpn_cls_logits": rpn_cls_logits,
+                    "rpn_bbox_pred": rpn_bbox, "stats": stats}
+        roi_feat_map = self._roi_feat_map(feat)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
         tgt = multi_proposal_target(
             rpn_fg, rpn_bbox, im_info, gt_boxes, valid_ranges,

@@ -49,10 +49,13 @@ def init_detector(model: SNIPERDetector, seed: int = 0,
     """Fill ``model`` in place with seeded random weights (module doc)."""
     gen = torch.Generator().manual_seed(seed)
     head_layers = {model.rpn.rpn_conv_3x3, model.rpn.rpn_cls_score,
-                   model.rpn.rpn_bbox_pred, model.conv_new_1,
-                   model.rcnn.fc_new_1, model.rcnn.fc_new_2,
-                   model.rcnn.cls_score, model.rcnn.bbox_pred}
-    offsets = {model.rcnn.offset}
+                   model.rpn.rpn_bbox_pred}
+    offsets = set()
+    if not model.rpn_only:
+        head_layers |= {model.conv_new_1, model.rcnn.fc_new_1,
+                        model.rcnn.fc_new_2, model.rcnn.cls_score,
+                        model.rcnn.bbox_pred}
+        offsets.add(model.rcnn.offset)
     if model.with_mask:
         head_layers |= set(model.mask.children())
         offsets.add(model.mask_offset)

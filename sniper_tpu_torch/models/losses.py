@@ -1,7 +1,7 @@
 """Loss functions with the reference's normalizations.
 
 Port of sniper_tpu/models/losses.py:20-184 without the mask, AutoFocus and
-OHEM terms (ROADMAP.md Queue 1 item 8):
+OHEM terms (ROADMAP.md Queue 1 items 3 to 5):
 
 - softmax CE with ignore label -1 and 'valid' normalization (the sum over
   non-ignored entries / max(count, 1)), logits cast to fp32 first;
@@ -91,11 +91,13 @@ def rcnn_bbox_loss(bbox_pred, bbox_targets, bbox_weights, batch_images):
     return loss / (188.0 * float(batch_images))
 
 
-def total_loss(outputs, batch, batch_images, rpn_batch_size=256):
+def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
+               rpn_only=False):
     """The training loss from the detector's outputs and a loader batch,
     which carries either the sparse RPN targets ('rpn_pids',
     'rpn_label_vals' [B,S], 'fg_pids' [B,F], 'fg_targets' [B,F,4]) or dense
     ones ('label' [B,A*H*W], 'bbox_target' / 'bbox_weight' [B,4A,H,W]).
+    ``rpn_only`` (TRAIN.ONLY_PROPOSAL) sums the two RPN terms only.
     Returns (loss, metrics dict of 0-d tensors)."""
     if "rpn_pids" in batch:
         l_rpn_cls = rpn_cls_loss_sparse(
@@ -109,6 +111,10 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256):
         l_rpn_bbox = rpn_bbox_loss(
             outputs["rpn_bbox_pred"], batch["bbox_target"],
             batch["bbox_weight"], batch_images, rpn_batch_size)
+    if rpn_only:
+        loss = l_rpn_cls + l_rpn_bbox
+        return loss, {"rpn_cls_loss": l_rpn_cls, "rpn_bbox_loss": l_rpn_bbox,
+                      "loss": loss}
     l_rcnn_cls = rcnn_cls_loss(outputs["cls_score"], outputs["rcnn_labels"])
     l_rcnn_bbox = rcnn_bbox_loss(
         outputs["bbox_pred"], outputs["rcnn_bbox_targets"],

@@ -777,7 +777,7 @@ def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
                                     or off_b.requires_grad):
         raise NotImplementedError(
             "patch_offset_pool is forward only; its backward comes with "
-            "mask training (ROADMAP.md Queue 1 item 8)")
+            "mask training (ROADMAP.md Queue 1 item 3)")
     P, S = pooled_size, sample_per_part
     T = P * S
     M = margin_bins * S

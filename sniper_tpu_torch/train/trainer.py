@@ -9,8 +9,10 @@ JAX step's mutated ``batch_stats`` do.
 
 The step returns its metrics as 0-d device tensors and never waits for the
 device: the losses, ``rcnn_acc``, ``rcnn_fg_frac``, the head's offset
-telemetry and the trunk's ``dcn_offset_max``. The caller reads them when it
-logs. The sampler draws from an explicit ``torch.Generator`` on the device.
+telemetry and the trunk's ``dcn_offset_max`` (with ``rpn_only``, the RPN
+losses and the trunk's telemetry only, as trainer.py:128-145). The caller
+reads them when it logs. The sampler draws from an explicit
+``torch.Generator`` on the device.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from sniper_tpu_torch.models.losses import total_loss
 
 def make_train_step(model, optimizer, scheduler, batch_images: int, *,
                     rpn_batch_size: int = 256, pixel_means=None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    rpn_only: bool = False):
     """Returns step(batch) -> metrics. ``batch`` is a dict of tensors on
     the model's device (the chip loader's keys)."""
 
@@ -39,13 +42,15 @@ def make_train_step(model, optimizer, scheduler, batch_images: int, *,
         model.train()
         out = model(data, batch["im_info"], batch["gt_boxes"],
                     batch["valid_ranges"], train=True, generator=generator)
-        loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size)
-        labels = out["rcnn_labels"]
-        pred = out["cls_score"].detach().argmax(-1)
-        valid = labels >= 0
-        n_valid = valid.sum().clamp_min(1)
-        metrics["rcnn_acc"] = ((pred == labels) & valid).sum() / n_valid
-        metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
+        loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size,
+                                   rpn_only=rpn_only)
+        if not rpn_only:
+            labels = out["rcnn_labels"]
+            pred = out["cls_score"].detach().argmax(-1)
+            valid = labels >= 0
+            n_valid = valid.sum().clamp_min(1)
+            metrics["rcnn_acc"] = ((pred == labels) & valid).sum() / n_valid
+            metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
         metrics.update(out["stats"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()

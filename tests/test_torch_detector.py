@@ -160,13 +160,15 @@ def test_whole_forward_matches_jax():
 def test_unported_branches_raise():
     # the mask branch runs at inference; its training is a later slice
     model = tiny_torch_detector(with_mask=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]),
               torch.zeros(1, 1, 5), torch.tensor([[0.0, 1e5]]), train=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tiny_torch_detector(autofocus=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tiny_torch_detector(rpn_only=True)
+    # the RPN-only mode is ported (test_torch_rpn_only): no head modules
+    rpn = tiny_torch_detector(rpn_only=True, with_mask=True)
+    assert not rpn.with_mask
+    assert {n for n, _ in rpn.named_children()} == {"trunk", "rpn"}
 
 
 def test_init_detector_follows_the_flax_init():

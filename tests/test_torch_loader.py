@@ -145,8 +145,9 @@ def test_chip_loader_matches_jax(roidbs, cpp_chips):
 
 def test_unported_loader_options_raise(roidbs):
     (tr, _, _), _ = roidbs
+    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader)
     for key, value in (("VISUALIZE", True), ("WITH_MASK", True),
-                       ("AUTO_FOCUS", True), ("NUM_PROCESS", 4)):
+                       ("AUTO_FOCUS", True)):
         cfg = make_cfg()
         setattr(cfg.TRAIN, key, value)
         with pytest.raises(NotImplementedError, match="Queue 1 item"):
