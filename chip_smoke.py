@@ -15,7 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    inference path gives them at each test scale and at the training
    shapes of configs/sniper_res101_e2e.yml, the two backward kernels
    (pool and DCN im2col) at the training shapes, at zero offsets (every
-   sample on a kink) and at random offsets, and the ROI patch extraction at
+   sample on a kink) and at random offsets, the pool and its backward also
+   at P=14 at the mask branch's training shapes (16 chips of 50 rois on
+   32x32 maps), and the ROI patch extraction at
    the mask branch's shapes of every test scale of
    configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
    route of the 14x14 pool held against the composed-tent pool kernels, and
@@ -35,7 +37,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    per-scale forward times on the host clock: a smoke reading (median and
    spread over E2E_REPS passes), not a benchmark.
 4. Mask-branch inference of configs/sniper_res101_e2e_mask.yml at full
-   width and depth with seeded random weights: (a) the kernel path against
+   width and depth with seeded random weights, its 14x14 pool on the fused
+   pool kernels (4 pool launches per batch, none of the patch extraction):
+   (a) the kernel path against
    the plain path on a small input, (b) run_detection with masks over the
    synthetic images of phase 3, counters zeroed just before and read just
    after, with the aggregated masks of one image pasted and RLE-encoded, (c)
@@ -61,10 +65,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    zeroed just before and read after every step: every step's losses, the
    step times on the host clock (a smoke reading), chips per second, peak
    memory, the loader's own time per batch and the kernels' launches.
+   Then configs/sniper_res101_e2e_mask.yml's training from the same
+   pieces: (m1) the one-step check of (a) with the mask branch; (m2)
+   run_training from (r1)'s backbone with negative chips from (r3)'s
+   proposals over the same images, each GT with an ellipse polygon,
+   checking every step's launches (X1 3, X2 3, NMS 1, pool 4, its backward
+   4, the patch extraction 0), that mask_loss moves and that the mask
+   layers get finite gradients, nonzero in the run; (m3) main_test's
+   restore of its checkpoint and run_detection with masks on two images,
+   its class threshold lowered to below the restored model's top scores so
+   that it keeps detections.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
-for the two backward kernels, with every path's counts beside them); the
+for the two backward kernels, with every path's counts beside them, the
+mask training's among them); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -375,12 +390,14 @@ def check_pool(dev, sh):
     from sniper_tpu_torch.ops import deform
 
     B, rpi, C, H, W = sh["B"], sh["rois"], 256, sh["H"], sh["W"]
-    P, S, M = 7, 4, 4
+    P, S, M = sh.get("P", 7), 4, 4
     g = torch.Generator().manual_seed(3)
     feat = torch.randn(B, H, W, C, generator=g).to(dev)
     R = B * rpi
     rois = random_rois(B, rpi, H, W, g).to(dev)
-    off_w = (torch.randn(2 * P * P, P * P * C, generator=g) * 0.03).to(dev)
+    # the FC's output spread grows with P: 7/P keeps P=14's like P=7's
+    off_w = (torch.randn(2 * P * P, P * P * C, generator=g)
+             * (0.03 * 7 / P)).to(dev)
     off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
 
     geom, roi_h, roi_w, sub_h, sub_w = deform.pool_geometry(
@@ -396,7 +413,7 @@ def check_pool(dev, sh):
     pooled_k = deform.pool_pass(feat, geom, pypx, **kw)
     pooled_p = deform.pool_pass_plain(feat, geom, pypx, **kw)
     full_k = deform.fused_offset_pool(feat, rois, off_w, off_b,
-                                      rois_per_image=rpi)
+                                      rois_per_image=rpi, pooled_size=P)
     torch.cuda.synchronize()
     ok, worst, parts = True, 0.0, []
     for name, a, b in (("pass A", pass1_k, pass1_p),
@@ -418,7 +435,8 @@ def check_pool(dev, sh):
     r = result(ok, worst, ms, plain_ms,
                2 * (feat.numel() * 4 + R * 16 + R * P * P * C * 4)
                + R * 2 * P * P * 4, 2 * 8.0 * R * P * P * S * S * C)
-    print(f"fused_pool [{sh['label']}]: B={B} rpi={rpi} C={C} map {H}x{W}, "
+    print(f"fused_pool [{sh['label']}]: P={P} B={B} rpi={rpi} C={C} map "
+          f"{H}x{W}, "
           f"{clamped:.1%} of window starts on the margin clamp; max abs err "
           f"{', '.join(parts)}; kernel pass A {ms_a:.4f} ms + pass B "
           f"{ms_b:.4f} ms = {ms:.4f} ms, plain "
@@ -439,6 +457,15 @@ def train_shapes(cfg) -> dict:
                 chip=int(cfg.TRAIN.CHIP_SIZE))
 
 
+def mask_train_shapes(mcfg) -> dict:
+    """The mask branch's pool in training: the first NUM_MASK_ROIS sampled
+    rois of each chip at P=14 on the chips' maps."""
+    from sniper_tpu_torch.models.detector import NUM_MASK_ROIS
+
+    return dict(train_shapes(mcfg), label="mask training", P=14,
+                rois=min(NUM_MASK_ROIS, int(mcfg.TRAIN.RPN_POST_NMS_TOP_N)))
+
+
 def rel_err(a, b) -> float:
     """max |a - b| / max |b|."""
     return float((a.float() - b.float()).abs().max()
@@ -452,7 +479,7 @@ def check_pool_bwd(dev, sh):
     from sniper_tpu_torch.ops import deform
 
     B, rpi, C, H, W, M = sh["B"], sh["rois"], sh["C"], sh["H"], sh["W"], sh["M"]
-    P, S = 7, 4
+    P, S = sh.get("P", 7), 4
     R = B * rpi
     g = torch.Generator().manual_seed(5)
     feat = torch.randn(B, H, W, C, generator=g).to(dev)
@@ -499,7 +526,9 @@ def check_pool_bwd(dev, sh):
     r = result(ok, worst, ms, plain_ms,
                2 * (2 * feat.numel() * 4 + R * 16 + gout.numel() * 4)
                + 2 * R * 2 * P * P * 4, (16.0 + 8.0) * R * P * P * S * S * C)
-    print(f"fused_pool_bwd [training]: B={B} rpi={rpi} C={C} map {H}x{W}; "
+    print(f"fused_pool_bwd [{sh['label']}]: P={P} B={B} rpi={rpi} C={C} map "
+          f"{H}x{W}, {deform.pool_bwd_smem_bytes(H, W, P)} B of shared "
+          f"memory per block; "
           f"max |err| / max |ref|: {'; '.join(parts)}; kernel pass B "
           f"{ms_b:.4f} ms + pass A {ms_a:.4f} ms = {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound "
@@ -720,23 +749,29 @@ TOLERANCES = {
 def kernel_phase(dev, cfg, mcfg) -> tuple[bool, list]:
     """Each kernel against its plain version: the forward kernels at every
     test scale's shapes and at the training shapes (scale 0 first: its
-    times and bound go into the JSON line), the backward kernels at the
-    training shapes, the patch extraction at the mask branch's shapes of
-    every test scale."""
+    times and bound go into the JSON line), the pool also at the mask
+    branch's training and inference shapes (P=14), the backward kernels at
+    the training
+    shapes (the pool's also at P=14), the patch extraction at the mask
+    branch's shapes of every test scale."""
     from sniper_tpu_torch.ops import cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     both = main_path_shapes(cfg) + [train_shapes(cfg)]
     train = [train_shapes(cfg)]
+    mask_train = [mask_train_shapes(mcfg)]
+    # the mask branch's inference pool: P=14 on the mask config's maps
+    mask_infer = [dict(s, P=14, label=f"mask inference {s['label']}")
+                  for s in main_path_shapes(mcfg)]
     results: list = []
     ok = True
     for kernel, check, at in (
             (cuda.NMS, check_nms, both),
             (cuda.DEFORM_IM2COL, check_im2col, both),
-            (cuda.FUSED_POOL, check_pool, both),
+            (cuda.FUSED_POOL, check_pool, both + mask_train + mask_infer),
             (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train),
-            (cuda.POOL_BWD, check_pool_bwd, train),
+            (cuda.POOL_BWD, check_pool_bwd, train + mask_train),
             (cuda.ROI_PATCH, check_roi_patch, main_path_shapes(mcfg))):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
         runs = [check(dev, sh) for sh in at]
@@ -804,6 +839,22 @@ def plain_versions():
         (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
          deform.pool_pass_bwd, deform.extract_patches,
          proposals.nms_sorted) = saved
+
+
+@contextlib.contextmanager
+def class_threshold(thresh: float):
+    """Run Tester.get_detections with its per-class score threshold at
+    ``thresh`` in place of its 1e-3 (restored on exit)."""
+    import functools
+
+    from sniper_tpu_torch.infer.tester import Tester
+
+    saved = Tester.get_detections
+    Tester.get_detections = functools.partialmethod(saved, cls_thresh=thresh)
+    try:
+        yield
+    finally:
+        Tester.get_detections = saved
 
 
 def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
@@ -927,17 +978,20 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
 # phase 4: mask-branch inference
 # ---------------------------------------------------------------------------
 
-INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool", "roi_patch")
-# the patch extraction runs only in the mask branch, which training does not
-# run yet
+# the mask branch pools through the fused pool kernels too: the patch
+# extraction (P5) runs on no path, only against its plain version in phase 2
+INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool")
 TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
                     "fused_pool_bwd")
 
 
 class MaskCountingDataset(CountingDataset):
     """Also stands in for evaluate_segmentations: checks every aggregated
-    mask, then pastes and RLE-encodes the masks of image 0 and decodes the
-    first RLE back."""
+    mask, then (with ``paste``) pastes and RLE-encodes the masks of image 0
+    and decodes the first RLE back."""
+
+    def __init__(self, paste: bool = True):
+        self.paste = paste
 
     def evaluate_segmentations(self, all_boxes_masks, roidb):
         from sniper_tpu_torch.infer.masks import (
@@ -957,6 +1011,8 @@ class MaskCountingDataset(CountingDataset):
                                        and masks.max() <= 1):
                     raise ValueError("mask probabilities outside [0, 1]")
                 n += len(masks)
+        if not self.paste:
+            return {"masks": n}
         one = [None] + [[all_boxes_masks[j][0]]
                         for j in range(1, self.num_classes)]
         ids = {j: j for j in range(1, self.num_classes)}
@@ -1003,8 +1059,9 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
           f"{model.trunk.units}, {mcfg.dataset.NUM_CLASSES} classes, "
           f"post-NMS per scale {list(mcfg.TEST.N_PROPOSAL_PER_SCALE)}, "
           f"batches {list(mcfg.TEST.BATCH_IMAGES)}, trunk dtype "
-          f"{model.dtype}, mask pool 14x14 (margin "
-          f"{model.head_margin_bins} bin) and mask head in fp32 with TF32 "
+          f"{model.dtype}, mask pool 14x14 through the fused pool kernels "
+          f"(margin {model.head_margin_bins} bin) and mask head in fp32 with "
+          f"TF32 "
           f"off; {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
           f"params, seeded random weights (seed 0, offsets normal(1e-3))")
     ok = True
@@ -1043,12 +1100,18 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda.KERNELS}
+    # per batch: one NMS call, the box head's two pool passes and the mask
+    # branch's two
+    batches = launches[cuda.NMS.name]
     good = (stats["bbox"]["detections"] > 0 and stats["segm"]["masks"] > 0
-            and all(launches[n] > 0 for n in INFERENCE_KERNELS))
+            and all(launches[n] > 0 for n in INFERENCE_KERNELS)
+            and launches[cuda.FUSED_POOL.name] == 4 * batches
+            and launches[cuda.ROI_PATCH.name] == 0)
     print(f"mask (b) run_detection with masks over {N_IMAGES} synthetic "
           f"{IM_W}x{IM_H} images: {stats}; launches of the six kernels "
-          f"{launches} (the four of inference must be > 0; the pool and "
-          f"DCN backward kernels run only in training, phase 5), "
+          f"{launches} (the three of inference must be > 0, the pool 4 per "
+          f"batch over {batches} batches, the patch extraction 0; the pool "
+          f"and DCN backward kernels run only in training, phase 5), "
           f"{wall:.2f} s wall including first-call set-up: "
           f"{'PASS' if good else 'FAIL'}")
     ok &= good
@@ -1119,6 +1182,16 @@ def synth_train_image(name: str) -> np.ndarray:
     return im
 
 
+def ellipse_polygon(box, n: int) -> list:
+    """A flat [x0, y0, x1, y1, ...] polygon of n vertices: the ellipse
+    inscribed in box (x1, y1, x2, y2)."""
+    x1, y1, x2, y2 = (float(v) for v in box[:4])
+    t = np.arange(n) * (2 * np.pi / n)
+    return np.stack([(x1 + x2) / 2 + (x2 - x1) / 2 * np.cos(t),
+                     (y1 + y2) / 2 + (y2 - y1) / 2 * np.sin(t)],
+                    1).reshape(-1).tolist()
+
+
 class SynthTrainDataset:
     """Stands in for a dataset reader: N_TRAIN_IMAGES images of mixed sizes
     with GT boxes small, medium and large, so that every training scale's
@@ -1150,6 +1223,21 @@ class SynthTrainDataset:
                 "max_overlaps": np.ones(side.size, np.float32),
                 "max_classes": cls, "flipped": False,
             })
+        return roidb
+
+
+class SynthMaskDataset(SynthTrainDataset):
+    """The same images and boxes with each GT's polygon, as a COCO reader
+    with load_mask gives them: an ellipse of 16 to 32 vertices inscribed in
+    the box. Its name is the box set's, so that the mask run reads the
+    proposals extracted in (r3)."""
+
+    def gt_roidb(self):
+        roidb = super().gt_roidb()
+        rng = np.random.RandomState(8)
+        for r in roidb:
+            r["gt_masks"] = [[ellipse_polygon(b, rng.randint(16, 33))]
+                             for b in r["boxes"]]
         return roidb
 
 
@@ -1189,6 +1277,9 @@ HEAD_LEAVES = ("rcnn.offset.weight", "rcnn.offset.bias",
                "rcnn.fc_new_1.weight", "rcnn.cls_score.weight")
 RPN_LEAVES = ("rpn.rpn_conv_3x3.weight", "rpn.rpn_cls_score.weight",
               "rpn.rpn_bbox_pred.weight")
+MASK_LEAVES = ("mask_offset.weight", "mask_offset.bias",
+               "mask.mask_conv_3x3_1.weight", "mask.mask_deconv.weight",
+               "mask.mask_out.weight")
 TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
                 "trunk.stage4_unit1.conv2_weight",
                 "trunk.stage3_unit23.conv1.weight",
@@ -1198,6 +1289,35 @@ TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
 # atomics): the trunk's forward is identical in both, so no ReLU or
 # rounding decision flips and the error stays at fp32 rounding
 STEP_LOSS_REL, HEAD_GRAD_REL, TRUNK_GRAD_REL = 1e-5, 1e-4, 1e-4
+# with the mask branch, the mask head's ReLUs take the pool's output with
+# the init's zero biases, so activations sit around zero and rounding flips
+# a few of them: each bound is then the larger of the fixed one and
+# NOISE_MULT times the plain path's own spread under NOISE_ULPS of noise on
+# every pool pass (the largest of NOISE_DRAWS seeded draws)
+NOISE_ULPS, NOISE_MULT, NOISE_DRAWS = 4, 4.0, 2
+
+
+@contextlib.contextmanager
+def pool_noise(ulps: int, seed: int):
+    """Inside plain_versions: multiply every pool pass's output by
+    1 + ulps * 2^-23 * u, u uniform in [-1, 1) from a seeded generator on the
+    card, the size of the rounding that the kernels' other order of fp32
+    sums makes (restored on exit)."""
+    from sniper_tpu_torch.ops import deform
+
+    inner = deform.pool_pass
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noisy(feat, geom, pypx, **kw):
+        out = inner(feat, geom, pypx, **kw)
+        u = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+        return out * (1 + ulps * 2.0 ** -23 * u)
+
+    deform.pool_pass = noisy
+    try:
+        yield
+    finally:
+        deform.pool_pass = inner
 
 
 def train_step_check(dev, cfg, tag: str) -> bool:
@@ -1205,7 +1325,11 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     width, once through the kernels and once through their plain versions
     on the card, from the same weights, batch and sampler priorities: the
     detector of ``cfg`` (RPN-only under TRAIN.ONLY_PROPOSAL, where only the
-    DCN im2col and its backward differ between the paths). The trunk runs
+    DCN im2col and its backward differ between the paths; with the mask
+    branch under TRAIN.WITH_MASK, the batch's GT masks rasterized from an
+    ellipse in each GT box, and the bounds widened to NOISE_MULT times the
+    plain path's spread under pool_noise, read in the same run). The trunk
+    runs
     in fp32 here, so that a fixed bound holds: in bf16 one rounding step
     apart early in the backward decorrelates every later bf16 rounding of
     the trunk's gradients (phase 2 holds each kernel against its plain
@@ -1220,6 +1344,7 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.bf16 = False
     rpn_only = bool(cfg.TRAIN.ONLY_PROPOSAL)
+    with_mask = bool(cfg.TRAIN.WITH_MASK) and not rpn_only
     model = init_detector(get_model(cfg), seed=0).to(dev).train()
     for name, p in model.named_parameters():
         p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
@@ -1242,18 +1367,26 @@ def train_step_check(dev, cfg, tag: str) -> bool:
         "fg_pids": pids[:, :32].int(),
         "fg_targets": torch.randn(B, 32, 4, generator=g) * 0.2,
     }
+    if with_mask:
+        from sniper_tpu_torch.data.mask_utils import rasterize_gt_masks
+
+        batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
+            [[ellipse_polygon(b, 24)] if b[4] >= 0 else [] for b in rows],
+            rows[:, :4], grid=112, max_n_gts=G) for rows in gt.numpy()]))
     batch = {k: v.to(dev) for k, v in batch.items()}
     n_cand = model.train_kw["post_nms"] + G
     pri = (torch.rand(B, n_cand, generator=g).to(dev),
            torch.rand(B, n_cand, generator=g).to(dev))
     params = dict(model.named_parameters())
-    heads = RPN_LEAVES if rpn_only else HEAD_LEAVES
+    heads = (RPN_LEAVES if rpn_only else
+             HEAD_LEAVES + (MASK_LEAVES if with_mask else ()))
     trunk = TRUNK_LEAVES if rpn_only else ("conv_new_1.weight",) + TRUNK_LEAVES
 
     def one_step():
         model.zero_grad(set_to_none=True)
         out = model(batch["data"], batch["im_info"], batch["gt_boxes"],
-                    batch["valid_ranges"], train=True, priorities=pri)
+                    batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
+                    train=True, priorities=pri)
         _, m = total_loss(out, batch, B, cfg.TRAIN.RPN_BATCH_SIZE,
                           rpn_only=rpn_only)
         m["loss"].backward()
@@ -1262,31 +1395,52 @@ def train_step_check(dev, cfg, tag: str) -> bool:
                 {k: params[k].grad.float().clone() for k in heads + trunk})
 
     torch.backends.cudnn.deterministic = True
+    noisy = []
     try:
         mk, gk = one_step()
         with plain_versions():
             mp, gp = one_step()
+            for seed in range(NOISE_DRAWS) if with_mask else ():
+                with pool_noise(NOISE_ULPS, seed):
+                    noisy.append(one_step())
     finally:
         torch.backends.cudnn.deterministic = False
-    ok = all(math.isfinite(v) for v in mk.values())
-    loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mk)
-    ok &= loss_err <= STEP_LOSS_REL
+
+    def loss_rel(m):
+        return max(abs(m[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in m)
 
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
+    def widen(base, spread):
+        return max(base, NOISE_MULT * spread) if with_mask else base
+
+    ok = all(math.isfinite(v) for v in mk.values())
+    loss_err = loss_rel(mk)
+    loss_spread = max((loss_rel(m) for m, _ in noisy), default=0.0)
+    loss_tol = widen(STEP_LOSS_REL, loss_spread)
+    ok &= loss_err <= loss_tol
     parts = []
     for names, base in ((heads, HEAD_GRAD_REL), (trunk, TRUNK_GRAD_REL)):
         for k in names:
             e = rel(gk[k], gp[k])
-            ok &= e <= base and float(gp[k].norm()) > 0
-            parts.append(f"{k} {e:.2e}")
+            spread = max((rel(g[k], gp[k]) for _, g in noisy), default=0.0)
+            tol = widen(base, spread)
+            ok &= e <= tol and float(gp[k].norm()) > 0
+            parts.append(f"{k} {e:.2e}" + (
+                f" (plain path's noise spread {spread:.2e}, tolerance "
+                f"{tol:.2e})" if with_mask else ""))
+    noise = (f"; the plain path against itself with {NOISE_ULPS}-ulp noise "
+             f"on every pool pass ({NOISE_DRAWS} draws) spreads its losses "
+             f"by {loss_spread:.2e}, and each tolerance is the larger of the "
+             f"fixed one and {NOISE_MULT:g} times that leaf's spread"
+             if with_mask else "")
     print(f"{tag} 2 chips of {S}x{S}, fp32 trunk, one forward and "
           f"backward, kernel path vs plain path on the card: losses {mk}; "
           f"max relative loss error {loss_err:.2e} (tolerance "
-          f"{STEP_LOSS_REL}); gradients, relative L2 error, tolerance "
-          f"{HEAD_GRAD_REL} ({'RPN' if rpn_only else 'head'}) and "
-          f"{TRUNK_GRAD_REL} (trunk leaves): {'; '.join(parts)}: "
+          f"{loss_tol:.2e}); gradients, relative L2 error, tolerance "
+          f"{HEAD_GRAD_REL} ({'RPN' if rpn_only else 'heads'}) and "
+          f"{TRUNK_GRAD_REL} (trunk leaves){noise}: {'; '.join(parts)}: "
           f"{'PASS' if ok else 'FAIL'}")
     del model
     torch.cuda.empty_cache()
@@ -1389,13 +1543,16 @@ def loader_ms_per_batch(roidb, cfg, n=8) -> float:
 
 
 def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
-                   out_dir=None, every_step=(), idle=()):
+                   out_dir=None, every_step=(), idle=(), per_step=None,
+                   varying=()):
     """run_training for WARMUP_STEPS + TIMED_STEPS steps with the launch
     counters zeroed just before and read after every step. Passes when the
-    losses are finite, every kernel of ``every_step`` launched at every
-    step, every other training kernel in the timed steps unless it is in
-    ``idle``, whose kernels must not launch at all. Returns (ok, launches
-    over the whole run, median ms per step)."""
+    losses are finite, every kernel of
+    ``every_step`` launched at every step, every other training kernel in
+    the timed steps unless it is in ``idle``, whose kernels must not launch
+    at all, each kernel of ``per_step`` exactly that many times in every
+    step, and each metric of ``varying`` not the same at every step.
+    Returns (ok, launches over the whole run, median ms per step)."""
     from sniper_tpu_torch.main_train import run_training
     from sniper_tpu_torch.ops import cuda
 
@@ -1429,10 +1586,14 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
     each_step = all(snaps[i][n] > (snaps[i - 1][n] if i else 0)
                     for i in range(len(snaps)) for n in every_step)
     finite = all(math.isfinite(v) for m in losses for v in m.values())
+    exact = all(snaps[i][n] - (snaps[i - 1][n] if i else 0) == c
+                for i in range(len(snaps))
+                for n, c in (per_step or {}).items())
+    varies = all(len({m[k] for m in losses}) > 1 for k in varying)
     good = (res["step"] == n_steps and len(timed) == TIMED_STEPS and finite
             and each_step and all(launches[n] == 0 for n in idle)
             and all(over_timed[n] for n in TRAINING_KERNELS
-                    if n not in idle))
+                    if n not in idle) and exact and varies)
     srt = sorted(timed)
     med = srt[len(srt) // 2]
     bs = cfg.TRAIN.BATCH_IMAGES
@@ -1445,7 +1606,9 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
           f"over the timed steps {over_timed}, over the whole run "
           f"{launches}; {list(every_step)} every step {each_step}; "
           f"{list(idle)} never launched {all(launches[n] == 0 for n in idle)}"
-          f"; losses finite {finite}: {'PASS' if good else 'FAIL'}")
+          + (f"; per step exactly {per_step}: {exact}" if per_step else "")
+          + (f"; {list(varying)} not constant: {varies}" if varying else "")
+          + f"; losses finite {finite}: {'PASS' if good else 'FAIL'}")
     return good, launches, med
 
 
@@ -1634,9 +1797,152 @@ def recipe_training(dev, cfg, ds, card: str) -> tuple[bool, dict, dict]:
     return ok, l_t, l_p
 
 
-def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
-    """(a) the full detector's one-step check, then the recipe (r1)-(r4).
-    Returns (ok, {path: launches})."""
+def mask_training(dev, mcfg, tmp: str, prefix: str,
+                  card: str) -> tuple[bool, dict]:
+    """The mask yml's training from the recipe's pieces: (m1) the one-step
+    check with the mask branch; (m2) run_training from (r1)'s backbone with
+    negative chips mined from (r3)'s proposals over the synthetic images
+    with polygons (flipped with them), the thread loader, its checkpoint
+    written; (m3) main_test's restore of that checkpoint and run_detection
+    with masks on two images. Returns (ok, (m2)'s launches)."""
+    import copy
+
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    mcfg = train_cfg(mcfg)
+    mcfg.output_path = os.path.join(tmp, "output")
+    mcfg.proposal_path = os.path.join(tmp, "proposals")
+    mcfg.network.pretrained = prefix
+    ok1 = train_step_check(dev, mcfg, "mask (m1)")
+
+    def log(m):
+        print(f"mask (m2) {m}")
+
+    roidb = build_roidb(mcfg, log, datasets=[SynthMaskDataset()])
+    polys = sum(len(r["gt_masks"]) for r in roidb)
+    loader_ms = loader_ms_per_batch(roidb, mcfg)
+    model = init_detector(get_model(mcfg), seed=0)
+    load_pretrained(mcfg, model, log)
+    model.to(dev)
+    params = dict(model.named_parameters())
+    before = {k: params[k].detach().clone() for k in MASK_LEAVES}
+    grad_norms: dict = {k: [] for k in MASK_LEAVES}
+    for k in MASK_LEAVES:
+        params[k].register_hook(
+            lambda g, k=k: grad_norms[k].append(g.detach().norm()))
+    out_dir = os.path.join(mcfg.output_path, config_name(MASK_CONFIG),
+                           mcfg.dataset.image_set)
+    print(f"mask (m2) {MASK_CONFIG}: units {model.trunk.units}, "
+          f"{mcfg.dataset.NUM_CLASSES} classes, BATCH_IMAGES "
+          f"{mcfg.TRAIN.BATCH_IMAGES}, chips {mcfg.TRAIN.CHIP_SIZE}, "
+          f"{model.num_rois} sampled rois and {model.num_mask_rois} mask rois "
+          f"per chip, trunk dtype {model.dtype}, mask head fp32, from the "
+          f"imported backbone; {len(roidb)} images with {polys} polygons "
+          f"(flips included); the loader alone {loader_ms:.1f} ms per batch "
+          f"(8 batches, gt_masks [{mcfg.TRAIN.BATCH_IMAGES}, "
+          f"{mcfg.TRAIN.MAX_GT_BOXES}, 112, 112] uint8)")
+    run_roidb = copy.deepcopy(roidb)
+    loader = make_loader(run_roidb, mcfg, 0, image_loader=synth_train_image)
+    per_step = {cuda.DEFORM_IM2COL.name: 3, cuda.DEFORM_IM2COL_BWD.name: 3,
+                cuda.NMS.name: 1, cuda.FUSED_POOL.name: 4,
+                cuda.POOL_BWD.name: 4, cuda.ROI_PATCH.name: 0}
+    try:
+        ok2, launches, _ = timed_training(
+            dev, mcfg, model, loader, card, "mask (m2)", out_dir=out_dir,
+            every_step=(cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name),
+            idle=(cuda.ROI_PATCH.name,), per_step=per_step,
+            varying=("mask_loss",))
+    finally:
+        loader.close()
+    mined = sum(len(r.get("neg_chips", [])) for r in run_roidb)
+    ckpt = os.path.join(out_dir, "checkpoints", "epoch_0001.pt")
+    ok2 &= mined > 0 and os.path.exists(ckpt)
+    # the mask branch trains: its leaves get a gradient at every step,
+    # finite, and nonzero over the run
+    grads_ok, moved = True, []
+    for k in MASK_LEAVES:
+        norms = [float(n) for n in grad_norms[k]]
+        grads_ok &= (len(norms) == WARMUP_STEPS + TIMED_STEPS
+                     and all(math.isfinite(n) for n in norms)
+                     and max(norms) > 0)
+        move = float((params[k].detach() - before[k]).norm())
+        moved.append(f"{k} gradient norm {min(norms, default=0):.3e} to "
+                     f"{max(norms, default=0):.3e} over "
+                     f"{len(norms)} steps, moved {move:.3e}")
+    ok2 &= grads_ok
+    print(f"mask (m2) negative chips mined from (r3)'s proposals: {mined}; "
+          f"checkpoint {ckpt} written {os.path.exists(ckpt)}; the mask "
+          f"layers: {'; '.join(moved)}; every step's gradient finite and "
+          f"some nonzero {grads_ok}: {'PASS' if ok2 else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = copy.deepcopy(mcfg)
+    tcfg.TEST.TEST_EPOCH = mcfg.TRAIN.end_epoch
+    model = get_model(tcfg)
+    source = restore_inference_state(tcfg, model, config_name(MASK_CONFIG),
+                                     lambda m: print(f"mask (m3) {m}"))
+    model.to(dev).eval()
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(2)]
+    # a few steps on synthetic images leave the foreground scores below the
+    # Tester's default threshold (1e-3): the restored model's scale-0
+    # forward sets it under each chip's 20th best foreground score, so that
+    # run_detection keeps detections and their masks
+    init_inference_crops(roidb)
+    n = _scale_post_nms(tcfg, 0, model)
+    batch = next(iter(TestChipIterator(roidb, tcfg, 0, 2,
+                                       image_loader=synth_image)))
+    out = make_forward(model, None, dev, tcfg.network.PIXEL_MEANS, n)(
+        batch["data"], batch["im_info"])
+    mp = out["mask_prob"]
+    fwd_ok = (tuple(mp.shape) == (2, n, model.mask_size, model.mask_size)
+              and bool(torch.isfinite(mp).all()) and float(mp.min()) >= 0
+              and float(mp.max()) <= 1)
+    fg = out["cls_prob"][..., 1:].reshape(len(mp), -1).float()
+    thresh = float(fg.topk(20, dim=1).values[:, -1].min()) * 0.99
+    with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh):
+        stats = run_detection(tcfg, model, None, roidb,
+                              MaskCountingDataset(paste=False), det_dir, dev,
+                              image_loader=synth_image)
+    n_det = stats["bbox"]["detections"]
+    ok3 = (source == "checkpoint" and fwd_ok and n_det > 0
+           and stats["segm"]["masks"] == n_det)
+    print(f"mask (m3) main_test's restore ({source}) of (m2)'s checkpoint; "
+          f"the restored model's scale-0 forward: mask_prob "
+          f"{list(mp.shape)} in [{float(mp.min()):.4f}, "
+          f"{float(mp.max()):.4f}], finite {bool(torch.isfinite(mp).all())}, "
+          f"largest foreground score {float(fg.max()):.3e}; run_detection "
+          f"with masks on 2 synthetic {IM_W}x{IM_H} images at class "
+          f"threshold {thresh:.3e}: {stats} (every kept mask finite and in "
+          f"[0, 1], one per detection, some kept): "
+          f"{'PASS' if ok3 else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"mask training: (m1) {'PASS' if ok1 else 'FAIL'}, (m2) "
+          f"{'PASS' if ok2 else 'FAIL'}, (m3) {'PASS' if ok3 else 'FAIL'}")
+    return ok1 and ok2 and ok3, launches
+
+
+def train_phase(dev, cfg, mcfg, card: str) -> tuple[bool, dict]:
+    """(a) the full detector's one-step check, then the recipe (r1)-(r4),
+    then the mask yml's training (m1)-(m3) from (r1)'s backbone and (r3)'s
+    proposals. Returns (ok, {path: launches})."""
     from sniper_tpu_torch.main_train import build_roidb
 
     cfg = train_cfg(cfg)
@@ -1651,13 +1957,16 @@ def train_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         ok_r2, l_rpn = rpn_training(dev, rcfg, rpn_roidb, card)
         ok_r3, l_ext = proposal_extraction(dev, rcfg, ds, card)
         ok_r4, l_rec, l_proc = recipe_training(dev, cfg, ds, card)
+        ok_m, l_mask = mask_training(dev, mcfg, tmp, prefix, card)
     print(f"recipe: (r1) {'PASS' if ok_r1 else 'FAIL'}, (r2) "
           f"{'PASS' if ok_r2 else 'FAIL'}, (r3) {'PASS' if ok_r3 else 'FAIL'}"
-          f", (r4) {'PASS' if ok_r4 else 'FAIL'}")
-    return ok and ok_r1 and ok_r2 and ok_r3 and ok_r4, {
+          f", (r4) {'PASS' if ok_r4 else 'FAIL'}; mask training "
+          f"{'PASS' if ok_m else 'FAIL'}")
+    return ok and ok_r1 and ok_r2 and ok_r3 and ok_r4 and ok_m, {
         "rpn training": l_rpn, "proposal extraction": l_ext,
         "training (recipe)": l_rec,
-        "training (recipe, loader process)": l_proc}
+        "training (recipe, loader process)": l_proc,
+        "mask training": l_mask}
 
 
 def main() -> int:
@@ -1678,14 +1987,17 @@ def main() -> int:
     torch.cuda.synchronize()
     ok_m, launches_mask = mask_phase(dev, mcfg, card)
     torch.cuda.synchronize()
-    ok_t, launches_train = train_phase(dev, cfg, card)
+    ok_t, launches_train = train_phase(dev, cfg, mcfg, card)
     torch.cuda.synchronize()
 
-    # "launches": the mask-branch inference run for the four kernels it
-    # runs; the recipe's phase 3 (thread loader) for the two backward
-    # kernels, which only training runs. Every path's counts stand beside.
+    # "launches": the mask-branch inference run for the kernels it runs
+    # (the patch extraction's 0: no path runs it); the recipe's phase 3
+    # (thread loader) for the two backward kernels, which only training
+    # runs. Every path's counts stand beside, the mask training's among
+    # them.
     def main_path(name):
-        return ("mask inference" if name in INFERENCE_KERNELS
+        return ("mask inference"
+                if name in INFERENCE_KERNELS + ("roi_patch",)
                 else "training (recipe)")
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,

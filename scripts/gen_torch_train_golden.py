@@ -1,4 +1,4 @@
-"""Generate the fixture that holds the port's training step against the JAX
+"""Generate the fixtures that hold the port's training step against the JAX
 package's.
 
 Three steps of sniper_tpu.train.trainer.make_train_step on a one-device CPU
@@ -13,10 +13,24 @@ metrics, a few parameter leaves after the three steps and some BatchNorm
 running statistics; tests/test_torch_train_step.py runs the port's step
 from the same variables and batch and compares.
 
-The JAX steps take about 50 s here with their compile, which is why their
-outputs are frozen. Regenerate (only after an intentional change of the
-semantics):
-    python scripts/gen_torch_train_golden.py
+``--mask`` writes the second fixture: the same detector with the mask
+branch (mask_size 28, every mask layer He-initialised so that its
+gradients are not buried under five 0.01-scale layers, ``mask_offset`` at
+zero: the 14x14 pool's window starts on the kinks at step 1), and the
+batch also carries ``gt_masks`` rasterized from simple polygons
+(``rasterize_gt_masks``); its metrics add ``mask_loss`` and its leaves the
+mask layers'. tests/test_torch_mask_train.py compares against it. Its steps
+run op by op (``jax.disable_jit``): a roi equal to its GT box samples the
+112^2 grid at exact half cells, so a 2x2 block half inside the polygon
+blends to 0.5 up to the last bit, right at the targets' >= 0.5 threshold,
+and the fused jitted step rounds some such cells (21 at step 0 here) to the
+other side than the JAX package's own op-by-op evaluation does, which the
+port reproduces bit for bit.
+
+The JAX steps take about 50 s here with their compile (more with the mask
+branch), which is why their outputs are frozen. Regenerate (only after an
+intentional change of the semantics):
+    python scripts/gen_torch_train_golden.py [--mask]
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ if jax.config.jax_platforms and \
     jax.config.update("jax_platforms", "cpu")
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_train_golden.json")
+MASK_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "torch_train_mask_golden.json")
 
 B, H, W = 2, 64, 64
 G = 4  # GT rows per chip, the last one padding
@@ -69,6 +85,13 @@ LEAVES = (
     ("batch_stats", "trunk/stage4_unit1/bn2/var"),
     ("batch_stats", "trunk/stage1_unit1/bn2/mean"),  # frozen
 )
+MASK_METRICS = METRICS + ("mask_loss",)
+MASK_LEAVES = LEAVES + (
+    ("params", "mask_offset/bias"),
+    ("params", "mask/mask_conv_3x3_1/bias"),
+    ("params", "mask/mask_deconv/bias"),
+    ("params", "mask/mask_out/bias"),
+)
 
 
 def make_cfg():
@@ -85,17 +108,43 @@ def make_cfg():
     return cfg
 
 
-def model_kwargs():
+def model_kwargs(mask=False):
     from torch_port import TINY
 
-    return dict(num_rois=TINY["post_nms_top_n"] + G, fg_fraction=1.0,
-                train_pre_nms=TINY["pre_nms_top_n"],
-                train_post_nms=TINY["post_nms_top_n"])
+    kw = dict(num_rois=TINY["post_nms_top_n"] + G, fg_fraction=1.0,
+              train_pre_nms=TINY["pre_nms_top_n"],
+              train_post_nms=TINY["post_nms_top_n"])
+    if mask:
+        kw["with_mask"] = True
+    return kw
 
 
-def make_batch():
+def gt_polygons(gt):
+    """Per GT row of gt [G,5] (rows with class -1 are padding), its
+    polygons: an ellipse of 16 vertices inscribed in the box, for the first
+    row a triangle and a square beside it (two segments)."""
+    out = []
+    for i, (x1, y1, x2, y2, c) in enumerate(gt):
+        if c < 0:
+            out.append([])
+            continue
+        if i == 0:
+            mx, my = (x1 + x2) / 2, (y1 + y2) / 2
+            out.append([[x1, y2, mx, y1, x2, y2],
+                        [x1, y1, mx, y1, mx, my, x1, my]])
+            continue
+        t = np.arange(16) * (2 * np.pi / 16)
+        cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+        pts = np.stack([cx + (x2 - x1) / 2 * np.cos(t),
+                        cy + (y2 - y1) / 2 * np.sin(t)], 1)
+        out.append([pts.reshape(-1).tolist()])
+    return out
+
+
+def make_batch(mask=False):
     """Unit-noise chips (the random RPN's scores stay spread, far from
-    ties), GT boxes of three sizes, sparse RPN targets."""
+    ties), GT boxes of three sizes, sparse RPN targets; with ``mask`` the
+    GT masks of gt_polygons, rasterized as the chip loader does."""
     rng = np.random.RandomState(21)
     A = 9
     n = A * (H // 16) * (W // 16)
@@ -107,7 +156,7 @@ def make_batch():
     pids[:, -4:] = -1
     fg = np.stack([rng.permutation(n)[:F] for _ in range(B)])
     fg[:, -2:] = -1
-    return {
+    batch = {
         "data": rng.randn(B, H, W, 3).astype(np.float32),
         "im_info": np.array([[H, W, 1.0], [H - 8, W - 4, 1.0]], np.float32),
         "gt_boxes": gt,
@@ -118,12 +167,22 @@ def make_batch():
         "fg_pids": fg.astype(np.int32),
         "fg_targets": (rng.randn(B, F, 4) * 0.2).astype(np.float32),
     }
+    if mask:
+        from sniper_tpu.data.mask_utils import rasterize_gt_masks
+
+        batch["gt_masks"] = np.stack([
+            rasterize_gt_masks(gt_polygons(g), g[:, :4], grid=112,
+                               max_n_gts=G) for g in gt])
+    return batch
 
 
-def initial_variables():
+def initial_variables(mask=False):
     from torch_port import tiny_jax_detector
 
-    _, variables = tiny_jax_detector(INIT_KEY, **model_kwargs())
+    kw = model_kwargs(mask)
+    if mask:
+        kw["mask_head_init"] = jax.nn.initializers.he_normal()
+    _, variables = tiny_jax_detector(INIT_KEY, **kw)
     return variables
 
 
@@ -133,7 +192,7 @@ def leaf(tree, path):
     return np.asarray(tree)
 
 
-def run_jax():
+def run_jax(mask=False):
     import jax.numpy as jnp
 
     from sniper_tpu.models.detector import SNIPERDetector
@@ -144,8 +203,8 @@ def run_jax():
 
     cfg = make_cfg()
     model = SNIPERDetector(**dict(TINY, dtype=jnp.float32,
-                                  pool_kernel="fused", **model_kwargs()))
-    variables = initial_variables()
+                                  pool_kernel="fused", **model_kwargs(mask)))
+    variables = initial_variables(mask)
     tx, _ = make_optimizer(cfg, epoch_size=100, params=variables["params"])
     state = TrainState(step=jnp.zeros((), jnp.int32),
                        params=jax.tree.map(jnp.asarray, variables["params"]),
@@ -153,24 +212,34 @@ def run_jax():
                                                 variables["batch_stats"]),
                        opt_state=tx.init(variables["params"]))
     mesh = make_mesh(1)
-    step = make_train_step(model, tx, mesh, B, pixel_means=(0.0, 0.0, 0.0))
-    batch = shard_batch(mesh, make_batch())
+    step = make_train_step(model, tx, mesh, B, pixel_means=(0.0, 0.0, 0.0),
+                           with_mask=mask)
+    batch = shard_batch(mesh, make_batch(mask))
     metrics = []
-    for i in range(N_STEPS):
-        state, m = step(state, batch, jax.random.PRNGKey(i))
-        metrics.append({k: float(m[k]) for k in METRICS})
+    with jax.disable_jit(mask):
+        for i in range(N_STEPS):
+            state, m = step(state, batch, jax.random.PRNGKey(i))
+            metrics.append({k: float(m[k])
+                            for k in (MASK_METRICS if mask else METRICS)})
     final = {"params": state.params, "batch_stats": state.batch_stats}
     return metrics, {f"{c}/{p}": leaf(final[c], p).tolist()
-                     for c, p in LEAVES}
+                     for c, p in (MASK_LEAVES if mask else LEAVES)}
 
 
 def main():
-    metrics, leaves = run_jax()
-    with open(FIXTURE, "w") as f:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--mask", action="store_true",
+                   help="the mask branch's fixture")
+    mask = p.parse_args().mask
+    metrics, leaves = run_jax(mask)
+    path = MASK_FIXTURE if mask else FIXTURE
+    with open(path, "w") as f:
         json.dump({"steps": N_STEPS, "metrics": metrics, "leaves": leaves},
                   f, indent=1)
         f.write("\n")
-    print(f"wrote {FIXTURE}")
+    print(f"wrote {path}")
     for i, m in enumerate(metrics):
         print(i, m)
 

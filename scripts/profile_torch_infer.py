@@ -10,8 +10,8 @@ its share, and the device time by kernel group (the hand-written kernels,
 convolutions, GEMMs, the rest), then the top kernels by device time. A
 second, unprofiled pass times the detector's stages on the device with
 CUDA events around them (trunk, R-CNN head, and with the mask branch its
-pool, split into the patch extraction and the stencil, and its head). TF32
-is off, as in chip_smoke.py. Needs one CUDA device.
+14x14 pool, the fused_pool kernels' two passes and the offset FC, and its
+head). TF32 is off, as in chip_smoke.py. Needs one CUDA device.
 
     python3 scripts/profile_torch_infer.py [--reps 3] [--cfg configs/sniper_res101_e2e_mask.yml]
 """
@@ -54,9 +54,6 @@ def group_of(name: str) -> str:
 def stage_timers(model, spans):
     """Wrap the detector's stages so that each call records CUDA events
     around itself into ``spans[name]`` (restored on exit)."""
-    from sniper_tpu_torch.models import detector
-    from sniper_tpu_torch.ops import deform
-
     def timed(name, fn):
         def run(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
@@ -69,13 +66,10 @@ def stage_timers(model, spans):
         return run
 
     patched = [(model.trunk, "forward", "trunk"),
-               (model.rcnn, "forward", "R-CNN head (pool + FCs)"),
-               (detector, "patch_offset_pool", "mask pool"),
-               (deform, "extract_patches", "  mask pool: roi_patch"),
-               (deform, "stencil_pool", "  mask pool: stencil"),
-               (deform, "tiled_bin_avg", "  mask pool: pass-1 average")]
+               (model.rcnn, "forward", "R-CNN head (pool + FCs)")]
     if model.with_mask:
-        patched.append((model.mask, "forward", "mask head"))
+        patched += [(model, "_mask_pool", "mask pool (14x14)"),
+                    (model.mask, "forward", "mask head")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
     for obj, attr, name in patched:
         setattr(obj, attr, timed(name, getattr(obj, attr)))
@@ -166,7 +160,7 @@ def main():
                 fwd()
             torch.cuda.synchronize()
         print("  device time by stage (CUDA events around each call, per "
-              "batch; the split rows sum the chunks of the mask pool):")
+              "batch):")
         for name, evs in spans.items():
             ms = sum(a.elapsed_time(b) for a, b in evs) / args.reps
             print(f"  {name:34s} {ms:9.3f} ms")

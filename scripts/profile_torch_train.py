@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the port.
 
-Runs sniper_tpu_torch's R101 detector (configs/sniper_res101_e2e.yml at
-full width, seeded random weights with the flax init's zero offsets) through
-make_train_step on a synthetic batch that already lies on the device:
-BATCH_IMAGES uint8 chips of CHIP_SIZE with GT boxes and sparse RPN targets.
+Runs sniper_tpu_torch's R101 detector (``--cfg``, by default
+configs/sniper_res101_e2e.yml, at full width, seeded random weights with the
+flax init's zero offsets) through make_train_step on a synthetic batch that
+already lies on the device: BATCH_IMAGES uint8 chips of CHIP_SIZE with GT
+boxes and sparse RPN targets, and with the mask config (TRAIN.WITH_MASK)
+each GT's dense mask rasterized from the ellipse inscribed in its box.
 After warm-up steps it profiles a few steps with torch.profiler and prints
 the host-clock time per step, the device-busy time (sum of kernel times)
 and its share, the device time by kernel group (the five hand-written
@@ -12,7 +14,9 @@ kernels, convolutions, GEMMs, BatchNorm, the optimizer, the rest), then the
 top kernels. The chip loader is left out: it runs on the host, in its own
 threads. Needs one CUDA device.
 
-    python3 scripts/profile_torch_train.py [--steps 3] [--warmup 2]
+    python3 scripts/profile_torch_train.py [--steps 3] [--warmup 2] [--cfg configs/sniper_res101_e2e_mask.yml]
+
+TF32 stays at torch's defaults, as main_train runs.
 """
 
 from __future__ import annotations
@@ -76,6 +80,21 @@ def synthetic_batch(cfg, dev, gen):
         "fg_pids": pids[:, :64].int(),
         "fg_targets": torch.randn(B, 64, 4, generator=gen) * 0.2,
     }
+    if cfg.TRAIN.WITH_MASK:
+        import numpy as np
+
+        from sniper_tpu_torch.data.mask_utils import rasterize_gt_masks
+
+        t = np.arange(24) * (2 * np.pi / 24)
+
+        def ellipse(b):
+            return np.stack([(b[0] + b[2]) / 2 + (b[2] - b[0]) / 2 * np.cos(t),
+                             (b[1] + b[3]) / 2 + (b[3] - b[1]) / 2 * np.sin(t)],
+                            1).reshape(-1)
+
+        batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
+            [[ellipse(b)] if b[4] >= 0 else [] for b in rows], rows[:, :4],
+            grid=112, max_n_gts=G) for rows in gt.numpy()]))
     return {k: v.to(dev) for k, v in batch.items()}
 
 
@@ -83,6 +102,7 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--cfg", default="configs/sniper_res101_e2e.yml")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
@@ -101,7 +121,10 @@ def main():
     ).stdout.strip()
     print(card)
     dev = torch.device("cuda", 0)
-    cfg = load_config(os.path.join(ROOT, "configs", "sniper_res101_e2e.yml"))
+    cfg = load_config(os.path.join(ROOT, args.cfg))
+    print(f"{args.cfg}: symbol {cfg.symbol}, TRAIN.WITH_MASK "
+          f"{bool(cfg.TRAIN.WITH_MASK)}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}")
     model = init_detector(get_model(cfg), seed=0).to(dev)
     opt, sched, _ = make_optimizer(cfg, 1000, model)
     step = make_train_step(

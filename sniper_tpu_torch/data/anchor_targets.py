@@ -49,6 +49,7 @@ class AnchorTargets(NamedTuple):
     rpn_label_vals: np.ndarray  # [rpn_batch_size] float32, {0, 1}, -1 pad
     fg_pids: np.ndarray         # [num_fg] int32
     fg_targets: np.ndarray      # [num_fg, 4] float32
+    gt_keep: np.ndarray         # indices into gtids of the kept GT rows
 
 
 class AnchorTargetAssigner:
@@ -119,6 +120,7 @@ class AnchorTargetAssigner:
         vgt_boxes = clip_boxes(np.round(vgt_boxes * im_scale), canvas)
 
         keep = filter_boxes_mask(gt_boxes, self.min_gt_size)
+        gt_keep = np.where(keep)[0]
         gt_boxes = gt_boxes[keep]
         cls = np.asarray(classes, dtype=np.float64).reshape(-1)[keep]
         agt_boxes = gt_boxes.copy()
@@ -189,4 +191,4 @@ class AnchorTargetAssigner:
             ftgts[: len(fg)] = bbox_transform(
                 anchors[fg], gt_boxes[argmax_overlaps[fg]]
             )
-        return AnchorTargets(fgt, pids, vals, fpids, ftgts)
+        return AnchorTargets(fgt, pids, vals, fpids, ftgts, gt_keep)

@@ -2,11 +2,12 @@
 
 A jax-free copy of sniper_tpu/data/loader.py:50-440 (``ChipLoader``,
 ``process_chip_image``) in the form the training step takes: uint8 chips,
-normalized on the device, and the sparse RPN targets. The image reader and
-``Prefetcher`` are shared with data/test_loader.py. The mask targets
-(TRAIN.WITH_MASK), the AutoFocus labels (TRAIN.AUTO_FOCUS) and the
+normalized on the device, and the sparse RPN targets, plus under
+TRAIN.WITH_MASK each chip's GT masks rasterized on the host
+(data/mask_utils.py). The image reader and ``Prefetcher`` are shared with
+data/test_loader.py. The AutoFocus labels (TRAIN.AUTO_FOCUS) and the
 training-chip rendering (TRAIN.VISUALIZE) are later slices of the port
-(ROADMAP.md Queue 1 items 3 to 5) and raise NotImplementedError.
+(ROADMAP.md Queue 1 items 4 and 5) and raise NotImplementedError.
 
 Rebuild of the reference MNIteratorE2E + im_worker + PrefetchingIter
 (reference lib/iterators/MNIteratorE2E.py:41-220,
@@ -26,6 +27,9 @@ per batch:
   [chip, chip] uint8 canvas (NHWC here, vs reference NCHW); the mean
   subtraction runs on the device,
 - RPN targets per chip via AnchorTargetAssigner (sparse pid/value pairs),
+- with TRAIN.WITH_MASK and polygons in the roidb entry, the kept GT rows'
+  polygons in chip coordinates rasterized into [MAX_GT_BOXES, 112, 112]
+  uint8 box-normalized masks,
 - valid_ranges scaled into chip pixels (lo*scale or 0 / hi*scale or
   chip_size),
 
@@ -56,6 +60,7 @@ import numpy as np
 from sniper_tpu_torch.chips.assigner import assign_boxes, extract_chips
 from sniper_tpu_torch.chips.generator import ChipGenerator
 from sniper_tpu_torch.data.anchor_targets import AnchorTargetAssigner
+from sniper_tpu_torch.data.mask_utils import crop_polys, rasterize_gt_masks
 from sniper_tpu_torch.data.test_loader import Prefetcher, load_image_cv2
 
 __all__ = ["ChipLoader", "Prefetcher", "load_image_cv2",
@@ -124,7 +129,6 @@ class ChipLoader:
         for on, what, item in (
                 (bool(getattr(cfg.TRAIN, "VISUALIZE", False)),
                  "the training-chip rendering (TRAIN.VISUALIZE)", 5),
-                (cfg.TRAIN.WITH_MASK, "mask targets (TRAIN.WITH_MASK)", 3),
                 (cfg.TRAIN.AUTO_FOCUS,
                  "AutoFocus labels (TRAIN.AUTO_FOCUS)", 4)):
             if on:
@@ -292,7 +296,7 @@ class ChipLoader:
              chip.im_scale],
             np.float32,
         )
-        return {
+        sample = {
             "data": data,
             "im_info": im_info,
             "data_extent": np.array([eh, ew], np.float32),
@@ -303,6 +307,16 @@ class ChipLoader:
             "fg_pids": tgt.fg_pids,
             "fg_targets": tgt.fg_targets,
         }
+        if cfg.TRAIN.WITH_MASK and "gt_masks" in r:
+            # polygons into chip coordinates, aligned to the kept GT rows
+            polys = crop_polys([r["gt_masks"][g] for g in gtids], chip.box,
+                               chip.im_scale)
+            kept_polys = [polys[k] for k in tgt.gt_keep]
+            kept_boxes = tgt.gt_boxes[:len(tgt.gt_keep), :4]
+            sample["gt_masks"] = rasterize_gt_masks(
+                kept_polys, kept_boxes, grid=112,
+                max_n_gts=cfg.TRAIN.MAX_GT_BOXES)
+        return sample
 
     def __iter__(self):
         for start in range(0, self.size, self.batch_size):

@@ -2,8 +2,8 @@
 
 A jax-free copy of sniper_tpu/data/roidb.py, whose module reaches
 jax through sniper_tpu.ops. Only the imports differ, and what no caller
-of the port uses is left out: ``remove_small_boxes``, ``evaluate_recall``
-and the flip of mask polygons (the mask branch is a later slice).
+of the port uses is left out: ``remove_small_boxes`` and
+``evaluate_recall``.
 
 Rebuild of the reference IMDB roidb machinery
 (reference lib/dataset/imdb.py:81-272,398-419 and
@@ -48,8 +48,19 @@ def append_flipped_images(roidb):
         e = dict(r)
         e["boxes"] = boxes
         e["flipped"] = True
+        if "gt_masks" in r:
+            e["gt_masks"] = [
+                [_flip_poly(p, r["width"]) for p in polys]
+                for polys in r["gt_masks"]
+            ]
         flipped.append(e)
     return roidb + flipped
+
+
+def _flip_poly(poly, width):
+    p = np.asarray(poly, dtype=np.float32).copy()
+    p[0::2] = width - p[0::2] - 1
+    return p
 
 
 def compute_overlap_fields(boxes, gt_boxes, gt_classes, num_classes):

@@ -11,7 +11,9 @@ epoch loop of ``run_training``:
       [--set TRAIN.lr 0.01 ...]
 
 TRAIN.ONLY_PROPOSAL trains the RPN alone (the recipe's first phase, whose
-checkpoint main_test's TEST.EXTRACT_PROPOSALS reads). Each epoch re-rolls
+checkpoint main_test's TEST.EXTRACT_PROPOSALS reads); TRAIN.WITH_MASK
+(configs/sniper_res101_e2e_mask.yml) adds the mask branch and its loss,
+with the GT polygons rasterized by the chip loader. Each epoch re-rolls
 the chips, assembles batches in a background thread and uploads them
 (pinned memory, non-blocking copies) in a second one, so both overlap the
 device's steps; the step's metrics stay on the device until a log line
@@ -20,8 +22,7 @@ reads them. A checkpoint per epoch goes to
 ``TRAIN.begin_epoch = n`` resumes from it.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the mask and AutoFocus branches, OHEM and data parallelism (more than one
-device).
+the AutoFocus branch, OHEM and data parallelism (more than one device).
 """
 
 from __future__ import annotations
@@ -123,7 +124,6 @@ def check_ported(cfg, device):
     """Raise NotImplementedError for the options of later slices, training
     on ``device`` included."""
     todo = [
-        (cfg.TRAIN.WITH_MASK, "the mask branch (TRAIN.WITH_MASK)", 3),
         (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 4),
         (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 5),
         (num_devices(cfg, device) > 1,

@@ -6,20 +6,25 @@ cast to fp32, then
 
 - inference: ``multi_proposal`` -> the fused deformable R-CNN head ->
   class softmax and ``bbox_pred * stds + means``; with ``with_mask``, the
-  mask branch on every kept roi: the 14x14 two-pass pool through one patch
-  extraction per roi (``patch_offset_pool``, the JAX package's einsum
-  route, which its mask branch takes whatever POOL_KERNEL says) with the
-  ``mask_offset`` FC -> ``MaskHead`` -> the neg and pos planes of each
-  roi's argmax foreground class -> softmax over the pair -> ``mask_prob``;
+  mask branch on every kept roi: the 14x14 two-pass pool
+  (``fused_offset_pool`` with the ``mask_offset`` FC, the kernels of the
+  box head's 7x7 pool) -> ``MaskHead`` -> the neg and pos planes of each
+  roi's argmax foreground class -> softmax over the pair -> ``mask_prob``.
+  The JAX package pools its mask branch through the einsum route only
+  because the 14x14 pool overflows a TPU core's VMEM;
 - training: ``multi_proposal_target`` (proposals, GT candidates, valid
   ranges, the fg/bg sample) -> the head on the sampled rois, returning what
-  the losses need and the offset telemetry;
+  the losses need and the offset telemetry; with ``with_mask``
+  (detector.py:224-291) also the mask branch on the first
+  ``num_mask_rois`` sampled rois of each image (fg first), trained through
+  the 14x14 pool's backward, with each roi's targets crop-resized from the
+  batch's dense GT masks (ops/mask_target.py);
 - ``rpn_only`` (TRAIN.ONLY_PROPOSAL, detector.py:153-165): no
   ``conv_new_1``, R-CNN or mask modules; training returns the RPN outputs
   and the trunk's telemetry, inference the proposals of ``multi_proposal``.
 
-Mask training and AutoFocus are later slices of the port (ROADMAP.md,
-Queue 1 items 3 and 4); asking for them raises ``NotImplementedError``.
+AutoFocus is a later slice of the port (ROADMAP.md, Queue 1 item 4);
+asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,11 +37,14 @@ from torch import nn
 from sniper_tpu_torch.models.heads import MaskHead, RCNNHead, RPNHead
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
-from sniper_tpu_torch.ops.deform import patch_offset_pool
+from sniper_tpu_torch.ops.deform import fused_offset_pool
+from sniper_tpu_torch.ops.mask_target import mask_targets_from_dense
 from sniper_tpu_torch.ops.proposals import (
     multi_proposal,
     multi_proposal_target,
 )
+
+NUM_MASK_ROIS = 50  # sampled rois per image that train the mask branch
 
 
 class SNIPERDetector(nn.Module):
@@ -103,6 +111,7 @@ class SNIPERDetector(nn.Module):
         self.rpn_only = rpn_only
         self.with_mask = with_mask and not rpn_only
         self.mask_size = 28  # the mask head's deconv doubles the 14x14 pool
+        self.num_mask_rois = NUM_MASK_ROIS
         self.head_margin_bins = head_margin_bins
         if not rpn_only:
             self.conv_new_1 = nn.Conv2d(1024 + 2048, 256, 1)
@@ -142,6 +151,7 @@ class SNIPERDetector(nn.Module):
     def forward(self, data: torch.Tensor, im_info: torch.Tensor,
                 gt_boxes: torch.Tensor | None = None,
                 valid_ranges: torch.Tensor | None = None, *,
+                gt_masks: torch.Tensor | None = None,
                 train: bool = False, post_nms_top_n: int | None = None,
                 generator: torch.Generator | None = None,
                 priorities=None):
@@ -161,10 +171,15 @@ class SNIPERDetector(nn.Module):
         rois with their labels and targets, cls_score [B,R,C], bbox_pred
         [B,R,4] and ``stats``: the head's offset telemetry and the trunk's
         dcn_offset_max, as 0-d tensors; ``rpn_only`` the RPN outputs and
-        ``stats`` with dcn_offset_max only."""
+        ``stats`` with dcn_offset_max only. ``with_mask`` training also
+        takes gt_masks [B,G,D,D] (the chip loader's box-normalized GT
+        masks, uint8 or float in {0, 1}) and returns mask_logits
+        [B*m,S,S,2] (each mask roi's neg and pos planes of its GT class)
+        and mask_targets [B*m,S,S] in {-1, 0, 1}, m = min(num_mask_rois,
+        num_rois)."""
         if train:
             return self._train_forward(data, im_info, gt_boxes, valid_ranges,
-                                       generator, priorities)
+                                       gt_masks, generator, priorities)
         n = post_nms_top_n or self.post_nms_top_n
         feat, _, rpn_bbox, rpn_fg = self._shared(data)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
@@ -195,26 +210,40 @@ class SNIPERDetector(nn.Module):
         class's neg/pos planes only, softmax over the pair (detector.py:
         318-353). Returns [B,N,S,S]."""
         b, n = rois.shape[:2]
-        C = roi_feat_map.shape[-1]
-        pooled = patch_offset_pool(
-            roi_feat_map, rois.reshape(-1, 5), self.mask_offset.weight,
-            self.mask_offset.bias, rois_per_image=n, pooled_size=14,
-            spatial_scale=1.0 / self.feat_stride,
-            margin_bins=self.head_margin_bins).reshape(-1, 14, 14, C)
-        logits = self.mask(pooled)  # [B*N, S, S, 2*nfg]
-        nfg = self.num_classes - 1
+        logits = self.mask(self._mask_pool(roi_feat_map, rois, n))
+        pair = self._class_planes(logits, cls_prob[..., 1:].argmax(dim=-1))
         S = self.mask_size
-        best = cls_prob[..., 1:].argmax(dim=-1).reshape(-1, 1, 1, 1)
-        pair = torch.cat([
-            logits.gather(-1, best.expand(-1, S, S, 1)),
-            logits.gather(-1, (best + nfg).expand(-1, S, S, 1))], dim=-1)
         return torch.softmax(pair, dim=-1)[..., 1].reshape(b, n, S, S)
 
+    def _mask_pool(self, roi_feat_map, rois, rois_per_image):
+        """The 14x14 two-pass pool of rois [B, rpi, 5] with the
+        ``mask_offset`` FC: [B*rpi, 14, 14, C] fp32."""
+        C = roi_feat_map.shape[-1]
+        return fused_offset_pool(
+            roi_feat_map, rois.reshape(-1, 5), self.mask_offset.weight,
+            self.mask_offset.bias, rois_per_image=rois_per_image,
+            pooled_size=14, spatial_scale=1.0 / self.feat_stride,
+            margin_bins=self.head_margin_bins).reshape(-1, 14, 14, C)
+
+    def _class_planes(self, logits, cid):
+        """Each roi's neg plane cid and pos plane cid + nfg of logits
+        [R, S, S, 2*nfg], cid a foreground class index from 0: [R, S, S, 2]
+        (the reference's pick and concat, mask symbol :396-401)."""
+        S = self.mask_size
+        idx = cid.reshape(-1, 1, 1, 1).expand(-1, S, S, 1)
+        return torch.cat([logits.gather(-1, idx),
+                          logits.gather(-1, idx + self.num_classes - 1)],
+                         dim=-1)
+
     def _train_forward(self, data, im_info, gt_boxes, valid_ranges,
-                       generator, priorities):
-        if self.with_mask:
-            raise NotImplementedError(
-                "mask training is not ported yet (ROADMAP.md Queue 1 item 3)")
+                       gt_masks, generator, priorities):
+        if self.with_mask and gt_masks is None:
+            # the usual cause: roidb entries without gt_masks (a dataset
+            # built without load_mask, or a stale maskless roidb cache)
+            raise ValueError(
+                "with_mask=True but the batch has no gt_masks "
+                "— build the dataset with load_mask=True "
+                "(TRAIN.WITH_MASK) and check the roidb cache")
         dcn = []
         feat, rpn_cls_logits, rpn_bbox, rpn_fg = self._shared(data, dcn)
         if self.rpn_only:
@@ -234,7 +263,7 @@ class SNIPERDetector(nn.Module):
         stats = self.rcnn.offset_stats(off)
         if dcn:
             stats["dcn_offset_max"] = torch.stack(dcn).amax()
-        return {
+        out = {
             "rpn_cls_logits": rpn_cls_logits,  # [B,H,W,2,A]
             "rpn_bbox_pred": rpn_bbox,         # [B,4A,H,W]
             "rois": tgt.rois,
@@ -245,3 +274,19 @@ class SNIPERDetector(nn.Module):
             "bbox_pred": bbox_pred.reshape(b, self.num_rois, 4),
             "stats": stats,
         }
+        if self.with_mask:
+            # the first m sampled rois of each image: the sampler puts its
+            # fg rois first
+            m = min(self.num_mask_rois, self.num_rois)
+            mask_rois = tgt.rois[:, :m].detach()
+            logits = self.mask(self._mask_pool(roi_feat_map, mask_rois, m))
+            if not gt_masks.is_floating_point():
+                gt_masks = gt_masks.float()  # the loader ships uint8
+            targets, cls_ids = mask_targets_from_dense(
+                mask_rois, tgt.matched_gt[:, :m], gt_boxes, gt_masks,
+                mask_size=self.mask_size)
+            cid = (cls_ids.reshape(-1).long() - 1).clamp_min(0)
+            S = self.mask_size
+            out["mask_logits"] = self._class_planes(logits, cid)
+            out["mask_targets"] = targets.reshape(b * m, S, S)
+        return out

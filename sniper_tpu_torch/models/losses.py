@@ -1,7 +1,7 @@
 """Loss functions with the reference's normalizations.
 
-Port of sniper_tpu/models/losses.py:20-184 without the mask, AutoFocus and
-OHEM terms (ROADMAP.md Queue 1 items 3 to 5):
+Port of sniper_tpu/models/losses.py:20-184 without the AutoFocus and OHEM
+terms (ROADMAP.md Queue 1 items 4 and 5):
 
 - softmax CE with ignore label -1 and 'valid' normalization (the sum over
   non-ignored entries / max(count, 1)), logits cast to fp32 first;
@@ -9,7 +9,9 @@ OHEM terms (ROADMAP.md Queue 1 items 3 to 5):
   3 / (B * RPN_BATCH_SIZE), R-CNN 1 / (188 * B), 188 = 4 coordinates x ~47
   expected fg rois;
 - the RPN terms from dense target grids or from the chip loader's sparse
-  (pid, value) pairs, which give the same values.
+  (pid, value) pairs, which give the same values;
+- the mask term: the valid-normalized CE over every target cell of the
+  mask rois, -1 ignored.
 """
 
 from __future__ import annotations
@@ -91,14 +93,20 @@ def rcnn_bbox_loss(bbox_pred, bbox_targets, bbox_weights, batch_images):
     return loss / (188.0 * float(batch_images))
 
 
+def mask_loss(mask_logits, mask_targets):
+    """mask_logits [M,S,S,2], mask_targets [M,S,S] in {-1, 0, 1}."""
+    return softmax_ce_ignore(mask_logits, mask_targets)
+
+
 def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
                rpn_only=False):
     """The training loss from the detector's outputs and a loader batch,
     which carries either the sparse RPN targets ('rpn_pids',
     'rpn_label_vals' [B,S], 'fg_pids' [B,F], 'fg_targets' [B,F,4]) or dense
     ones ('label' [B,A*H*W], 'bbox_target' / 'bbox_weight' [B,4A,H,W]).
-    ``rpn_only`` (TRAIN.ONLY_PROPOSAL) sums the two RPN terms only.
-    Returns (loss, metrics dict of 0-d tensors)."""
+    ``rpn_only`` (TRAIN.ONLY_PROPOSAL) sums the two RPN terms only;
+    outputs with ``mask_logits`` (the mask branch's) add the mask term. Returns (loss, metrics dict of 0-d
+    tensors)."""
     if "rpn_pids" in batch:
         l_rpn_cls = rpn_cls_loss_sparse(
             outputs["rpn_cls_logits"], batch["rpn_pids"],
@@ -120,10 +128,15 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
         outputs["bbox_pred"], outputs["rcnn_bbox_targets"],
         outputs["rcnn_bbox_weights"], batch_images)
     loss = l_rpn_cls + l_rpn_bbox + l_rcnn_cls + l_rcnn_bbox
-    return loss, {
+    metrics = {
         "rpn_cls_loss": l_rpn_cls,
         "rpn_bbox_loss": l_rpn_bbox,
         "rcnn_cls_loss": l_rcnn_cls,
         "rcnn_bbox_loss": l_rcnn_bbox,
-        "loss": loss,
     }
+    if "mask_logits" in outputs:
+        l_mask = mask_loss(outputs["mask_logits"], outputs["mask_targets"])
+        loss = loss + l_mask
+        metrics["mask_loss"] = l_mask
+    metrics["loss"] = loss
+    return loss, metrics

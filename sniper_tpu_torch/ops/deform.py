@@ -20,11 +20,13 @@ Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
   plain version). Backward: transposed pass B (dfeat and the window-start
   gradient) -> the clip masks -> the offset-FC transpose times
   ``OFFSET_GRAD_MULT`` -> transposed pass A; each transposed pass is
-  ``pool_pass_bwd`` (csrc/fused_pool_bwd.cu, or the plain version).
+  ``pool_pass_bwd`` (csrc/fused_pool_bwd.cu, or the plain version). The
+  box head pools at P=7 and the mask branch at P=14, both ways.
 - ``rcnn_head_fused`` (deform.py:797-841): the pool plus the FC stack.
 - ``patch_offset_pool`` (deform.py:743-794, ``fused_offset_pool`` with
-  ``extract="einsum"``): the patch route of the same two-pass pool, which the
-  mask branch's 14x14 pool takes. Each roi's (T+2M)^2 patch is extracted
+  ``extract="einsum"``): the patch route of the same two-pass pool, the JAX
+  mask branch's route, kept as a second reference for the 14x14 pool (no
+  caller on the detector's paths). Each roi's (T+2M)^2 patch is extracted
   once by ``extract_patches`` (csrc/roi_patch.cu, the counterpart of
   pallas/roi_patch.py, or the plain version), then ``tiled_bin_avg``
   (pass 1 on the central T x T cells) -> offset FC -> ``stencil_pool``
@@ -652,7 +654,7 @@ def rcnn_head_fused(feat, rois, head_params, *, rois_per_image,
 
 
 # ---------------------------------------------------------------------------
-# the patch route of the two-pass pool (the mask branch's 14x14 pool)
+# the patch route of the two-pass pool (the JAX mask branch's route)
 # ---------------------------------------------------------------------------
 
 
@@ -771,13 +773,13 @@ def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
     [2*P*P, P*P*C], bias [2*P*P]; the first P*P outputs are dy, the next
     dx) -> stencil. feat [B,H,W,C] (pooled in fp32), image-contiguous rois
     [B*rpi, 5]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major. Rois run
-    PATCH_ROI_CHUNK at a time. Forward only: its backward comes with mask
-    training."""
+    PATCH_ROI_CHUNK at a time. Forward only: the mask branch trains
+    through fused_offset_pool."""
     if torch.is_grad_enabled() and (feat.requires_grad or off_w.requires_grad
                                     or off_b.requires_grad):
         raise NotImplementedError(
-            "patch_offset_pool is forward only; its backward comes with "
-            "mask training (ROADMAP.md Queue 1 item 3)")
+            "patch_offset_pool is forward only; the mask branch trains "
+            "through fused_offset_pool")
     P, S = pooled_size, sample_per_part
     T = P * S
     M = margin_bins * S

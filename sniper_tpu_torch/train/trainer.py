@@ -10,7 +10,9 @@ JAX step's mutated ``batch_stats`` do.
 The step returns its metrics as 0-d device tensors and never waits for the
 device: the losses, ``rcnn_acc``, ``rcnn_fg_frac``, the head's offset
 telemetry and the trunk's ``dcn_offset_max`` (with ``rpn_only``, the RPN
-losses and the trunk's telemetry only, as trainer.py:128-145). The caller
+losses and the trunk's telemetry only, as trainer.py:128-145; with the
+model's mask branch, also ``mask_loss``). The batch's uint8 ``gt_masks`` go to
+the model as they are: it casts them where it crop-resizes. The caller
 reads them when it logs. The sampler draws from an explicit
 ``torch.Generator`` on the device.
 """
@@ -41,7 +43,8 @@ def make_train_step(model, optimizer, scheduler, batch_images: int, *,
             data = device_normalize(data, batch["data_extent"], pixel_means)
         model.train()
         out = model(data, batch["im_info"], batch["gt_boxes"],
-                    batch["valid_ranges"], train=True, generator=generator)
+                    batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
+                    train=True, generator=generator)
         loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size,
                                    rpn_only=rpn_only)
         if not rpn_only:

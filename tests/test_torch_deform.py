@@ -176,6 +176,8 @@ POOL_CASES = {
     "random": (2, 30, 44, 160, 20, 7, 1, "random"),
     # the mask branch's 14x14 pool
     "p14": (2, 30, 44, 160, 20, 14, 1, "random"),
+    # the mask branch in training: 32x32 maps, C 256, whole-map footprints
+    "p14_train": (2, 32, 32, 256, 25, 14, 1, "whole"),
     # footprints up to the whole map, as in training
     "whole": (2, 32, 32, 100, 12, 7, 1, "whole"),
     # a channel count that is not a multiple of 4: scalar channels

@@ -227,17 +227,29 @@ def test_pool_grads_whole_map_rois_match_jax(rng, fc_scale, C):
         _close(a, b, name=name)
 
 
-# the kernel's channel tile is 32 lanes x 2 vectors x 4 channels = 256
+# the count-tie rois at P=14: corners at -24 px and 28-cell sides put bin
+# (0, 0)'s four samples per axis at -1.75, -1.25, -0.75 and -0.25 cells, of
+# which only the last is on the map (n == 1.0 at zero offsets)
+TIE_ROIS_P14 = np.array([[0, -24, -24, 423, 423], [0, -24, 40, 423, 487],
+                         [0, 100, -24, 300, 423]], np.float32)
+
+
+# the kernel's channel tile is 32 lanes x 2 vectors x 4 channels = 256; at
+# P=14 on training's 32x32 map a block takes 111,824 B of shared memory,
+# above the 48 KB default (the opt-in path)
 @pytest.mark.cuda
-@pytest.mark.parametrize("fc_scale,tie,C,whole", [
-    (0.0, False, 160, False), (0.05, False, 160, False),
-    (0.0, True, 160, False), (0.05, False, 100, True),
-    (0.0, False, 37, True), (0.05, False, 300, True)])
-def test_pool_bwd_kernel_matches_plain(rng, fc_scale, tie, C, whole):
+@pytest.mark.parametrize("fc_scale,tie,C,whole,P", [
+    (0.0, False, 160, False, 7), (0.05, False, 160, False, 7),
+    (0.0, True, 160, False, 7), (0.05, False, 100, True, 7),
+    (0.0, False, 37, True, 7), (0.05, False, 300, True, 7),
+    (0.0, False, 256, True, 14), (0.05, False, 256, True, 14),
+    (0.0, True, 160, False, 14)])
+def test_pool_bwd_kernel_matches_plain(rng, fc_scale, tie, C, whole, P):
     dev = cuda_or_skip()
-    P, S, M = 7, 4, 4
+    S, M = 4, 4
     if tie:
-        B, H, W, rpi, rois = 1, 20, 28, 3, TIE_ROIS
+        B, H, W, rpi = 1, 20, 28, 3
+        rois = TIE_ROIS if P == 7 else TIE_ROIS_P14
     elif whole:  # footprints up to the whole map, and 32x32 as in training
         B, H, W, rpi = 2, 32, 32, 12
         rois = whole_map_rois(rng, B, rpi, H, W)
@@ -278,3 +290,12 @@ def test_backward_kernels_reject_what_they_do_not_take():
         tdeform.pool_pass_bwd(feat, torch.zeros(2, 4, device=dev), None,
                               torch.zeros(2, 49, 4, device=dev),
                               rois_per_image=2, P=7, S=4, M=4)
+    # at P=14 the block's shared memory grows with H + W: 1600 (H + W) +
+    # 9424 B, so a 70x70 map needs 233,424 B, more than a block has
+    assert tdeform.pool_bwd_smem_bytes(70, 70, 14) > 227 * 1024
+    assert tdeform.pool_bwd_smem_bytes(69, 70, 14) <= 227 * 1024
+    feat = torch.zeros(1, 70, 70, 8, device=dev)
+    with pytest.raises(ValueError):
+        tdeform.pool_pass_bwd(feat, torch.zeros(2, 4, device=dev), None,
+                              torch.zeros(2, 196, 8, device=dev),
+                              rois_per_image=2, P=14, S=4, M=4)

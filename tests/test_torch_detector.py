@@ -158,9 +158,10 @@ def test_whole_forward_matches_jax():
 
 
 def test_unported_branches_raise():
-    # the mask branch runs at inference; its training is a later slice
+    # mask training is ported (test_torch_mask_train); a batch without
+    # gt_masks raises the JAX package's ValueError
     model = tiny_torch_detector(with_mask=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="no gt_masks"):
         model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]),
               torch.zeros(1, 1, 5), torch.tensor([[0.0, 1e5]]), train=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):

@@ -145,10 +145,63 @@ def test_chip_loader_matches_jax(roidbs, cpp_chips):
 
 def test_unported_loader_options_raise(roidbs):
     (tr, _, _), _ = roidbs
-    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader)
-    for key, value in (("VISUALIZE", True), ("WITH_MASK", True),
-                       ("AUTO_FOCUS", True)):
+    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader), and
+    # TRAIN.WITH_MASK (test_chip_loader_with_masks_matches_jax)
+    for key, value in (("VISUALIZE", True), ("AUTO_FOCUS", True)):
         cfg = make_cfg()
         setattr(cfg.TRAIN, key, value)
         with pytest.raises(NotImplementedError, match="Queue 1 item"):
             ChipLoader(tr, cfg, 2, image_loader=synth_image_loader)
+
+
+def add_polygons(roidb, rng):
+    """Each GT gets an ellipse of 12 to 20 vertices inscribed in its box,
+    every third one a second, triangular segment."""
+    for r in roidb:
+        polys = []
+        for i, (x1, y1, x2, y2) in enumerate(r["boxes"]):
+            t = np.arange(rng.randint(12, 21)) * 2 * np.pi
+            t = t / len(t)
+            cx, cy, ax, ay = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, \
+                (y2 - y1) / 2
+            segs = [np.stack([cx + ax * np.cos(t), cy + ay * np.sin(t)], 1)
+                    .reshape(-1).tolist()]
+            if i % 3 == 0:
+                segs.append([x1, y1, cx, y1, x1, cy])
+            polys.append(segs)
+        r["gt_masks"] = polys
+    return roidb
+
+
+def test_chip_loader_with_masks_matches_jax():
+    """TRAIN.WITH_MASK: the flipped roidb's polygons, then two epochs of
+    batches, gt_masks [B, MAX_GT_BOXES, 112, 112] uint8 included, equal to
+    the JAX loader's."""
+    rng = np.random.RandomState(8)
+    gt = add_polygons(make_gt_roidb(rng, n_images=2), rng)
+    cfg = make_cfg()
+    cfg.TRAIN.WITH_MASK = True
+    cfg.TRAIN.USE_NEG_CHIPS = False
+    cfg.TRAIN.MAX_GT_BOXES = 20
+    built = []
+    for mod, br in ((troidb, tbr), (jroidb, jbr)):
+        r = mod.append_flipped_images(copy.deepcopy(gt))
+        r = mod.filter_roidb(r, 0.5, 0.5, 0.0)
+        br.add_bbox_regression_targets(r, cfg)
+        built.append(r)
+    for i, (a, b) in enumerate(zip(*built)):
+        _assert_same(a, b, f"roidb[{i}]")
+    loaders = [cls(r, cfg, 2, image_loader=synth_image_loader, seed=5)
+               for cls, r in ((ChipLoader, built[0]), (JChipLoader, built[1]))]
+    filled = 0
+    for epoch in range(2):
+        assert loaders[0].reset() == loaders[1].reset() > 0
+        for k, (a, b) in enumerate(zip(*loaders)):
+            assert a.keys() == b.keys()
+            m = a["gt_masks"]
+            assert m.dtype == np.uint8 and m.shape == (2, 20, 112, 112)
+            filled += int((m.reshape(2, 20, -1).max(-1) > 0).sum())
+            for key in a:
+                np.testing.assert_array_equal(
+                    a[key], b[key], err_msg=f"epoch {epoch} batch {k} {key}")
+    assert filled > 0

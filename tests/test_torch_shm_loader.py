@@ -164,3 +164,34 @@ def test_reroll_pool_matches_serial(roidb):
     finally:
         pooled.close()
     assert pooled._reroll_pool is None
+
+
+def test_process_loader_carries_gt_masks(roidb):
+    """TRAIN.WITH_MASK: the uint8 gt_masks cross the shared memory
+    unchanged (dtype, shape and bytes), beside the other arrays."""
+    rng = np.random.RandomState(6)
+    masked = copy.deepcopy(roidb)
+    for r in masked:
+        polys = []
+        for x1, y1, x2, y2 in r["boxes"]:
+            t = np.sort(rng.uniform(0, 2 * np.pi, 10))
+            polys.append([np.stack(
+                [(x1 + x2) / 2 + (x2 - x1) / 2 * np.cos(t),
+                 (y1 + y2) / 2 + (y2 - y1) / 2 * np.sin(t)], 1).reshape(-1)])
+        r["gt_masks"] = polys
+    cfg = make_cfg()
+    cfg.TRAIN.WITH_MASK = True
+    cfg.TRAIN.MAX_GT_BOXES = 12
+    ref = ChipLoader(copy.deepcopy(masked), cfg, 2,
+                     image_loader=image_loader, seed=1)
+    proc = ProcessChipLoader(masked, cfg, 2, seed=1,
+                             image_loader=image_loader)
+    try:
+        assert proc.reset() == ref.reset()
+        got = _batches(proc)
+        _assert_same(got, _batches(ref), "with masks")
+    finally:
+        proc.close()
+    assert all(b["gt_masks"].dtype == np.uint8
+               and b["gt_masks"].shape == (2, 12, 112, 112) for b in got)
+    assert any(b["gt_masks"].any() for b in got)

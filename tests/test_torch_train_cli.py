@@ -4,10 +4,13 @@ at a tiny size: the chip loader over a synthetic roidb -> the tiny detector
 the JAX package is held piece by piece in the other test_torch_* files; this
 test checks the wiring: finite losses, the step count, the telemetry, the
 checkpoints, and the options of later slices raising with their ROADMAP
-item.
+item. The mask config trains the same way (its polygons rasterized by the
+loader, mask_loss among the metrics), and main_test's restore of its
+checkpoint gives masks.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -25,10 +28,18 @@ from sniper_tpu_torch.train.checkpoint import latest_epoch
 from torch_port import TINY, synth_image_loader, tiny_torch_detector
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 class SynthDataset:
-    """Stands in for a dataset reader: gt_roidb() of a few images."""
+    """Stands in for a dataset reader: gt_roidb() of a few images, with
+    ``masks`` each GT's polygon (a 12-gon inscribed in its box)."""
 
     name = "synth"
+    num_classes = TINY["num_classes"]
+
+    def __init__(self, masks=False):
+        self.masks = masks
 
     def gt_roidb(self):
         rng = np.random.RandomState(1)
@@ -49,7 +60,22 @@ class SynthDataset:
                 "max_overlaps": np.ones(4, np.float32), "max_classes": cls,
                 "flipped": False,
             })
+            if self.masks:
+                t = np.arange(12) * (np.pi / 6)
+                out[-1]["gt_masks"] = [
+                    [np.stack([x + r / 2 * (1 + np.cos(t)),
+                               y + r / 2 * (1 + np.sin(t))], 1).reshape(-1)]
+                    for x, y, r in zip(x1, y1, s)]
         return out
+
+    def evaluate_detections(self, all_boxes, roidb):
+        return {"detections": sum(len(d) for c in all_boxes[1:] for d in c)}
+
+    def evaluate_segmentations(self, all_boxes_masks, roidb):
+        masks = [m for c in all_boxes_masks[1:] for _, m in c if len(m)]
+        assert all(m.ndim == 3 and m.shape[1:] == (28, 28)
+                   and m.min() >= 0 and m.max() <= 1 for m in masks)
+        return {"masks": sum(len(m) for m in masks)}
 
 
 def make_cfg():
@@ -110,11 +136,12 @@ def test_run_training_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TRAIN.WITH_MASK", True, 3), ("TRAIN.AUTO_FOCUS", True, 4),
+    ("TRAIN.AUTO_FOCUS", True, 4),
     ("TRAIN.ENABLE_OHEM", True, 5), ("parallel.num_devices", 4, 7)])
 def test_unported_training_options_raise(key, value, item):
     """The options of later slices raise with their ROADMAP item. The
-    options ported since run in their own tests: TRAIN.ONLY_PROPOSAL in
+    options ported since run in their own tests: TRAIN.WITH_MASK in
+    test_torch_mask_train and below, TRAIN.ONLY_PROPOSAL in
     test_torch_rpn_only and test_torch_recipe, network.pretrained in
     test_torch_pretrained and test_torch_recipe, TRAIN.LOADER_PROCESS in
     test_torch_shm_loader and test_torch_recipe."""
@@ -141,3 +168,68 @@ def test_all_devices_resolves_to_the_visible_cards(monkeypatch, count):
             check_ported(cfg, torch.device("cuda", 0))
     else:
         check_ported(cfg, torch.device("cuda", 0))
+
+
+def test_mask_training_checkpoints_and_restores_with_masks(tmp_path):
+    """configs/sniper_res101_e2e_mask.yml at 64x64 chips with the tiny
+    detector: run_training takes mask steps and writes the epoch's
+    checkpoint under the output path; main_test's restore
+    (restore_inference_state) reads it back, and run_detection returns
+    masks for every detection."""
+    from sniper_tpu_torch.config import load_config
+    from sniper_tpu_torch.main_test import run_detection
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
+
+    cfg = load_config(os.path.join(ROOT, "configs",
+                                   "sniper_res101_e2e_mask.yml"))
+    assert cfg.TRAIN.WITH_MASK
+    tiny = make_cfg()
+    for key in ("CHIP_SIZE", "SCALES", "VALID_RANGES", "BATCH_IMAGES",
+                "MAX_GT_BOXES", "USE_NEG_CHIPS", "NUM_THREAD", "lr",
+                "warmup_step"):
+        setattr(cfg.TRAIN, key, getattr(tiny.TRAIN, key))
+    cfg.TRAIN.CPP_CHIPS = False
+    cfg.TRAIN.end_epoch = 1
+    cfg.dataset.NUM_CLASSES = TINY["num_classes"]
+    cfg.dataset.image_set = SynthDataset.name
+    cfg.network = tiny.network
+    cfg.output_path = str(tmp_path / "output")
+    ds = SynthDataset(masks=True)
+    roidb = build_roidb(cfg, lambda *_: None, datasets=[ds])
+    assert all("gt_masks" in r for r in roidb)
+    # seeded: the deformable units' conv2_weight is torch.empty until then
+    model = init_detector(tiny_torch_detector(
+        with_mask=True, num_rois=16, train_pre_nms=100, train_post_nms=12),
+        seed=0)
+    out_dir = os.path.join(cfg.output_path, "sniper_res101_e2e_mask",
+                           SynthDataset.name)
+    seen = []
+    res = run_training(cfg, model, ChipLoader(roidb, cfg, 2, seed=0,
+                                              image_loader=synth_image_loader),
+                       torch.device("cpu"), out_dir=out_dir,
+                       log=lambda *_: None, max_steps=2,
+                       step_hook=lambda s, m: seen.append(
+                           {k: float(v) for k, v in m.items()}))
+    assert res["step"] == len(seen) == 2
+    assert all(math.isfinite(m["mask_loss"]) and m["mask_loss"] > 0
+               for m in seen)
+    assert latest_epoch(os.path.join(out_dir, "checkpoints")) == 1
+
+    cfg.TEST.TEST_EPOCH = 1
+    cfg.TEST.SCALES = [(96, 128), (-1, 96)]
+    cfg.TEST.BATCH_IMAGES = [2, 2]
+    cfg.TEST.N_PROPOSAL_PER_SCALE = [12, 8]
+    cfg.TEST.VALID_RANGES = [(-1, 90), (32, -1)]
+    restored = tiny_torch_detector(with_mask=True)
+    assert restore_inference_state(cfg, restored, "sniper_res101_e2e_mask",
+                                   lambda *_: None) == "checkpoint"
+    torch.testing.assert_close(restored.mask.mask_out.weight,
+                               model.mask.mask_out.weight)
+    test_roidb = [{k: r[k] for k in ("image", "width", "height", "flipped")}
+                  for r in ds.gt_roidb()[:2]]
+    stats = run_detection(cfg, restored, None, test_roidb, ds,
+                          str(tmp_path), torch.device("cpu"),
+                          image_loader=synth_image_loader)
+    assert stats["bbox"]["detections"] > 0
+    assert stats["segm"]["masks"] == stats["bbox"]["detections"]

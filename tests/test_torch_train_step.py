@@ -20,7 +20,9 @@ bulk agrees. So: the per-step losses within rtol 1e-3; rcnn_acc and
 rcnn_fg_frac within one roi (atol 0.04 at ~30 valid rois); the telemetry
 maxima within rtol 2e-2; each kept parameter's change over the three steps
 within 2e-2 of its norm (relative L2); the BatchNorm running statistics
-within rtol 1e-4. Frozen leaves must not move at all.
+within rtol 1e-4. Frozen leaves must not move at all. The mask branch's
+three steps (tests/test_torch_mask_train.py) run through the same
+comparison, with mask_loss among the losses.
 """
 
 import json
@@ -49,17 +51,24 @@ def _torch_name(key):
 
 
 def test_three_train_steps_match_jax():
-    with open(gg.FIXTURE) as f:
+    check_three_steps(mask=False)
+
+
+def check_three_steps(mask):
+    """The port's three steps from the fixture's initial variables and
+    batch against the frozen JAX metrics and leaves."""
+    with open(gg.MASK_FIXTURE if mask else gg.FIXTURE) as f:
         want = json.load(f)
-    variables = gg.initial_variables()
-    model = tiny_torch_detector(variables, **gg.model_kwargs())
+    variables = gg.initial_variables(mask)
+    model = tiny_torch_detector(variables, **gg.model_kwargs(mask))
     opt, sched, _ = make_optimizer(gg.make_cfg(), 100, model)
     step = make_train_step(model, opt, sched, gg.B,
                            pixel_means=(0.0, 0.0, 0.0))
-    batch = {k: torch.from_numpy(v) for k, v in gg.make_batch().items()}
+    batch = {k: torch.from_numpy(v)
+             for k, v in gg.make_batch(mask).items()}
     for i in range(want["steps"]):
         got = step(batch)
-        for k in gg.METRICS:
+        for k in (gg.MASK_METRICS if mask else gg.METRICS):
             if k.startswith(("rcnn_acc", "rcnn_fg")):
                 tol = dict(rtol=0, atol=0.04)
             elif k.endswith("_max"):
