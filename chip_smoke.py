@@ -12,12 +12,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    build/sniper_tpu_torch/).
 2. Each hand-written kernel against its plain torch version on the card,
    in the same dtype, with TF32 off: the forward kernels at the shapes the
-   inference path gives them at each test scale and at the training
-   shapes of configs/sniper_res101_e2e.yml, the two backward kernels
+   inference path gives them at each test scale, at the smallest canvas
+   tier of AutoFocus's finer scales (configs/sniper_res101_e2e_autofocus.yml:
+   FocusChips on 16x20 and 24x32 maps, 300 rois per image) and at the
+   training shapes of configs/sniper_res101_e2e.yml, the two backward kernels
    (pool and DCN im2col) at the training shapes, at zero offsets (every
    sample on a kink) and at random offsets, the pool and its backward also
    at P=14 at the mask branch's training shapes (16 chips of 50 rois on
-   32x32 maps), and the ROI patch extraction at
+   32x32 maps), the pool at P=14 also at the mask branch's inference shapes
+   and the FocusChip tiers, and the ROI patch extraction at
    the mask branch's shapes of every test scale of
    configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
    route of the 14x14 pool held against the composed-tent pool kernels, and
@@ -74,12 +77,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    layers get finite gradients, nonzero in the run; (m3) main_test's
    restore of its checkpoint and run_detection with masks on two images,
    its class threshold lowered to below the restored model's top scores so
-   that it keeps detections.
+   that it keeps detections. Then configs/sniper_res101_e2e_autofocus.yml's
+   training from the same pieces (phase 6, (t1)-(t3)).
+6. AutoFocus (configs/sniper_res101_e2e_autofocus.yml) at full width and
+   depth with seeded random weights. Inference, after phase 4: (a) the
+   kernel path against the plain path on one FocusChip batch of scale 1's
+   smallest tier (focus_prob, cls_prob, bbox_pred within phase 3 (a)'s
+   1e-3, rois identical); (b) run_detection coarse to fine with the head's
+   own maps, counters zeroed just before and read just after: FocusChips
+   and percent of pixels per scale, launches; (c) run_detection with the
+   maps that add_chips receives replaced from outside by centred binary
+   blobs at AF_DENSITIES of each chip (a random head's maps sit near 0.5,
+   above both thresholds, and would focus every pixel), then the same
+   config with TEST.AUTO_FOCUS off (the full pyramid over the same scales
+   and batches): per-scale ms per batch (median and min-max over AF_REPS
+   host-clocked passes, a smoke reading), img/s, percent of pixels,
+   add_chips' host ms per image and peak memory; (d)
+   configs/sniper_res101_e2e_mask_autofocus.yml with planted maps over two
+   images, masks pasted and RLE-encoded. Training, after the mask yml's:
+   (t1) the one-step check of 5 (a) with FocusPixel labels, focus_loss and
+   the head's gradients; (t2) run_training from (r1)'s backbone with (r3)'s
+   negative chips, the thread loader, every step's launches checked (X1 3,
+   X2 3, NMS 1, pool 2, its backward 2, the patch extraction 0),
+   focus_loss moving, the head's gradients finite and nonzero at every
+   step; (t3) main_test's restore of its checkpoint and run_detection
+   coarse to fine on two images.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
 for the two backward kernels, with every path's counts beside them, the
-mask training's among them); the
+mask training's and AutoFocus's among them); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -90,6 +117,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -100,6 +128,8 @@ import torch
 
 CONFIG = "configs/sniper_res101_e2e.yml"
 MASK_CONFIG = "configs/sniper_res101_e2e_mask.yml"
+AF_CONFIG = "configs/sniper_res101_e2e_autofocus.yml"
+AF_MASK_CONFIG = "configs/sniper_res101_e2e_mask_autofocus.yml"
 N_IMAGES = 8
 IM_W, IM_H = 640, 480
 E2E_REPS = 15  # timed passes over each scale's batches in phase 3 (c)
@@ -191,6 +221,18 @@ def environment() -> str:
 # ---------------------------------------------------------------------------
 
 
+def post_nms(cfg, s: int) -> int:
+    """Scale s's post-NMS roi count by the program's own rule
+    (main_test._scale_post_nms) on the config's model, built on the meta
+    device (no weights are made)."""
+    from sniper_tpu_torch.main_test import _scale_post_nms
+    from sniper_tpu_torch.models.registry import get_model
+
+    with torch.device("meta"):
+        model = get_model(cfg)
+    return _scale_post_nms(cfg, s, model)
+
+
 def main_path_shapes(cfg) -> list[dict]:
     """Per test scale, the shapes the main path gives the kernels: the
     landscape canvas at stride 16, the batch, the post-NMS roi count."""
@@ -203,8 +245,31 @@ def main_path_shapes(cfg) -> list[dict]:
             label=f"scale {s}", B=int(cfg.TEST.BATCH_IMAGES[s]),
             H=ch // cfg.network.RPN_FEAT_STRIDE,
             W=cw // cfg.network.RPN_FEAT_STRIDE,
-            rois=int(cfg.TEST.N_PROPOSAL_PER_SCALE[s]),
+            rois=post_nms(cfg, s),
             pre_nms=int(cfg.TEST.RPN_PRE_NMS_TOP_N)))
+    return shapes
+
+
+def focus_tier_shapes(acfg) -> list[dict]:
+    """AutoFocus's FocusChips at every scale after the coarsest, in the
+    smallest canvas tier they bin into (the smallest maps the kernels see
+    on a path): the landscape tier at stride 16, the scale's batch and
+    post-NMS roi count."""
+    from sniper_tpu_torch.data.test_loader import (
+        canvas_for_scale,
+        tier_canvases,
+    )
+
+    shapes = []
+    for s in range(1, len(acfg.TEST.SCALES)):
+        land, _ = canvas_for_scale(acfg.TEST.SCALES[s])
+        th, tw = tier_canvases(land)[0]
+        shapes.append(dict(
+            label=f"autofocus scale {s} tier {th}x{tw}",
+            B=int(acfg.TEST.BATCH_IMAGES[s]),
+            H=th // acfg.network.RPN_FEAT_STRIDE,
+            W=tw // acfg.network.RPN_FEAT_STRIDE, rois=post_nms(acfg, s),
+            pre_nms=int(acfg.TEST.RPN_PRE_NMS_TOP_N)))
     return shapes
 
 
@@ -746,24 +811,25 @@ TOLERANCES = {
 }
 
 
-def kernel_phase(dev, cfg, mcfg) -> tuple[bool, list]:
+def kernel_phase(dev, cfg, mcfg, acfg) -> tuple[bool, list]:
     """Each kernel against its plain version: the forward kernels at every
-    test scale's shapes and at the training shapes (scale 0 first: its
-    times and bound go into the JSON line), the pool also at the mask
-    branch's training and inference shapes (P=14), the backward kernels at
-    the training
-    shapes (the pool's also at P=14), the patch extraction at the mask
-    branch's shapes of every test scale."""
+    test scale's shapes, at AutoFocus's smallest FocusChip tiers and at the
+    training shapes (scale 0 first: its times and bound go into the JSON
+    line), the pool also at the mask branch's training and inference
+    shapes and at the FocusChip tiers (P=14), the backward kernels at the
+    training shapes (the pool's also at P=14), the patch extraction at the
+    mask branch's shapes of every test scale."""
     from sniper_tpu_torch.ops import cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    both = main_path_shapes(cfg) + [train_shapes(cfg)]
+    focus = focus_tier_shapes(acfg)
+    both = main_path_shapes(cfg) + focus + [train_shapes(cfg)]
     train = [train_shapes(cfg)]
     mask_train = [mask_train_shapes(mcfg)]
     # the mask branch's inference pool: P=14 on the mask config's maps
     mask_infer = [dict(s, P=14, label=f"mask inference {s['label']}")
-                  for s in main_path_shapes(mcfg)]
+                  for s in main_path_shapes(mcfg) + focus]
     results: list = []
     ok = True
     for kernel, check, at in (
@@ -1280,6 +1346,8 @@ RPN_LEAVES = ("rpn.rpn_conv_3x3.weight", "rpn.rpn_cls_score.weight",
 MASK_LEAVES = ("mask_offset.weight", "mask_offset.bias",
                "mask.mask_conv_3x3_1.weight", "mask.mask_deconv.weight",
                "mask.mask_out.weight")
+AF_LEAVES = ("autofocus.conv_new_2.weight", "autofocus.conv_new_3.weight",
+             "autofocus.conv_new_out.weight", "autofocus.conv_new_out.bias")
 TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
                 "trunk.stage4_unit1.conv2_weight",
                 "trunk.stage3_unit23.conv1.weight",
@@ -1328,7 +1396,10 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     DCN im2col and its backward differ between the paths; with the mask
     branch under TRAIN.WITH_MASK, the batch's GT masks rasterized from an
     ellipse in each GT box, and the bounds widened to NOISE_MULT times the
-    plain path's spread under pool_noise, read in the same run). The trunk
+    plain path's spread under pool_noise, read in the same run; with the
+    FocusPixel head under TRAIN.AUTO_FOCUS, seeded FocusPixel labels in the
+    batch, focus_loss among the losses and the head's leaves among the
+    gradients). The trunk
     runs
     in fp32 here, so that a fixed bound holds: in bf16 one rounding step
     apart early in the backward decorrelates every later bf16 rounding of
@@ -1345,6 +1416,7 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     cfg.TRAIN.bf16 = False
     rpn_only = bool(cfg.TRAIN.ONLY_PROPOSAL)
     with_mask = bool(cfg.TRAIN.WITH_MASK) and not rpn_only
+    with_af = bool(cfg.TRAIN.AUTO_FOCUS) and not rpn_only
     model = init_detector(get_model(cfg), seed=0).to(dev).train()
     for name, p in model.named_parameters():
         p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
@@ -1373,13 +1445,17 @@ def train_step_check(dev, cfg, tag: str) -> bool:
         batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
             [[ellipse_polygon(b, 24)] if b[4] >= 0 else [] for b in rows],
             rows[:, :4], grid=112, max_n_gts=G) for rows in gt.numpy()]))
+    if with_af:
+        batch["scale_label"] = (torch.randint(0, 3, (B, fh * fh),
+                                              generator=g) - 1).float()
     batch = {k: v.to(dev) for k, v in batch.items()}
     n_cand = model.train_kw["post_nms"] + G
     pri = (torch.rand(B, n_cand, generator=g).to(dev),
            torch.rand(B, n_cand, generator=g).to(dev))
     params = dict(model.named_parameters())
     heads = (RPN_LEAVES if rpn_only else
-             HEAD_LEAVES + (MASK_LEAVES if with_mask else ()))
+             HEAD_LEAVES + (MASK_LEAVES if with_mask else ())
+             + (AF_LEAVES if with_af else ()))
     trunk = TRUNK_LEAVES if rpn_only else ("conv_new_1.weight",) + TRUNK_LEAVES
 
     def one_step():
@@ -1939,10 +2015,469 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
     return ok1 and ok2 and ok3, launches
 
 
-def train_phase(dev, cfg, mcfg, card: str) -> tuple[bool, dict]:
+# ---------------------------------------------------------------------------
+# phase 6: AutoFocus
+# ---------------------------------------------------------------------------
+
+AF_REPS = 4  # timed run_detection passes per mode in AutoFocus (c)
+AF_DENSITIES = (0.05, 0.2)
+
+
+def planted_maps(all_maps, density: float):
+    """Each chip's FocusPixel map replaced by a centred binary blob over
+    ``density`` of its cells (scripts/bench_autofocus.py's rule): a random
+    head's maps sit near 0.5, above both thresholds, which would make every
+    pixel a FocusPixel. The maps' shapes are the head's."""
+    out = []
+    for per_im in all_maps:
+        row = []
+        for m in per_im:
+            if m is None:
+                row.append(None)
+                continue
+            fh, fw = m.shape
+            planted = np.zeros((fh, fw), np.float32)
+            side = math.sqrt(density)
+            bh, bw = max(1, round(fh * side)), max(1, round(fw * side))
+            y0, x0 = (fh - bh) // 2, (fw - bw) // 2
+            planted[y0:y0 + bh, x0:x0 + bw] = 1.0
+            row.append(planted)
+        out.append(row)
+    return out
+
+
+@contextlib.contextmanager
+def focus_chips(density=None):
+    """Wrap main_test.add_chips from outside: with ``density``, plant the
+    maps it receives (planted_maps); record each call's scale, percent of
+    pixels, host time of the real add_chips and the FocusChips it made
+    (restored on exit). Yields the list of records."""
+    from sniper_tpu_torch import main_test
+
+    real = main_test.add_chips
+    calls = []
+
+    def add_chips(roidb, maps, s, cfg):
+        if density is not None:
+            maps = planted_maps(maps, density)
+        t0 = time.perf_counter()
+        chip_area, total_area = real(roidb, maps, s, cfg)
+        calls.append(dict(
+            scale=s, host_ms=(time.perf_counter() - t0) * 1e3,
+            pct=100.0 * chip_area / max(total_area, 1e-9),
+            chips=[len(r["inference_crops"]) for r in roidb]))
+        return [chip_area, total_area]
+
+    main_test.add_chips = add_chips
+    try:
+        yield calls
+    finally:
+        main_test.add_chips = real
+
+
+@contextlib.contextmanager
+def scale_clock():
+    """Time each scale's Tester.get_detections (it returns after its last
+    batch's outputs reached the host), its batches assembled on the host
+    before the clock starts, then the forward alone over the same batches.
+    Yields the list of (ms, forward-only ms, batches, detections the scale
+    hands to the aggregation), one per call (restored on exit)."""
+    from sniper_tpu_torch.infer.tester import Tester
+
+    real = Tester.get_detections
+    calls = []
+
+    def timed(self, batches, *args, **kw):
+        batches = list(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, iter(batches), *args, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            self.forward_fn(b["data"], b["im_info"])
+        torch.cuda.synchronize()
+        kept = sum(len(d) for cls in out[0][1:] for im in cls for d in im)
+        calls.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3,
+                      len(batches), kept))
+        return out
+
+    Tester.get_detections = timed
+    try:
+        yield calls
+    finally:
+        Tester.get_detections = real
+
+
+def af_images(n: int) -> tuple[list, callable]:
+    """(roidb, image loader) of n of phase 3's synthetic images, made once
+    (the loader hands back the cached array: no decode in the timings)."""
+    cache = {f"im{i}": synth_image(f"im{i}") for i in range(n)}
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(n)]
+    return roidb, cache.__getitem__
+
+
+def af_pipeline(dev, cfg, model, density, card: str, tag: str) -> bool:
+    """AutoFocus (c): one warm-up and AF_REPS timed passes of run_detection
+    over N_IMAGES images, with planted maps at ``density`` (None: the full
+    pyramid, TEST.AUTO_FOCUS off). Prints per-scale ms per batch, img/s,
+    percent of pixels, add_chips' host ms per image and peak memory."""
+    import copy
+
+    from sniper_tpu_torch.main_test import run_detection
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TEST.AUTO_FOCUS = density is not None
+    roidb, loader = af_images(N_IMAGES)
+    n_scales = len(cfg.TEST.SCALES)
+    walls, per_scale, af, dets = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(AF_REPS + 1):
+        with focus_chips(density) as chips, scale_clock() as clock, \
+                tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            stats = run_detection(cfg, model, None, copy.deepcopy(roidb),
+                                  CountingDataset(), out_dir, dev,
+                                  image_loader=loader)
+            wall = time.perf_counter() - t0
+        if rep == 0:
+            continue  # warm-up: cuDNN's first calls at each canvas
+        # less the forward-only sweeps that scale_clock adds
+        walls.append(wall - sum(c[1] for c in clock) / 1e3)
+        per_scale.append(clock)
+        af.append(chips)
+        dets.append(stats["detections"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts, fwd_ms = [], 0.0
+    for s in range(n_scales):
+        nb = max(per_scale[0][s][2], 1)
+        ms = sorted(c[s][0] / nb for c in per_scale)
+        fw = sorted(c[s][1] / nb for c in per_scale)
+        fwd_ms += fw[len(fw) // 2] * nb
+        parts.append(f"scale {s} {nb} batches of {cfg.TEST.BATCH_IMAGES[s]}"
+                     f", {per_scale[0][s][3] / N_IMAGES:.0f} detections "
+                     f"per image into the aggregation"
+                     f": median {ms[len(ms) // 2]:.2f} ms/batch (min "
+                     f"{ms[0]:.2f}, max {ms[-1]:.2f}), the forward alone "
+                     f"{fw[len(fw) // 2]:.2f} (min {fw[0]:.2f}, max "
+                     f"{fw[-1]:.2f})")
+    # run_detection's time outside its scales' get_detections: add_chips
+    # and the aggregation (soft-NMS over every kept detection)
+    outside = sorted(w * 1e3 - sum(c[0] for c in clock)
+                     for w, clock in zip(walls, per_scale))
+    walls.sort()
+    med = walls[len(walls) // 2]
+    pct = "; ".join(
+        f"scale {c['scale']} -> {c['scale'] + 1}: {c['pct']:.1f}% of pixels, "
+        f"{sum(c['chips'])} FocusChips"
+        for c in af[0]) if af[0] else "100% (every scale on full images)"
+    host = (sorted(sum(c["host_ms"] for c in a) / N_IMAGES for a in af)
+            if af[0] else [0.0])
+    ok = (all(d == dets[0] for d in dets) and dets[0] > 0
+          and len(af[0]) == (n_scales - 1 if density is not None else 0))
+    mode = (f"planted maps at density {density}" if density is not None
+            else "full pyramid (TEST.AUTO_FOCUS off)")
+    print(f"{tag} {mode}: {'; '.join(parts)}; run_detection median "
+          f"{med * 1e3:.1f} ms (min {walls[0] * 1e3:.1f}, max "
+          f"{walls[-1] * 1e3:.1f}) over {AF_REPS} passes, "
+          f"{N_IMAGES / med:.1f} img/s, of which outside the scales "
+          f"(add_chips, aggregation's soft-NMS) median "
+          f"{outside[len(outside) // 2]:.1f} ms; the forward alone "
+          f"{fwd_ms:.1f} ms over the scales' batches, "
+          f"{N_IMAGES * 1e3 / fwd_ms:.1f} img/s; {pct}; add_chips "
+          f"host {host[len(host) // 2]:.2f} ms per image; peak memory "
+          f"{peak:.2f} GiB; {dets[0]} detections in every pass "
+          f"[{card}]; host clock, synthetic images, random weights: a "
+          f"smoke reading: {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def autofocus_inference(dev, acfg, amcfg, card: str) -> tuple[bool, dict]:
+    """AutoFocus inference of configs/sniper_res101_e2e_autofocus.yml at
+    full width and depth with seeded random weights: (a) the kernel path
+    against the plain path on one FocusChip batch of scale 1's smallest
+    tier; (b) run_detection with the head's own maps, counters zeroed just
+    before and read just after; (c) run_detection with planted maps at
+    AF_DENSITIES and the full pyramid; (d) the mask config's masked
+    inference over two images with planted maps, pasted and RLE-encoded.
+    Returns (ok, (b)'s launches)."""
+    import copy
+
+    from sniper_tpu_torch.data.test_loader import (
+        canvas_for_scale,
+        tier_canvases,
+    )
+    from sniper_tpu_torch.main_test import run_detection
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+
+    model = get_model(acfg)
+    init_detector(model, seed=0, offset_std=1e-3)
+    model.to(dev).eval()
+    print(f"autofocus: {AF_CONFIG}: units {model.trunk.units}, "
+          f"{acfg.dataset.NUM_CLASSES} classes, scales coarse to fine "
+          f"{[tuple(s) for s in acfg.TEST.SCALES]}, batches "
+          f"{list(acfg.TEST.BATCH_IMAGES)}, {model.post_nms_top_n} rois per "
+          f"image at every scale, CHIP_HYPERPARAMS "
+          f"{[list(h) for h in acfg.TEST.CHIP_HYPERPARAMS]}, DO_PRUNING "
+          f"{list(acfg.TEST.DO_PRUNING)}, trunk dtype {model.dtype}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+          f"seeded random weights (seed 0, offsets normal(1e-3))")
+    ok = True
+
+    # (a) one FocusChip batch of scale 1's smallest tier
+    th, tw = tier_canvases(canvas_for_scale(acfg.TEST.SCALES[1])[0])[0]
+    g = torch.Generator().manual_seed(13)
+    bs = int(acfg.TEST.BATCH_IMAGES[1])
+    data = (torch.randn(bs, th, tw, 3, generator=g) * 50).to(dev)
+    info = torch.tensor([[th - 16.0 * (i % 3), tw - 24.0 * (i % 2), 1.0]
+                         for i in range(bs)], device=dev)
+    with torch.inference_mode():
+        torch.backends.cudnn.deterministic = True
+        out_k = model(data, info)
+        with plain_versions():
+            out_p = model(data, info)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    same_rois = torch.equal(out_k["rois"], out_p["rois"])
+    errs = {k: float((out_k[k] - out_p[k]).abs().max())
+            for k in ("focus_prob", "cls_prob", "bbox_pred")}
+    fp = out_k["focus_prob"]
+    good = (same_rois and all(e <= 1e-3 for e in errs.values())
+            and tuple(fp.shape) == (bs, th // 16, tw // 16)
+            and bool(torch.isfinite(fp).all()))
+    print(f"autofocus (a) a FocusChip batch of {bs} on scale 1's {th}x{tw} "
+          f"tier, kernel path vs plain path on the card: rois identical "
+          f"{same_rois}, max abs err {errs}; focus_prob {list(fp.shape)} in "
+          f"[{float(fp.min()):.4f}, {float(fp.max()):.4f}]; tolerance 1e-3 "
+          f"(phase 3 (a)'s): {'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    # the head's cost at the finest scale, whose map nothing reads: the
+    # device time of head + softmax on that scale's feat, and the host copy
+    # of its map (detect_outputs copies every scale's)
+    fs = main_path_shapes(acfg)[-1]
+    feat = torch.randn(fs["B"], model.autofocus.conv_new_2.in_channels,
+                       fs["H"], fs["W"], device=dev, dtype=model.dtype,
+                       generator=torch.Generator(dev).manual_seed(14))
+
+    def focus_prob():
+        return torch.softmax(model.autofocus(feat), dim=-1)[..., 1]
+
+    with torch.inference_mode():
+        head_ms = time_ms(focus_prob, 20)
+        prob = focus_prob()
+        copies = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prob.cpu()
+            copies.append((time.perf_counter() - t0) * 1e3)
+    del feat, prob
+    print(f"autofocus head at the finest scale ({fs['label']}: batch "
+          f"{fs['B']}, {fs['H']}x{fs['W']} map, {model.dtype}): "
+          f"{head_ms:.3f} ms of device time per batch (CUDA events, mean of "
+          f"20), host copy of its map median {np.median(copies):.3f} ms "
+          f"(host clock, 20 copies) [{card}]")
+
+    # (b) run_detection with the head's own maps
+    roidb, loader = af_images(N_IMAGES)
+    for k in cuda.KERNELS:
+        k.launches = 0
+    with focus_chips() as chips, tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        stats = run_detection(acfg, model, None, roidb, CountingDataset(),
+                              out_dir, dev, image_loader=loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    batches = launches[cuda.NMS.name]
+    good = (stats["detections"] > 0 and len(chips) == 2
+            and all(launches[n] > 0 for n in INFERENCE_KERNELS)
+            and launches[cuda.FUSED_POOL.name] == 2 * batches
+            and launches[cuda.DEFORM_IM2COL.name] == 3 * batches
+            and launches[cuda.ROI_PATCH.name] == 0)
+    print(f"autofocus (b) run_detection with the head's own maps over "
+          f"{N_IMAGES} synthetic {IM_W}x{IM_H} images: {stats}; FocusChips "
+          + "; ".join(f"after scale {c['scale']}: {sum(c['chips'])} "
+                      f"({c['pct']:.1f}% of the next scale's pixels)"
+                      for c in chips)
+          + f"; launches {launches} over {batches} batches (NMS 1, im2col 3, "
+          f"pool 2 per batch; P5 0), {wall:.2f} s wall including first-call "
+          f"set-up: {'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    # (c) planted maps against the full pyramid, same scales and batches
+    for density in AF_DENSITIES + (None,):
+        ok &= af_pipeline(dev, acfg, model, density, card, "autofocus (c)")
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) the mask config, two images, planted maps
+    mmodel = get_model(amcfg)
+    init_detector(mmodel, seed=0, offset_std=1e-3)
+    mmodel.to(dev).eval()
+    roidb, loader = af_images(2)
+    with focus_chips(AF_DENSITIES[1]) as chips, \
+            tempfile.TemporaryDirectory() as out_dir:
+        stats = run_detection(copy.deepcopy(amcfg), mmodel, None, roidb,
+                              MaskCountingDataset(), out_dir, dev,
+                              image_loader=loader)
+    good = (stats["bbox"]["detections"] > 0
+            and stats["segm"]["masks"] == stats["bbox"]["detections"]
+            and len(chips) == 2)
+    print(f"autofocus (d) {AF_MASK_CONFIG}: run_detection with masks over 2 "
+          f"synthetic images, maps planted at density {AF_DENSITIES[1]}: "
+          f"FocusChips {[sum(c['chips']) for c in chips]}; {stats} (every "
+          f"mask finite and in [0, 1], one per detection, image 0's pasted "
+          f"and RLE-encoded): {'PASS' if good else 'FAIL'}")
+    ok &= good
+    del mmodel
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def autofocus_training(dev, acfg, tmp: str, prefix: str,
+                       card: str) -> tuple[bool, dict]:
+    """The AutoFocus yml's training from the recipe's pieces: (t1) the
+    one-step check with the FocusPixel head; (t2) run_training from (r1)'s
+    backbone with negative chips mined from (r3)'s proposals, the thread
+    loader, each step's launches checked, focus_loss moving and the head's
+    gradients finite and nonzero, its checkpoint written; (t3) main_test's
+    restore of that checkpoint and run_detection over two images. Returns
+    (ok, (t2)'s launches)."""
+    import copy
+
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    acfg = train_cfg(acfg)
+    acfg.output_path = os.path.join(tmp, "output")
+    acfg.proposal_path = os.path.join(tmp, "proposals")
+    acfg.network.pretrained = prefix
+    ok1 = train_step_check(dev, acfg, "autofocus (t1)")
+
+    def log(m):
+        print(f"autofocus (t2) {m}")
+
+    roidb = build_roidb(acfg, log, datasets=[SynthTrainDataset()])
+    loader_ms = loader_ms_per_batch(roidb, acfg)
+    model = init_detector(get_model(acfg), seed=0)
+    load_pretrained(acfg, model, log)
+    model.to(dev)
+    params = dict(model.named_parameters())
+    grad_norms: dict = {k: [] for k in AF_LEAVES}
+    for k in AF_LEAVES:
+        params[k].register_hook(
+            lambda g, k=k: grad_norms[k].append(g.detach().norm()))
+    out_dir = os.path.join(acfg.output_path, config_name(AF_CONFIG),
+                           acfg.dataset.image_set)
+    print(f"autofocus (t2) {AF_CONFIG}: units {model.trunk.units}, "
+          f"BATCH_IMAGES {acfg.TRAIN.BATCH_IMAGES}, chips "
+          f"{acfg.TRAIN.CHIP_SIZE}, FocusPixel labels at AUTO_FOCUS_"
+          f"SMALL_THRESH {acfg.TRAIN.AUTO_FOCUS_SMALL_THRESH}, DC_LOW "
+          f"{acfg.TRAIN.AUTO_FOCUS_DC_LOW}, DC_HIGH "
+          f"{acfg.TRAIN.AUTO_FOCUS_DC_HIGH}, trunk dtype {model.dtype}, "
+          f"from the imported backbone; the loader alone {loader_ms:.1f} ms "
+          f"per batch (8 batches, scale_label [{acfg.TRAIN.BATCH_IMAGES}, "
+          f"{(acfg.TRAIN.CHIP_SIZE // 16) ** 2}] float32)")
+    run_roidb = copy.deepcopy(roidb)
+    loader = make_loader(run_roidb, acfg, 0, image_loader=synth_train_image)
+    per_step = {cuda.DEFORM_IM2COL.name: 3, cuda.DEFORM_IM2COL_BWD.name: 3,
+                cuda.NMS.name: 1, cuda.FUSED_POOL.name: 2,
+                cuda.POOL_BWD.name: 2, cuda.ROI_PATCH.name: 0}
+    try:
+        ok2, launches, _ = timed_training(
+            dev, acfg, model, loader, card, "autofocus (t2)",
+            out_dir=out_dir,
+            every_step=(cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name),
+            idle=(cuda.ROI_PATCH.name,), per_step=per_step,
+            varying=("focus_loss",))
+    finally:
+        loader.close()
+    mined = sum(len(r.get("neg_chips", [])) for r in run_roidb)
+    ckpt = os.path.join(out_dir, "checkpoints", "epoch_0001.pt")
+    ok2 &= mined > 0 and os.path.exists(ckpt)
+    grads_ok, parts = True, []
+    for k in AF_LEAVES:
+        norms = [float(n) for n in grad_norms[k]]
+        grads_ok &= (len(norms) == WARMUP_STEPS + TIMED_STEPS
+                     and all(math.isfinite(n) and n > 0 for n in norms))
+        parts.append(f"{k} {min(norms, default=0):.3e} to "
+                     f"{max(norms, default=0):.3e}")
+    ok2 &= grads_ok
+    print(f"autofocus (t2) negative chips mined from (r3)'s proposals: "
+          f"{mined}; checkpoint written {os.path.exists(ckpt)}; the "
+          f"FocusPixel head's gradient norms over {len(grad_norms[AF_LEAVES[0]])}"
+          f" steps: {'; '.join(parts)}; every step's finite and nonzero "
+          f"{grads_ok}: {'PASS' if ok2 else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = copy.deepcopy(acfg)
+    tcfg.TEST.TEST_EPOCH = acfg.TRAIN.end_epoch
+    model = get_model(tcfg)
+    source = restore_inference_state(tcfg, model, config_name(AF_CONFIG),
+                                     lambda m: print(f"autofocus (t3) {m}"))
+    model.to(dev).eval()
+    roidb, loader = af_images(2)
+    # as (m3): a class threshold under the restored model's scores
+    init_inference_crops(roidb)
+    batch = next(iter(TestChipIterator(roidb, tcfg, 0, 2,
+                                       image_loader=loader)))
+    out = make_forward(model, None, dev, tcfg.network.PIXEL_MEANS,
+                       _scale_post_nms(tcfg, 0, model))(
+        batch["data"], batch["im_info"])
+    fp = out["focus_prob"]
+    fg = out["cls_prob"][..., 1:].reshape(len(fp), -1).float()
+    thresh = float(fg.topk(20, dim=1).values[:, -1].min()) * 0.99
+    with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh), \
+            focus_chips() as chips:
+        stats = run_detection(tcfg, model, None, roidb, CountingDataset(),
+                              det_dir, dev, image_loader=loader)
+    ok3 = (source == "checkpoint" and stats["detections"] > 0
+           and len(chips) == 2 and bool(torch.isfinite(fp).all()))
+    pct = ", ".join(f"{c['pct']:.1f}%" for c in chips)
+    print(f"autofocus (t3) main_test's restore ({source}) of (t2)'s "
+          f"checkpoint; its scale-0 focus_prob in [{float(fp.min()):.4f}, "
+          f"{float(fp.max()):.4f}]; run_detection coarse to fine on 2 "
+          f"synthetic images at class threshold {thresh:.3e}: FocusChips "
+          f"{[sum(c['chips']) for c in chips]} ({pct} of the pixels), "
+          f"{stats}: {'PASS' if ok3 else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"autofocus training: (t1) {'PASS' if ok1 else 'FAIL'}, (t2) "
+          f"{'PASS' if ok2 else 'FAIL'}, (t3) {'PASS' if ok3 else 'FAIL'}")
+    return ok1 and ok2 and ok3, launches
+
+
+def dir_mib(path: str) -> float:
+    """The size of the files under ``path``, in MiB."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 2**20
+
+
+def train_phase(dev, cfg, mcfg, acfg, card: str) -> tuple[bool, dict]:
     """(a) the full detector's one-step check, then the recipe (r1)-(r4),
-    then the mask yml's training (m1)-(m3) from (r1)'s backbone and (r3)'s
-    proposals. Returns (ok, {path: launches})."""
+    then the mask yml's training (m1)-(m3) and the AutoFocus yml's
+    (t1)-(t3) from (r1)'s backbone and (r3)'s proposals. Returns (ok,
+    {path: launches})."""
     from sniper_tpu_torch.main_train import build_roidb
 
     cfg = train_cfg(cfg)
@@ -1956,17 +2491,30 @@ def train_phase(dev, cfg, mcfg, card: str) -> tuple[bool, dict]:
                                 datasets=[ds])
         ok_r2, l_rpn = rpn_training(dev, rcfg, rpn_roidb, card)
         ok_r3, l_ext = proposal_extraction(dev, rcfg, ds, card)
+        # a run's checkpoint (model and optimizer) is read only by the phase
+        # right after it: drop it there, so that the temporary directory
+        # holds one at a time beside the backbone and the proposals
+        sizes = [dir_mib(tmp)]
+        shutil.rmtree(cfg.output_path, ignore_errors=True)
         ok_r4, l_rec, l_proc = recipe_training(dev, cfg, ds, card)
         ok_m, l_mask = mask_training(dev, mcfg, tmp, prefix, card)
+        sizes.append(dir_mib(tmp))
+        shutil.rmtree(cfg.output_path, ignore_errors=True)
+        ok_af, l_af = autofocus_training(dev, acfg, tmp, prefix, card)
+        sizes.append(dir_mib(tmp))
+    print(f"training's temporary directory (backbone, proposals, the last "
+          f"run's checkpoint): {sizes[0]:.0f} MiB after (r3), {sizes[1]:.0f} "
+          f"after (m3), {sizes[2]:.0f} after (t3)")
     print(f"recipe: (r1) {'PASS' if ok_r1 else 'FAIL'}, (r2) "
           f"{'PASS' if ok_r2 else 'FAIL'}, (r3) {'PASS' if ok_r3 else 'FAIL'}"
           f", (r4) {'PASS' if ok_r4 else 'FAIL'}; mask training "
-          f"{'PASS' if ok_m else 'FAIL'}")
-    return ok and ok_r1 and ok_r2 and ok_r3 and ok_r4 and ok_m, {
+          f"{'PASS' if ok_m else 'FAIL'}; autofocus training "
+          f"{'PASS' if ok_af else 'FAIL'}")
+    return ok and ok_r1 and ok_r2 and ok_r3 and ok_r4 and ok_m and ok_af, {
         "rpn training": l_rpn, "proposal extraction": l_ext,
         "training (recipe)": l_rec,
         "training (recipe, loader process)": l_proc,
-        "mask training": l_mask}
+        "mask training": l_mask, "autofocus training": l_af}
 
 
 def main() -> int:
@@ -1980,14 +2528,18 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(root, CONFIG))
     mcfg = load_config(os.path.join(root, MASK_CONFIG))
+    acfg = load_config(os.path.join(root, AF_CONFIG))
+    amcfg = load_config(os.path.join(root, AF_MASK_CONFIG))
     card = environment()
-    ok_k, results = kernel_phase(dev, cfg, mcfg)
+    ok_k, results = kernel_phase(dev, cfg, mcfg, acfg)
     torch.cuda.synchronize()
     ok_e, launches_infer = e2e_phase(dev, cfg, card)
     torch.cuda.synchronize()
     ok_m, launches_mask = mask_phase(dev, mcfg, card)
     torch.cuda.synchronize()
-    ok_t, launches_train = train_phase(dev, cfg, mcfg, card)
+    ok_a, launches_af = autofocus_inference(dev, acfg, amcfg, card)
+    torch.cuda.synchronize()
+    ok_t, launches_train = train_phase(dev, cfg, mcfg, acfg, card)
     torch.cuda.synchronize()
 
     # "launches": the mask-branch inference run for the kernels it runs
@@ -2001,7 +2553,7 @@ def main() -> int:
                 else "training (recipe)")
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
-               **launches_train}
+               "autofocus inference": launches_af, **launches_train}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -2013,9 +2565,10 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
-    if not (ok_k and ok_e and ok_m and ok_t):
+    if not (ok_k and ok_e and ok_m and ok_a and ok_t):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
-              f"mask inference {ok_m}, training and the recipe {ok_t})")
+              f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
+              f"the recipe and autofocus training {ok_t})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

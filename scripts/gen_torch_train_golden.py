@@ -27,10 +27,17 @@ and the fused jitted step rounds some such cells (21 at step 0 here) to the
 other side than the JAX package's own op-by-op evaluation does, which the
 port reproduces bit for bit.
 
+``--autofocus`` writes the third fixture: the same detector with the
+FocusPixel head (its flax init), and the batch also carries each chip's
+FocusPixel labels (``scale_label``, painted from its GT boxes by the JAX
+assigner's ``_focus_map`` with AUTOFOCUS_PARAMS, so that the labels hold
+1, -1 and 0); its metrics add ``focus_loss`` and its leaves the head's
+biases. tests/test_torch_autofocus.py compares against it.
+
 The JAX steps take about 50 s here with their compile (more with the mask
 branch), which is why their outputs are frozen. Regenerate (only after an
 intentional change of the semantics):
-    python scripts/gen_torch_train_golden.py [--mask]
+    python scripts/gen_torch_train_golden.py [--mask | --autofocus]
 """
 
 from __future__ import annotations
@@ -60,6 +67,8 @@ if jax.config.jax_platforms and \
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_train_golden.json")
 MASK_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "torch_train_mask_golden.json")
+AF_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                          "torch_train_autofocus_golden.json")
 
 B, H, W = 2, 64, 64
 G = 4  # GT rows per chip, the last one padding
@@ -92,6 +101,15 @@ MASK_LEAVES = LEAVES + (
     ("params", "mask/mask_deconv/bias"),
     ("params", "mask/mask_out/bias"),
 )
+AF_METRICS = METRICS + ("focus_loss",)
+AF_LEAVES = LEAVES + (
+    ("params", "autofocus/conv_new_2/bias"),
+    ("params", "autofocus/conv_new_3/bias"),
+    ("params", "autofocus/conv_new_out/bias"),
+)
+# (small_thresh, dc_low, dc_high) of the FocusPixel labels: the GT boxes of
+# make_batch (sqrt areas 16 to 43 px) fall on both sides of small_thresh
+AUTOFOCUS_PARAMS = (32.0, 5.0, 90.0)
 
 
 def make_cfg():
@@ -108,7 +126,7 @@ def make_cfg():
     return cfg
 
 
-def model_kwargs(mask=False):
+def model_kwargs(mask=False, autofocus=False):
     from torch_port import TINY
 
     kw = dict(num_rois=TINY["post_nms_top_n"] + G, fg_fraction=1.0,
@@ -116,6 +134,8 @@ def model_kwargs(mask=False):
               train_post_nms=TINY["post_nms_top_n"])
     if mask:
         kw["with_mask"] = True
+    if autofocus:
+        kw["autofocus"] = True
     return kw
 
 
@@ -141,10 +161,11 @@ def gt_polygons(gt):
     return out
 
 
-def make_batch(mask=False):
+def make_batch(mask=False, autofocus=False):
     """Unit-noise chips (the random RPN's scores stay spread, far from
     ties), GT boxes of three sizes, sparse RPN targets; with ``mask`` the
-    GT masks of gt_polygons, rasterized as the chip loader does."""
+    GT masks of gt_polygons, rasterized as the chip loader does; with
+    ``autofocus`` the FocusPixel labels of the GT boxes."""
     rng = np.random.RandomState(21)
     A = 9
     n = A * (H // 16) * (W // 16)
@@ -173,13 +194,23 @@ def make_batch(mask=False):
         batch["gt_masks"] = np.stack([
             rasterize_gt_masks(gt_polygons(g), g[:, :4], grid=112,
                                max_n_gts=G) for g in gt])
+    if autofocus:
+        from sniper_tpu.data.anchor_targets import (
+            AnchorTargetAssigner,
+            AutoFocusParams,
+        )
+
+        assigner = AnchorTargetAssigner(
+            H, autofocus=AutoFocusParams(*AUTOFOCUS_PARAMS))
+        batch["scale_label"] = np.stack([
+            assigner._focus_map(g[g[:, 4] >= 0, :4]) for g in gt])
     return batch
 
 
-def initial_variables(mask=False):
+def initial_variables(mask=False, autofocus=False):
     from torch_port import tiny_jax_detector
 
-    kw = model_kwargs(mask)
+    kw = model_kwargs(mask, autofocus)
     if mask:
         kw["mask_head_init"] = jax.nn.initializers.he_normal()
     _, variables = tiny_jax_detector(INIT_KEY, **kw)
@@ -192,7 +223,20 @@ def leaf(tree, path):
     return np.asarray(tree)
 
 
-def run_jax(mask=False):
+def fixture_path(mask=False, autofocus=False):
+    return MASK_FIXTURE if mask else AF_FIXTURE if autofocus else FIXTURE
+
+
+def metric_names(mask=False, autofocus=False):
+    return (MASK_METRICS if mask else AF_METRICS if autofocus
+            else METRICS)
+
+
+def leaf_names(mask=False, autofocus=False):
+    return MASK_LEAVES if mask else AF_LEAVES if autofocus else LEAVES
+
+
+def run_jax(mask=False, autofocus=False):
     import jax.numpy as jnp
 
     from sniper_tpu.models.detector import SNIPERDetector
@@ -203,8 +247,9 @@ def run_jax(mask=False):
 
     cfg = make_cfg()
     model = SNIPERDetector(**dict(TINY, dtype=jnp.float32,
-                                  pool_kernel="fused", **model_kwargs(mask)))
-    variables = initial_variables(mask)
+                                  pool_kernel="fused",
+                                  **model_kwargs(mask, autofocus)))
+    variables = initial_variables(mask, autofocus)
     tx, _ = make_optimizer(cfg, epoch_size=100, params=variables["params"])
     state = TrainState(step=jnp.zeros((), jnp.int32),
                        params=jax.tree.map(jnp.asarray, variables["params"]),
@@ -213,28 +258,31 @@ def run_jax(mask=False):
                        opt_state=tx.init(variables["params"]))
     mesh = make_mesh(1)
     step = make_train_step(model, tx, mesh, B, pixel_means=(0.0, 0.0, 0.0),
-                           with_mask=mask)
-    batch = shard_batch(mesh, make_batch(mask))
+                           with_mask=mask, with_autofocus=autofocus)
+    batch = shard_batch(mesh, make_batch(mask, autofocus))
     metrics = []
     with jax.disable_jit(mask):
         for i in range(N_STEPS):
             state, m = step(state, batch, jax.random.PRNGKey(i))
             metrics.append({k: float(m[k])
-                            for k in (MASK_METRICS if mask else METRICS)})
+                            for k in metric_names(mask, autofocus)})
     final = {"params": state.params, "batch_stats": state.batch_stats}
     return metrics, {f"{c}/{p}": leaf(final[c], p).tolist()
-                     for c, p in (MASK_LEAVES if mask else LEAVES)}
+                     for c, p in leaf_names(mask, autofocus)}
 
 
 def main():
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--mask", action="store_true",
-                   help="the mask branch's fixture")
-    mask = p.parse_args().mask
-    metrics, leaves = run_jax(mask)
-    path = MASK_FIXTURE if mask else FIXTURE
+    kind = p.add_mutually_exclusive_group()
+    kind.add_argument("--mask", action="store_true",
+                      help="the mask branch's fixture")
+    kind.add_argument("--autofocus", action="store_true",
+                      help="the FocusPixel head's fixture")
+    args = p.parse_args()
+    metrics, leaves = run_jax(args.mask, args.autofocus)
+    path = fixture_path(args.mask, args.autofocus)
     with open(path, "w") as f:
         json.dump({"steps": N_STEPS, "metrics": metrics, "leaves": leaves},
                   f, indent=1)

@@ -2,9 +2,10 @@
 
 A jax-free copy of sniper_tpu/data/anchor_targets.py, whose module reaches
 jax through sniper_tpu.ops, in its sparse form: the training loader ships
-(pid, value) pairs, and the loss gathers the predictions at the pids. The
-dense target grids and the AutoFocus FocusPixel map of the JAX copy come
-with the slices that read them (ROADMAP.md Queue 1 item 4).
+(pid, value) pairs, and the loss gathers the predictions at the pids; with
+``AutoFocusParams``, also the FocusPixel labels of the chip (``_focus_map``,
+the reference's gen_mask). The dense target grids of the JAX copy have no
+reader in the port.
 
 Re-derivation of the reference anchor_worker
 (reference lib/data_utils/data_workers.py:132-371) as a single
@@ -24,7 +25,12 @@ SNIPER semantics preserved:
 - random fg/bg subsampling to RPN_BATCH_SIZE with RPN_FG_FRACTION,
 - regression targets for every in-border anchor toward its argmax GT,
   weighted only at fg anchors,
-- padded GT output [max_n_gts, 5] filled -1.
+- padded GT output [max_n_gts, 5] filled -1,
+- AutoFocus: each rounded, clipped GT box (before the min-size filter, in
+  the roidb's order, later boxes painting over earlier ones) marks its
+  stride-16 cells 1 when sqrt(area) lies in (dc_low, small_thresh), -1
+  (don't care) in [small_thresh, dc_high) or at most dc_low; other cells
+  stay 0.
 """
 
 from __future__ import annotations
@@ -50,6 +56,13 @@ class AnchorTargets(NamedTuple):
     fg_pids: np.ndarray         # [num_fg] int32
     fg_targets: np.ndarray      # [num_fg, 4] float32
     gt_keep: np.ndarray         # indices into gtids of the kept GT rows
+    focus_label: np.ndarray | None = None  # [H*W] float32 in {-1, 0, 1}
+
+
+class AutoFocusParams(NamedTuple):
+    small_thresh: float
+    dc_low: float
+    dc_high: float
 
 
 class AnchorTargetAssigner:
@@ -67,6 +80,7 @@ class AnchorTargetAssigner:
         invalid_thresh: float = 0.3,
         min_gt_size: float = 10.0,
         max_n_gts: int = 100,
+        autofocus: AutoFocusParams | None = None,
     ):
         self.feat_stride = feat_stride
         self.feat_h = chip_size // feat_stride
@@ -83,6 +97,7 @@ class AnchorTargetAssigner:
         self.invalid_thresh = invalid_thresh
         self.min_gt_size = min_gt_size
         self.max_n_gts = max_n_gts
+        self.autofocus = autofocus
         # in-border mask depends only on the (fixed, square) canvas
         a = self.all_anchors
         self.inside_mask = (
@@ -93,6 +108,26 @@ class AnchorTargetAssigner:
         )
         self.inside_idx = np.where(self.inside_mask)[0]
         self.inside_anchors = a[self.inside_idx]
+
+    def _focus_map(self, gt_boxes: np.ndarray) -> np.ndarray:
+        """FocusPixel GT painting (reference gen_mask, :164-192)."""
+        af = self.autofocus
+        fh, fw = self.feat_h, self.feat_w
+        cmask = np.zeros((fh, fw), dtype=np.float32)
+        s = float(self.feat_stride)
+        for b in gt_boxes:
+            area = np.sqrt((b[2] - b[0]) * (b[3] - b[1]))
+            if af.dc_low < area < af.small_thresh:
+                flag = 1.0
+            elif (af.small_thresh <= area < af.dc_high) or area <= af.dc_low:
+                flag = -1.0
+            else:
+                continue
+            x1, y1 = int(b[0] / s), int(b[1] / s)
+            x2 = min(int(np.ceil(b[2] / s)) + 1, fw)
+            y2 = min(int(np.ceil(b[3] / s)) + 1, fh)
+            cmask[y1:y2, x1:x2] = flag
+        return cmask.reshape(-1)
 
     def __call__(
         self,
@@ -118,6 +153,8 @@ class AnchorTargetAssigner:
 
         gt_boxes = clip_boxes(np.round(gt_boxes * im_scale), canvas)
         vgt_boxes = clip_boxes(np.round(vgt_boxes * im_scale), canvas)
+
+        focus = self._focus_map(gt_boxes) if self.autofocus else None
 
         keep = filter_boxes_mask(gt_boxes, self.min_gt_size)
         gt_keep = np.where(keep)[0]
@@ -191,4 +228,4 @@ class AnchorTargetAssigner:
             ftgts[: len(fg)] = bbox_transform(
                 anchors[fg], gt_boxes[argmax_overlaps[fg]]
             )
-        return AnchorTargets(fgt, pids, vals, fpids, ftgts, gt_keep)
+        return AnchorTargets(fgt, pids, vals, fpids, ftgts, gt_keep, focus)

@@ -4,10 +4,11 @@ A jax-free copy of sniper_tpu/data/loader.py:50-440 (``ChipLoader``,
 ``process_chip_image``) in the form the training step takes: uint8 chips,
 normalized on the device, and the sparse RPN targets, plus under
 TRAIN.WITH_MASK each chip's GT masks rasterized on the host
-(data/mask_utils.py). The image reader and ``Prefetcher`` are shared with
-data/test_loader.py. The AutoFocus labels (TRAIN.AUTO_FOCUS) and the
-training-chip rendering (TRAIN.VISUALIZE) are later slices of the port
-(ROADMAP.md Queue 1 items 4 and 5) and raise NotImplementedError.
+(data/mask_utils.py), and under TRAIN.AUTO_FOCUS each chip's FocusPixel
+labels (``scale_label``). The image reader and ``Prefetcher`` are shared
+with data/test_loader.py. The training-chip rendering (TRAIN.VISUALIZE) is
+a later slice of the port (ROADMAP.md Queue 1 item 5) and raises
+NotImplementedError.
 
 Rebuild of the reference MNIteratorE2E + im_worker + PrefetchingIter
 (reference lib/iterators/MNIteratorE2E.py:41-220,
@@ -27,6 +28,8 @@ per batch:
   [chip, chip] uint8 canvas (NHWC here, vs reference NCHW); the mean
   subtraction runs on the device,
 - RPN targets per chip via AnchorTargetAssigner (sparse pid/value pairs),
+  and with TRAIN.AUTO_FOCUS the chip's FocusPixel labels [H*W] float32 in
+  {-1, 0, 1} (``scale_label``),
 - with TRAIN.WITH_MASK and polygons in the roidb entry, the kept GT rows'
   polygons in chip coordinates rasterized into [MAX_GT_BOXES, 112, 112]
   uint8 box-normalized masks,
@@ -59,7 +62,10 @@ import numpy as np
 
 from sniper_tpu_torch.chips.assigner import assign_boxes, extract_chips
 from sniper_tpu_torch.chips.generator import ChipGenerator
-from sniper_tpu_torch.data.anchor_targets import AnchorTargetAssigner
+from sniper_tpu_torch.data.anchor_targets import (
+    AnchorTargetAssigner,
+    AutoFocusParams,
+)
 from sniper_tpu_torch.data.mask_utils import crop_polys, rasterize_gt_masks
 from sniper_tpu_torch.data.test_loader import Prefetcher, load_image_cv2
 
@@ -126,15 +132,10 @@ class ChipLoader:
 
     def __init__(self, roidb, cfg, batch_size, image_loader=load_image_cv2,
                  seed=0):
-        for on, what, item in (
-                (bool(getattr(cfg.TRAIN, "VISUALIZE", False)),
-                 "the training-chip rendering (TRAIN.VISUALIZE)", 5),
-                (cfg.TRAIN.AUTO_FOCUS,
-                 "AutoFocus labels (TRAIN.AUTO_FOCUS)", 4)):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md Queue 1 item "
-                    f"{item})")
+        if bool(getattr(cfg.TRAIN, "VISUALIZE", False)):
+            raise NotImplementedError(
+                "the training-chip rendering (TRAIN.VISUALIZE) is not ported "
+                "yet (ROADMAP.md Queue 1 item 5)")
         self.roidb = roidb
         self.cfg = cfg
         self.batch_size = batch_size
@@ -142,6 +143,13 @@ class ChipLoader:
         self.rng = np.random.RandomState(seed)
         self.chip_size = cfg.TRAIN.CHIP_SIZE
         self.n_neg_per_im = 2
+        af = None
+        if cfg.TRAIN.AUTO_FOCUS:
+            af = AutoFocusParams(
+                small_thresh=cfg.TRAIN.AUTO_FOCUS_SMALL_THRESH,
+                dc_low=cfg.TRAIN.AUTO_FOCUS_DC_LOW,
+                dc_high=cfg.TRAIN.AUTO_FOCUS_DC_HIGH,
+            )
         self.assigner = AnchorTargetAssigner(
             chip_size=self.chip_size,
             anchor_scales=cfg.network.ANCHOR_SCALES,
@@ -152,6 +160,7 @@ class ChipLoader:
             pos_thresh=cfg.TRAIN.RPN_POSITIVE_OVERLAP,
             neg_thresh=cfg.TRAIN.RPN_NEGATIVE_OVERLAP,
             max_n_gts=cfg.TRAIN.MAX_GT_BOXES,
+            autofocus=af,
         )
         self.size = 0
         self.num_workers = int(getattr(cfg.TRAIN, "NUM_THREAD", 1) or 1)
@@ -307,6 +316,8 @@ class ChipLoader:
             "fg_pids": tgt.fg_pids,
             "fg_targets": tgt.fg_targets,
         }
+        if tgt.focus_label is not None:
+            sample["scale_label"] = tgt.focus_label
         if cfg.TRAIN.WITH_MASK and "gt_masks" in r:
             # polygons into chip coordinates, aligned to the kept GT rows
             polys = crop_polys([r["gt_masks"][g] for g in gtids], chip.box,

@@ -1,21 +1,25 @@
 """Multi-scale inference: per-chip detection, pruning, aggregation.
 
-A jax-free copy of the box and mask paths of sniper_tpu/infer/tester.py:
-64-427 (``device_normalize`` in torch, ``check_valid`` and ``Tester``). The
-host plane is unchanged: decode the class-agnostic deltas on the rois, clip
-to the chip canvas, rescale by 1/im_scale, per-class score threshold,
+A jax-free copy of the box, mask and AutoFocus-map paths of
+sniper_tpu/infer/tester.py:64-427 (``device_normalize`` in torch,
+``check_valid`` and ``Tester``). The host plane is unchanged: decode the
+class-agnostic deltas on the rois, clip to the chip canvas, rescale by
+1/im_scale, per-class score threshold,
 optional chip-border pruning (TEST.DO_PRUNING), then ``aggregate``: per
 image and class, concat the scales under their VALID_RANGES area filters,
 soft-NMS / NMS through the config-driven wrapper, and the MAX_PER_IMAGE
 cap. With masks, each detection's [S,S] mask probabilities ride along
-through the class filter, the pruning, the NMS keep and the cap. The
+through the class filter, the pruning, the NMS keep and the cap. In the
+map mode (AutoFocus), each chip's FocusPixel map, cropped to the chip's
+content at stride 16, is kept for chips/autofocus.add_chips. The
 forward returns torch tensors, which are brought to the host where the
 host plane needs them. The JAX Tester's packed-array fetch and device
 staging existed for its remote runtime and are not ported.
 
 all_boxes layout: [class][image][chip] before aggregation, [class][image]
 -> [N,5] after; all_masks the same nesting, [N,S,S] rows aligned with
-all_boxes before aggregation and (dets, masks) pairs after.
+all_boxes before aggregation and (dets, masks) pairs after; all_maps
+[img][chip] -> [fh, fw] fp32 (None for a chip not yet run).
 """
 
 from __future__ import annotations
@@ -86,11 +90,11 @@ class Tester:
 
     ``forward_fn(data, im_info) -> dict`` must return the detector's
     test-mode outputs (rois [B,N,5], cls_prob [B,N,C], bbox_pred
-    [B,N,4] std-denormalized, roi_valid [B,N], and mask_prob [B,N,S,S]
-    with the mask branch); for ``extract_proposals`` an RPN-only forward's
-    rois, roi_scores and roi_valid. The JAX Tester's AutoFocus-map and
-    per-chip NMS modes come with the slices that add them (ROADMAP.md
-    Queue 1 items 4 and 5).
+    [B,N,4] std-denormalized, roi_valid [B,N], mask_prob [B,N,S,S] with
+    the mask branch and focus_prob [B,H,W] with the AutoFocus head); for
+    ``extract_proposals`` an RPN-only forward's rois, roi_scores and
+    roi_valid. The JAX Tester's per-chip NMS mode comes with the slice that
+    adds it (ROADMAP.md Queue 1 item 5).
     """
 
     def __init__(self, forward_fn, cfg, num_classes: int):
@@ -101,9 +105,10 @@ class Tester:
 
     def detect_outputs(self, out, im_info, im_scales):
         """Decode already-enqueued forward outputs into per-image
-        (scores [N,C], boxes [N,4]) in original image coordinates, and the
+        (scores [N,C], boxes [N,4]) in original image coordinates, the
+        per-image FocusPixel maps cropped to ceil(im_info / 16) and the
         per-image mask probabilities [N,S,S] when the forward has them
-        (else an empty list).
+        (else empty lists).
         Splitting dispatch from decode lets get_detections run one batch
         ahead — the device computes batch N+1 while the host
         post-processes batch N (the reference gets the same overlap from
@@ -113,8 +118,9 @@ class Tester:
         deltas = _host(out["bbox_pred"])
         valid = _host(out["roi_valid"])
         mask_prob = _host(out["mask_prob"]) if "mask_prob" in out else None
+        maps = _host(out["focus_prob"]) if "focus_prob" in out else None
 
-        scores_list, boxes_list, masks_list = [], [], []
+        scores_list, boxes_list, maps_list, masks_list = [], [], [], []
         for i in range(rois.shape[0]):
             boxes = bbox_pred(rois[i, :, 1:], deltas[i])
             boxes = clip_boxes(boxes, im_info[i][:2])
@@ -124,7 +130,12 @@ class Tester:
             boxes_list.append(boxes)
             if mask_prob is not None:
                 masks_list.append(mask_prob[i])
-        return scores_list, boxes_list, masks_list
+            if maps is not None:
+                # the map over the chip's content extent at stride 16
+                fh = int(np.ceil(im_info[i][0] / 16.0))
+                fw = int(np.ceil(im_info[i][1] / 16.0))
+                maps_list.append(maps[i][:fh, :fw])
+        return scores_list, boxes_list, maps_list, masks_list
 
     def extract_proposals(self, batches, roidb):
         """The proposal-extraction mode (tester.py:429-449): per valid
@@ -150,14 +161,17 @@ class Tester:
         return boxes_out, scores_out
 
     def get_detections(self, batches, roidb, cls_thresh=1e-3,
-                       do_pruning=False, with_masks=False):
+                       do_pruning=False, autofocus=False, with_masks=False):
         """Run detection over an iterable of batches.
 
         ``batches`` yields dicts with data [B,H,W,3], im_info [B,3],
         im_scales [B], im_ids [B], chip_ids [B], valid [B] (padding
-        mask for partial batches). Returns all_boxes in the reference
-        layout ([cls][img][chip] -> [N,5]); with_masks also all_masks
-        ([cls][img][chip] -> [N,S,S] aligned with all_boxes rows).
+        mask for partial batches). Returns (all_boxes, all_maps,
+        all_masks): all_boxes in the reference layout ([cls][img][chip]
+        -> [N,5]); with ``autofocus`` all_maps ([img][chip] -> the chip's
+        FocusPixel map), else None; with ``with_masks`` all_masks
+        ([cls][img][chip] -> [N,S,S] aligned with all_boxes rows), else
+        None.
         """
         n_images = len(roidb)
         n_chips = [len(r["inference_crops"]) for r in roidb]
@@ -166,6 +180,8 @@ class Tester:
              for i in range(n_images)]
             for _ in range(self.num_classes)
         ]
+        all_maps = ([[None] * n_chips[i] for i in range(n_images)]
+                    if autofocus else None)
         all_masks = (
             [[[None] * n_chips[i] for i in range(n_images)]
              for _ in range(self.num_classes)]
@@ -181,7 +197,7 @@ class Tester:
             t0 = time.time()
             # blocks on the device result (fetch); the launches already
             # happened, so this overlaps with the NEXT batch's compute
-            scores, boxes, masks = self.detect_outputs(
+            scores, boxes, maps, masks = self.detect_outputs(
                 out, batch["im_info"], batch["im_scales"]
             )
             detect_time += time.time() - t0
@@ -191,6 +207,8 @@ class Tester:
                     continue
                 im_id = int(batch["im_ids"][i])
                 chip_id = int(batch["chip_ids"][i])
+                if autofocus and maps:
+                    all_maps[im_id][chip_id] = maps[i]
                 # one nonzero over the whole [N, C] score matrix instead
                 # of a where() per class (C-1 Python iterations saved)
                 s_i = scores[i]
@@ -260,9 +278,7 @@ class Tester:
             pending = (batch, out)
         if pending is not None:
             process(*pending)
-        if with_masks:
-            return all_boxes, all_masks
-        return all_boxes
+        return all_boxes, all_maps, all_masks
 
     def aggregate(self, scale_cls_dets, num_images: int,
                   scale_cls_masks=None, mask_size: int = 28):

@@ -8,7 +8,11 @@ aggregation with per-scale valid ranges and soft-NMS, then the dataset's
 evaluation. A detector with the
 mask branch (configs/sniper_res101_e2e_mask.yml) also carries each
 detection's mask through aggregation, and the dataset scores both boxes
-and masks.
+and masks. With TEST.AUTO_FOCUS (configs/sniper_res101_e2e_autofocus.yml)
+the scales run coarse to fine: after every scale but the last, the
+FocusPixel maps of its chips become the next scale's FocusChips
+(chips/autofocus.add_chips), which the test iterator bins into the
+smallest canvas tier that holds them.
 
   python -m sniper_tpu_torch.main_test --cfg configs/sniper_res101_e2e.yml \\
       [--weights model.pt] [--set TEST.EXTRACT_PROPOSALS True ...]
@@ -20,8 +24,8 @@ checkpoint of epoch TEST.TEST_EPOCH, else ``network.pretrained``, else the
 seeded init. TEST.EXTRACT_PROPOSALS (with TRAIN.ONLY_PROPOSAL) runs the
 RPN over ``dataset.test_image_set`` at every TEST.SCALES entry and writes
 ``<TEST.PROPOSAL_SAVE_PATH>/<dataset name>_rpn.pkl``, the proposals that
-training's negative-chip mining reads. AutoFocus chips and multi-device
-inference are later slices.
+training's negative-chip mining reads. Multi-device inference is a later
+slice.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import pickle
 import numpy as np
 import torch
 
+from sniper_tpu_torch.chips.autofocus import add_chips
 from sniper_tpu_torch.data.test_loader import (
     TestChipIterator,
     init_inference_crops,
@@ -90,12 +95,12 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
     """Detect at every TEST.SCALES entry, aggregate, evaluate. Returns
     ``dataset.evaluate_detections``'s result, or with the mask branch
     {"bbox": that, "segm": ``dataset.evaluate_segmentations``'s}.
-    ``image_loader`` replaces cv2.imread (tests and synthetic runs inject
-    one)."""
-    if cfg.TEST.AUTO_FOCUS:
-        raise NotImplementedError(
-            "AutoFocus inference is not ported yet (ROADMAP.md Queue 1 "
-            "item 4)")
+    Under TEST.AUTO_FOCUS every scale but the last keeps its chips'
+    FocusPixel maps, and ``add_chips`` replaces each image's
+    ``inference_crops`` with the next scale's FocusChips. A scale's
+    ``dets_scale{s}.pkl`` keeps its maps, so a run resumed from it makes
+    the same chips. ``image_loader`` replaces cv2.imread (tests and
+    synthetic runs inject one)."""
     init_inference_crops(roidb)
     if state is not None:
         model.load_state_dict(state)
@@ -112,33 +117,37 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
         return testers[post_nms]
 
     loader_kw = {} if image_loader is None else {"image_loader": image_loader}
+    n_scales = len(cfg.TEST.SCALES)
     scale_dets, scale_masks = [], []
-    for s in range(len(cfg.TEST.SCALES)):
+    for s in range(n_scales):
+        autofocus = bool(cfg.TEST.AUTO_FOCUS) and s < n_scales - 1
         cache_file = os.path.join(out_dir, f"dets_scale{s}.pkl")
         if _per_scale(cfg.TEST.USE_CACHE, s) and os.path.exists(cache_file):
             with open(cache_file, "rb") as f:
                 cached = pickle.load(f)
-            all_boxes, all_masks = cached["dets"], cached.get("masks")
+            all_boxes, all_maps = cached["dets"], cached.get("maps")
+            all_masks = cached.get("masks")
             print(f"scale {s}: loaded from cache {cache_file}")
         else:
             tester = get_tester(_scale_post_nms(cfg, s, model))
             batches = TestChipIterator(
                 roidb, cfg, s, _per_scale(cfg.TEST.BATCH_IMAGES, s),
                 **loader_kw)
-            out = tester.get_detections(
+            all_boxes, all_maps, all_masks = tester.get_detections(
                 iter(batches), roidb,
                 do_pruning=bool(_per_scale(cfg.TEST.DO_PRUNING, s)),
-                with_masks=with_masks)
-            all_boxes, all_masks = out if with_masks else (out, None)
+                autofocus=autofocus, with_masks=with_masks)
             print(f"scale {s}: done")
             # atomic: USE_CACHE treats existence as "scale done"
             tmp = f"{cache_file}.tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
-                pickle.dump({"dets": all_boxes, "maps": None,
+                pickle.dump({"dets": all_boxes, "maps": all_maps,
                              "masks": all_masks}, f)
             os.replace(tmp, cache_file)
         scale_dets.append(all_boxes)
         scale_masks.append(all_masks)
+        if autofocus:
+            add_chips(roidb, all_maps, s, cfg)
 
     tester = (next(iter(testers.values())) if testers
               else Tester(None, cfg, dataset.num_classes))

@@ -13,7 +13,9 @@ epoch loop of ``run_training``:
 TRAIN.ONLY_PROPOSAL trains the RPN alone (the recipe's first phase, whose
 checkpoint main_test's TEST.EXTRACT_PROPOSALS reads); TRAIN.WITH_MASK
 (configs/sniper_res101_e2e_mask.yml) adds the mask branch and its loss,
-with the GT polygons rasterized by the chip loader. Each epoch re-rolls
+with the GT polygons rasterized by the chip loader; TRAIN.AUTO_FOCUS
+(configs/sniper_res101_e2e_autofocus.yml) adds the FocusPixel head and
+``focus_loss`` against the chip loader's FocusPixel labels. Each epoch re-rolls
 the chips, assembles batches in a background thread and uploads them
 (pinned memory, non-blocking copies) in a second one, so both overlap the
 device's steps; the step's metrics stay on the device until a log line
@@ -22,7 +24,7 @@ reads them. A checkpoint per epoch goes to
 ``TRAIN.begin_epoch = n`` resumes from it.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the AutoFocus branch, OHEM and data parallelism (more than one device).
+OHEM and data parallelism (more than one device).
 """
 
 from __future__ import annotations
@@ -124,7 +126,6 @@ def check_ported(cfg, device):
     """Raise NotImplementedError for the options of later slices, training
     on ``device`` included."""
     todo = [
-        (cfg.TRAIN.AUTO_FOCUS, "AutoFocus (TRAIN.AUTO_FOCUS)", 4),
         (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 5),
         (num_devices(cfg, device) > 1,
          "data parallelism (parallel.num_devices > 1, or -1 with several "

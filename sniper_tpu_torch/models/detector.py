@@ -19,12 +19,14 @@ cast to fp32, then
   ``num_mask_rois`` sampled rois of each image (fg first), trained through
   the 14x14 pool's backward, with each roi's targets crop-resized from the
   batch's dense GT masks (ops/mask_target.py);
+- ``autofocus`` (detector.py:171-174,222,316-317): the FocusPixel head
+  (``AutoFocusHead``, the child ``autofocus``) on the same C4||C5 map;
+  inference adds ``focus_prob`` [B,H,W] (the softmax's focus channel) at
+  every scale, training ``focus_logits`` [B,H,W,2] for ``focus_loss``;
 - ``rpn_only`` (TRAIN.ONLY_PROPOSAL, detector.py:153-165): no
-  ``conv_new_1``, R-CNN or mask modules; training returns the RPN outputs
-  and the trunk's telemetry, inference the proposals of ``multi_proposal``.
-
-AutoFocus is a later slice of the port (ROADMAP.md, Queue 1 item 4);
-asking for it raises ``NotImplementedError``.
+  ``conv_new_1``, R-CNN, mask or FocusPixel modules; training returns the
+  RPN outputs and the trunk's telemetry, inference the proposals of
+  ``multi_proposal``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sniper_tpu_torch.models.heads import MaskHead, RCNNHead, RPNHead
+from sniper_tpu_torch.models.heads import (
+    AutoFocusHead,
+    MaskHead,
+    RCNNHead,
+    RPNHead,
+)
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
 from sniper_tpu_torch.ops.deform import fused_offset_pool
@@ -79,10 +86,6 @@ class SNIPERDetector(nn.Module):
         rpn_only: bool = False,
     ):
         super().__init__()
-        if autofocus:
-            raise NotImplementedError(
-                "the AutoFocus branch is not ported yet (ROADMAP.md Queue 1 "
-                "item 4)")
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.anchor_ratios = tuple(anchor_ratios)
@@ -118,6 +121,10 @@ class SNIPERDetector(nn.Module):
             self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
                                  fc_dim=head_fc_dim,
                                  margin_bins=head_margin_bins)
+        # the FocusPixel head: JAX's RPN-only branch returns before it
+        self.with_autofocus = autofocus and not rpn_only
+        if self.with_autofocus:
+            self.autofocus = AutoFocusHead(1024 + 2048)
         if self.with_mask:
             # the 14x14 pool's offset FC: the first 196 outputs are dy
             self.mask_offset = nn.Linear(14 * 14 * 256, 2 * 14 * 14)
@@ -162,8 +169,9 @@ class SNIPERDetector(nn.Module):
         cls_prob [B,N,C] and bbox_pred [B,N,4] (std-denormalized), with N =
         ``post_nms_top_n`` (default: the model's), and with ``with_mask``
         mask_prob [B,N,S,S] (S = mask_size): each roi's foreground
-        probability for its argmax foreground class. ``rpn_only`` returns
-        rois, roi_scores and roi_valid only.
+        probability for its argmax foreground class, and with the AutoFocus
+        head focus_prob [B,H,W] fp32 (H, W the stride-16 map). ``rpn_only``
+        returns rois, roi_scores and roi_valid only.
 
         ``train=True`` also takes gt_boxes [B,G,5] and valid_ranges [B,2];
         the sampler draws from ``generator`` (or takes ``priorities``, see
@@ -176,7 +184,7 @@ class SNIPERDetector(nn.Module):
         masks, uint8 or float in {0, 1}) and returns mask_logits
         [B*m,S,S,2] (each mask roi's neg and pos planes of its GT class)
         and mask_targets [B*m,S,S] in {-1, 0, 1}, m = min(num_mask_rois,
-        num_rois)."""
+        num_rois); the AutoFocus head adds focus_logits [B,H,W,2] fp32."""
         if train:
             return self._train_forward(data, im_info, gt_boxes, valid_ranges,
                                        gt_masks, generator, priorities)
@@ -201,6 +209,9 @@ class SNIPERDetector(nn.Module):
             "bbox_pred": (bbox_pred * self.bbox_stds
                           + self.bbox_means).reshape(b, n, 4),
         }
+        if self.with_autofocus:
+            out["focus_prob"] = torch.softmax(self.autofocus(feat),
+                                              dim=-1)[..., 1]
         if self.with_mask:
             out["mask_prob"] = self._mask_prob(roi_feat_map, rois, cls_prob)
         return out
@@ -274,6 +285,8 @@ class SNIPERDetector(nn.Module):
             "bbox_pred": bbox_pred.reshape(b, self.num_rois, 4),
             "stats": stats,
         }
+        if self.with_autofocus:
+            out["focus_logits"] = self.autofocus(feat)
         if self.with_mask:
             # the first m sampled rois of each image: the sampler puts its
             # fg rois first

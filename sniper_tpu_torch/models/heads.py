@@ -1,6 +1,7 @@
-"""Detection heads: RPN, the fused deformable R-CNN head and the mask head.
+"""Detection heads: RPN, the fused deformable R-CNN head, the mask head and
+the AutoFocus FocusPixel head.
 
-Port of sniper_tpu/models/heads.py:52-235. Parameter names follow the flax
+Port of sniper_tpu/models/heads.py:52-250. Parameter names follow the flax
 tree; the ``_Lin`` param holders become ``nn.Linear`` ([out, in] weights).
 The offset FC's gradient is scaled by 0.01 inside the pool's backward
 (ops/deform.py:OFFSET_GRAD_MULT, the reference's lr_mult).
@@ -117,3 +118,21 @@ class MaskHead(nn.Module):
             h = torch.relu(getattr(self, f"mask_conv_3x3_{i + 1}")(h))
         h = torch.relu(self.mask_deconv(h))
         return self.mask_out(h).permute(0, 2, 3, 1)
+
+
+class AutoFocusHead(nn.Module):
+    """FocusPixel head (heads.py:238-250): 3x3 conv to 256 + ReLU, 1x1 conv
+    to 256 + ReLU, 1x1 conv to 2 (background, focus), in the compute dtype
+    of its input; the logits cast to fp32."""
+
+    def __init__(self, in_channels: int = 1024 + 2048):
+        super().__init__()
+        self.conv_new_2 = nn.Conv2d(in_channels, 256, 3, padding=1)
+        self.conv_new_3 = nn.Conv2d(256, 256, 1)
+        self.conv_new_out = nn.Conv2d(256, 2, 1)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        """feat [B,C,H,W] (C4 || C5) -> FocusPixel logits [B,H,W,2] fp32."""
+        h = torch.relu(conv(self.conv_new_2, feat))
+        h = torch.relu(conv(self.conv_new_3, h))
+        return conv(self.conv_new_out, h).float().permute(0, 2, 3, 1)

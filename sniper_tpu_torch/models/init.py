@@ -6,8 +6,8 @@ distributions as the flax initializers, drawn from an explicit
 
 - convs: lecun_normal (truncated normal, variance 1/fan_in), zero bias;
 - the deformable 3x3: variance_scaling(2.0, "fan_out", truncated normal);
-- RPN, ``conv_new_1``, the R-CNN FCs and every mask-head layer:
-  normal(0.01), zero bias;
+- RPN, ``conv_new_1``, the R-CNN FCs, every mask-head layer and the
+  FocusPixel head's three convs: normal(0.01), zero bias;
 - offset convs and the R-CNN and mask offset FCs: zeros, or
   normal(``offset_std``) when it is given, so that the deformable sampling
   really moves;
@@ -56,6 +56,8 @@ def init_detector(model: SNIPERDetector, seed: int = 0,
                         model.rcnn.fc_new_2, model.rcnn.cls_score,
                         model.rcnn.bbox_pred}
         offsets.add(model.rcnn.offset)
+    if model.with_autofocus:
+        head_layers |= set(model.autofocus.children())
     if model.with_mask:
         head_layers |= set(model.mask.children())
         offsets.add(model.mask_offset)

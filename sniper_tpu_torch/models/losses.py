@@ -1,7 +1,7 @@
 """Loss functions with the reference's normalizations.
 
-Port of sniper_tpu/models/losses.py:20-184 without the AutoFocus and OHEM
-terms (ROADMAP.md Queue 1 items 4 and 5):
+Port of sniper_tpu/models/losses.py:20-184 without the OHEM term (ROADMAP.md
+Queue 1 item 5):
 
 - softmax CE with ignore label -1 and 'valid' normalization (the sum over
   non-ignored entries / max(count, 1)), logits cast to fp32 first;
@@ -11,7 +11,9 @@ terms (ROADMAP.md Queue 1 items 4 and 5):
 - the RPN terms from dense target grids or from the chip loader's sparse
   (pid, value) pairs, which give the same values;
 - the mask term: the valid-normalized CE over every target cell of the
-  mask rois, -1 ignored.
+  mask rois, -1 ignored;
+- the AutoFocus term: the valid-normalized CE of the FocusPixel logits
+  against the chip loader's ``scale_label``, -1 (don't care) ignored.
 """
 
 from __future__ import annotations
@@ -93,6 +95,12 @@ def rcnn_bbox_loss(bbox_pred, bbox_targets, bbox_weights, batch_images):
     return loss / (188.0 * float(batch_images))
 
 
+def focus_loss(focus_logits, focus_labels):
+    """focus_logits [B,H,W,2], focus_labels [B,H*W] in {-1, 0, 1}."""
+    b, h, w, _ = focus_logits.shape
+    return softmax_ce_ignore(focus_logits.reshape(b, h * w, 2), focus_labels)
+
+
 def mask_loss(mask_logits, mask_targets):
     """mask_logits [M,S,S,2], mask_targets [M,S,S] in {-1, 0, 1}."""
     return softmax_ce_ignore(mask_logits, mask_targets)
@@ -105,8 +113,11 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
     'rpn_label_vals' [B,S], 'fg_pids' [B,F], 'fg_targets' [B,F,4]) or dense
     ones ('label' [B,A*H*W], 'bbox_target' / 'bbox_weight' [B,4A,H,W]).
     ``rpn_only`` (TRAIN.ONLY_PROPOSAL) sums the two RPN terms only;
-    outputs with ``mask_logits`` (the mask branch's) add the mask term. Returns (loss, metrics dict of 0-d
-    tensors)."""
+    outputs with 'focus_logits' (the AutoFocus head's) add the FocusPixel
+    term against the batch's 'scale_label' [B,H*W] when the batch has one
+    (the loader ships it under TRAIN.AUTO_FOCUS; metric ``focus_loss``);
+    outputs with ``mask_logits`` (the mask branch's) add the mask term.
+    Returns (loss, metrics dict of 0-d tensors)."""
     if "rpn_pids" in batch:
         l_rpn_cls = rpn_cls_loss_sparse(
             outputs["rpn_cls_logits"], batch["rpn_pids"],
@@ -134,6 +145,10 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
         "rcnn_cls_loss": l_rcnn_cls,
         "rcnn_bbox_loss": l_rcnn_bbox,
     }
+    if "focus_logits" in outputs and "scale_label" in batch:
+        l_focus = focus_loss(outputs["focus_logits"], batch["scale_label"])
+        loss = loss + l_focus
+        metrics["focus_loss"] = l_focus
     if "mask_logits" in outputs:
         l_mask = mask_loss(outputs["mask_logits"], outputs["mask_targets"])
         loss = loss + l_mask

@@ -256,12 +256,13 @@ _TRANSFORMS = {"rcnn.offset.weight": fc_from_pool,
 
 def _mx_prefix(module_name: str) -> str | None:
     """The MXNet name prefix of a module: the trunk's path joined by "_",
-    a head layer's own name; None for modules the reference has no
-    weights for (the 14x14 pool's ``mask_offset``)."""
+    a head layer's own name (``autofocus.conv_new_2`` -> ``conv_new_2``,
+    as the JAX import's rows name it); None for modules the reference has
+    no weights for (the 14x14 pool's ``mask_offset``)."""
     parts = module_name.split(".")
     if parts[0] == "trunk" and len(parts) > 1:
         return "_".join(parts[1:])
-    if parts[0] in ("rpn", "rcnn", "mask") and len(parts) == 2:
+    if parts[0] in ("rpn", "rcnn", "mask", "autofocus") and len(parts) == 2:
         return parts[1]
     if module_name == "conv_new_1":
         return module_name

@@ -11,9 +11,10 @@ The step returns its metrics as 0-d device tensors and never waits for the
 device: the losses, ``rcnn_acc``, ``rcnn_fg_frac``, the head's offset
 telemetry and the trunk's ``dcn_offset_max`` (with ``rpn_only``, the RPN
 losses and the trunk's telemetry only, as trainer.py:128-145; with the
-model's mask branch, also ``mask_loss``). The batch's uint8 ``gt_masks`` go to
-the model as they are: it casts them where it crop-resizes. The caller
-reads them when it logs. The sampler draws from an explicit
+model's AutoFocus head and a batch with ``scale_label``, also
+``focus_loss``; with the model's mask branch, also ``mask_loss``). The
+batch's uint8 ``gt_masks`` go to the model as they are: it casts them
+where it crop-resizes. The caller reads them when it logs. The sampler draws from an explicit
 ``torch.Generator`` on the device.
 """
 

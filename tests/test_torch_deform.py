@@ -187,6 +187,11 @@ POOL_CASES = {
     "offmap": (1, 10, 12, 8, 6, 7, 1, "offmap"),
     # a map wider than the first design's dense weights could hold
     "wide": (1, 48, 1200, 8, 16, 7, 1, "random"),
+    # AutoFocus's smallest FocusChip tier (256x320 canvas, a 16x20 map):
+    # 300 rois per image, each spanning up to the whole map, at P=7 and,
+    # with the mask config, at P=14
+    "focus_tier": (2, 16, 20, 256, 300, 7, 1, "whole"),
+    "focus_tier_p14": (2, 16, 20, 256, 300, 14, 1, "whole"),
 }
 
 

@@ -164,8 +164,6 @@ def test_unported_branches_raise():
     with pytest.raises(ValueError, match="no gt_masks"):
         model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]),
               torch.zeros(1, 1, 5), torch.tensor([[0.0, 1e5]]), train=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tiny_torch_detector(autofocus=True)
     # the RPN-only mode is ported (test_torch_rpn_only): no head modules
     rpn = tiny_torch_detector(rpn_only=True, with_mask=True)
     assert not rpn.with_mask

@@ -145,9 +145,10 @@ def test_chip_loader_matches_jax(roidbs, cpp_chips):
 
 def test_unported_loader_options_raise(roidbs):
     (tr, _, _), _ = roidbs
-    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader), and
-    # TRAIN.WITH_MASK (test_chip_loader_with_masks_matches_jax)
-    for key, value in (("VISUALIZE", True), ("AUTO_FOCUS", True)):
+    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader),
+    # TRAIN.WITH_MASK (test_chip_loader_with_masks_matches_jax) and
+    # TRAIN.AUTO_FOCUS (test_torch_autofocus)
+    for key, value in (("VISUALIZE", True),):
         cfg = make_cfg()
         setattr(cfg.TRAIN, key, value)
         with pytest.raises(NotImplementedError, match="Queue 1 item"):

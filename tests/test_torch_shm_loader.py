@@ -195,3 +195,31 @@ def test_process_loader_carries_gt_masks(roidb):
     assert all(b["gt_masks"].dtype == np.uint8
                and b["gt_masks"].shape == (2, 12, 112, 112) for b in got)
     assert any(b["gt_masks"].any() for b in got)
+
+
+def test_process_loader_carries_scale_label(roidb):
+    """TRAIN.AUTO_FOCUS: each chip's FocusPixel labels (scale_label, [H*W]
+    float32 in {-1, 0, 1}) cross the shared memory unchanged, beside the
+    other arrays, over flipped and unflipped images."""
+    from sniper_tpu_torch.data.roidb import append_flipped_images
+
+    cfg = make_cfg()
+    cfg.TRAIN.AUTO_FOCUS = True
+    cfg.TRAIN.AUTO_FOCUS_SMALL_THRESH = 64
+    cfg.TRAIN.AUTO_FOCUS_DC_LOW = 5
+    cfg.TRAIN.AUTO_FOCUS_DC_HIGH = 90
+    flipped = append_flipped_images(copy.deepcopy(roidb))
+    ref = ChipLoader(copy.deepcopy(flipped), cfg, 2,
+                     image_loader=image_loader, seed=2)
+    proc = ProcessChipLoader(flipped, cfg, 2, seed=2,
+                             image_loader=image_loader)
+    try:
+        assert proc.reset() == ref.reset()
+        got = _batches(proc)
+        _assert_same(got, _batches(ref), "with scale_label")
+    finally:
+        proc.close()
+    side = cfg.TRAIN.CHIP_SIZE // 16
+    labels = np.concatenate([b["scale_label"] for b in got])
+    assert labels.dtype == np.float32 and labels.shape[1] == side * side
+    assert set(np.unique(labels)) == {-1.0, 0.0, 1.0}

@@ -96,10 +96,11 @@ def test_get_detections_matches_jax(rng):
     kw = dict(do_pruning=True)
     want, _ = jtester.Tester(lambda d, i: out, cfg, ncls).get_detections(
         [batch], roidb, **kw)
-    got = ttester.Tester(
+    got, maps, masks = ttester.Tester(
         lambda d, i: {k: torch.from_numpy(np.asarray(v)) for k, v in
                       out.items()}, cfg, ncls).get_detections([batch],
                                                               roidb, **kw)
+    assert maps is None and masks is None
     for c in range(ncls):
         for i in range(2):
             np.testing.assert_array_equal(got[c][i][0], want[c][i][0])
@@ -126,10 +127,11 @@ def test_get_detections_with_masks_matches_jax(rng):
     kw = dict(do_pruning=True, with_masks=True)
     want_b, _, want_m = jtester.Tester(
         lambda d, i: out, cfg, ncls).get_detections([batch], roidb, **kw)
-    got_b, got_m = ttester.Tester(
+    got_b, maps, got_m = ttester.Tester(
         lambda d, i: {k: torch.from_numpy(np.asarray(v))
                       for k, v in out.items()}, cfg, ncls).get_detections(
         [batch], roidb, **kw)
+    assert maps is None
     kept = 0
     for c in range(1, ncls):
         for i in range(2):

@@ -136,12 +136,12 @@ def test_run_training_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TRAIN.AUTO_FOCUS", True, 4),
     ("TRAIN.ENABLE_OHEM", True, 5), ("parallel.num_devices", 4, 7)])
 def test_unported_training_options_raise(key, value, item):
     """The options of later slices raise with their ROADMAP item. The
     options ported since run in their own tests: TRAIN.WITH_MASK in
-    test_torch_mask_train and below, TRAIN.ONLY_PROPOSAL in
+    test_torch_mask_train and below, TRAIN.AUTO_FOCUS in
+    test_torch_autofocus and test_torch_autofocus_pipeline, TRAIN.ONLY_PROPOSAL in
     test_torch_rpn_only and test_torch_recipe, network.pretrained in
     test_torch_pretrained and test_torch_recipe, TRAIN.LOADER_PROCESS in
     test_torch_shm_loader and test_torch_recipe."""

@@ -22,7 +22,8 @@ maxima within rtol 2e-2; each kept parameter's change over the three steps
 within 2e-2 of its norm (relative L2); the BatchNorm running statistics
 within rtol 1e-4. Frozen leaves must not move at all. The mask branch's
 three steps (tests/test_torch_mask_train.py) run through the same
-comparison, with mask_loss among the losses.
+comparison, with mask_loss among the losses, and so do the FocusPixel
+head's (tests/test_torch_autofocus.py), with focus_loss among them.
 """
 
 import json
@@ -54,21 +55,22 @@ def test_three_train_steps_match_jax():
     check_three_steps(mask=False)
 
 
-def check_three_steps(mask):
+def check_three_steps(mask, autofocus=False):
     """The port's three steps from the fixture's initial variables and
     batch against the frozen JAX metrics and leaves."""
-    with open(gg.MASK_FIXTURE if mask else gg.FIXTURE) as f:
+    with open(gg.fixture_path(mask, autofocus)) as f:
         want = json.load(f)
-    variables = gg.initial_variables(mask)
-    model = tiny_torch_detector(variables, **gg.model_kwargs(mask))
+    variables = gg.initial_variables(mask, autofocus)
+    model = tiny_torch_detector(variables,
+                                **gg.model_kwargs(mask, autofocus))
     opt, sched, _ = make_optimizer(gg.make_cfg(), 100, model)
     step = make_train_step(model, opt, sched, gg.B,
                            pixel_means=(0.0, 0.0, 0.0))
     batch = {k: torch.from_numpy(v)
-             for k, v in gg.make_batch(mask).items()}
+             for k, v in gg.make_batch(mask, autofocus).items()}
     for i in range(want["steps"]):
         got = step(batch)
-        for k in (gg.MASK_METRICS if mask else gg.METRICS):
+        for k in gg.metric_names(mask, autofocus):
             if k.startswith(("rcnn_acc", "rcnn_fg")):
                 tol = dict(rtol=0, atol=0.04)
             elif k.endswith("_max"):

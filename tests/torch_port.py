@@ -43,6 +43,9 @@ IM2COL_EDGES = {
     "clamp": (2, 5, 6, 32, 2, 2, "clamp"),
     # the smallest map the kernels take
     "tiny": (1, 2, 2, 8, 1, 1, "random"),
+    # the C5 map of AutoFocus's smallest FocusChip tier (256x320 canvas) at
+    # dilation 2: the border clamp touches most taps
+    "focus_tier": (2, 16, 20, 128, 4, 2, "random"),
 }
 
 
