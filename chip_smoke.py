@@ -102,11 +102,37 @@ Phases, each printing its own lines; any failure exits non-zero:
    focus_loss moving, the head's gradients finite and nonzero at every
    step; (t3) main_test's restore of its checkpoint and run_detection
    coarse to fine on two images.
+7. The model zoo at full width and depth with seeded random weights, over
+   phase 3's synthetic images and phase 5's synthetic roidb: ResNeXt-101
+   (configs/sniper_res101_e2e.yml with ``symbol resnext_mx_101``, the CLI's
+   ``--set`` form) and MobileNetV2 (configs/sniper_mobilenetv2_e2e.yml).
+   (z1) X101 inference: (a) the kernel path against the plain path on a
+   small input (phase 3 (a)'s bounds), (b) run_detection at the flagship
+   scales and batches, counters zeroed just before and read just after,
+   per batch exactly X1 3, NMS 1, pool 2, and none of X2, the pool's
+   backward and the patch extraction, (c) per-scale ms per batch (median
+   and min-max over ZOO_REPS passes), img/s, peak memory and the trunk's
+   share of one batch's forward device time; (z2) X101 training: the
+   one-step check of 5 (a) (the C5 grouped conv2_weight and offset among
+   the leaves), a synthetic X101 backbone written from mapping_rows and
+   imported by load_pretrained (which first raises under the yml's
+   FIXED_PARAMS, as the JAX import does: stage 1's sc_bn has no import
+   row), run_training at 16 chips of 512x512 for WARMUP_STEPS +
+   ZOO_TIMED_STEPS steps with every step's launches exactly X1 3, X2 3,
+   NMS 1, pool 2, its backward 2, the patch extraction 0, then main_test's
+   restore and run_detection on two images; (z3) and (z4) the same for
+   MobileNetV2 with no DCN launch (X1 0, X2 0), no backbone (the JAX import
+   maps no MobileNetV2 trunk weight) and its first_conv bit for bit
+   unmoved by the steps (FIXED_PARAMS). Phase 2 holds the kernels at these
+   models' shapes too: X1 at X101's C5 width (2048 channels, 512 per
+   deformable group) at inference scale 0 and training, with the time of
+   the grouped product after it, X2 there at training, and NMS, the pool
+   and its backward at MobileNetV2's stride-32 maps.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
 for the two backward kernels, with every path's counts beside them, the
-mask training's and AutoFocus's among them); the
+mask training's, AutoFocus's and the model zoo's among them); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -235,16 +261,17 @@ def post_nms(cfg, s: int) -> int:
 
 def main_path_shapes(cfg) -> list[dict]:
     """Per test scale, the shapes the main path gives the kernels: the
-    landscape canvas at stride 16, the batch, the post-NMS roi count."""
+    landscape canvas at the config's stride (16, or 32 for MobileNetV2), the
+    batch, the post-NMS roi count."""
     from sniper_tpu_torch.data.test_loader import canvas_for_scale
 
+    stride = int(cfg.network.RPN_FEAT_STRIDE)
     shapes = []
     for s, spec in enumerate(cfg.TEST.SCALES):
         (ch, cw), _ = canvas_for_scale(spec)
         shapes.append(dict(
             label=f"scale {s}", B=int(cfg.TEST.BATCH_IMAGES[s]),
-            H=ch // cfg.network.RPN_FEAT_STRIDE,
-            W=cw // cfg.network.RPN_FEAT_STRIDE,
+            H=ch // stride, W=cw // stride, stride=stride,
             rois=post_nms(cfg, s),
             pre_nms=int(cfg.TEST.RPN_PRE_NMS_TOP_N)))
     return shapes
@@ -335,7 +362,8 @@ def check_nms(dev, sh):
     B, N, max_out, thresh = sh["B"], sh["pre_nms"], sh["rois"], 0.7
     out = None
     for kind in NMS_INPUTS:
-        boxes, scores = nms_input(kind, B, N, sh["H"] * 16, sh["W"] * 16, 1)
+        st = sh.get("stride", 16)
+        boxes, scores = nms_input(kind, B, N, sh["H"] * st, sh["W"] * st, 1)
         boxes, scores = boxes.to(dev), scores.to(dev)
         s_scores, order = torch.sort(scores, dim=1, descending=True,
                                      stable=True)
@@ -381,7 +409,7 @@ def check_im2col(dev, sh):
         deform_im2col_plain,
     )
 
-    B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], 512, 4, 3, 2
+    B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], sh.get("C5", 512), 4, 3, 2
     g = torch.Generator().manual_seed(2)
     x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
     # +-6 px offsets: many samples leave the map and clamp onto its border
@@ -405,14 +433,41 @@ def check_im2col(dev, sh):
     nbytes = x.numel() * 2 + off.numel() * 4 + B * H * W * KK * C * 2
     r = result(ok, err.max(), ms, plain_ms, nbytes,
                7.0 * B * H * W * KK * C, lib_ms)
+    del xg, grid
     print(f"deform_im2col [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
           f"dilation {d}, offsets +-6 px: max abs err "
           f"{float(err.max()):.3e}, bit-exact {exact}; kernel {ms:.4f} ms "
           f"({nbytes / ms / 1e6:.0f} GB/s effective), plain {plain_ms:.4f} "
           f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
           f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.0f} GB/s), "
-          f"library F.grid_sample (fp32) {lib_ms:.4f} ms")
+          f"library F.grid_sample (fp32) {lib_ms:.4f} ms"
+          + grouped_product(x, off, sh.get("conv_groups", 1)))
+    torch.cuda.empty_cache()
     return r
+
+
+def grouped_product(x, off, CG: int) -> str:
+    """With ``CG`` conv groups (ResNeXt's C5): the time of what
+    deformable_conv runs after the im2col, ``grouped_product`` (the col's
+    group-major copy, the batched product with the weight and the output's
+    reorder), in bf16, and of its copy alone, beside X1's; "" for CG = 1."""
+    if CG == 1:
+        return ""
+    from sniper_tpu_torch.ops import deform
+
+    B, H, W, C = x.shape
+    col = deform.deform_im2col(x, off, num_groups=4, kernel_size=3,
+                               dilation=2)
+    w = torch.randn(C, C // CG, 3, 3, device=x.device,
+                    dtype=torch.bfloat16) * 0.02
+    copy_ms = time_ms(lambda: deform.group_major(col, CG), 5)
+    product_ms = time_ms(lambda: deform.grouped_product(col, w, CG), 5)
+    nbytes = 2 * col.numel() * 2
+    del col
+    return (f"; the grouped product after it ({CG} conv groups) "
+            f"{product_ms:.4f} ms, of which the col's group-major copy "
+            f"{copy_ms:.4f} ms ({nbytes / 1e6:.0f} MB moved, "
+            f"{nbytes / copy_ms / 1e6:.0f} GB/s)")
 
 
 def im2col_as_grid_sample(x, off, G, K, d):
@@ -438,13 +493,13 @@ def im2col_as_grid_sample(x, off, G, K, d):
     return xg, grid.contiguous()
 
 
-def random_rois(B, rpi, H, W, g):
+def random_rois(B, rpi, H, W, g, stride=16):
     """Image-contiguous rois [B*rpi, 5] over a map of H x W cells at
-    stride 16: corners up to 60 px past the canvas, sides 8 to 800 px."""
+    ``stride``: corners up to 60 px past the canvas, sides 8 to 800 px."""
     R = B * rpi
     rois = torch.zeros(R, 5)
     rois[:, 0] = torch.arange(B).repeat_interleave(rpi).float()
-    span = torch.tensor([W * 16.0 + 120, H * 16.0 + 120])
+    span = torch.tensor([W * stride + 120.0, H * stride + 120.0])
     xy = torch.rand(R, 2, generator=g) * span - 60
     wh = torch.exp(torch.rand(R, 2, generator=g) * math.log(100.0)) * 8.0
     rois[:, 1:3], rois[:, 3:5] = xy, xy + wh
@@ -456,17 +511,18 @@ def check_pool(dev, sh):
 
     B, rpi, C, H, W = sh["B"], sh["rois"], 256, sh["H"], sh["W"]
     P, S, M = sh.get("P", 7), 4, 4
+    st = sh.get("stride", 16)
     g = torch.Generator().manual_seed(3)
     feat = torch.randn(B, H, W, C, generator=g).to(dev)
     R = B * rpi
-    rois = random_rois(B, rpi, H, W, g).to(dev)
+    rois = random_rois(B, rpi, H, W, g, st).to(dev)
     # the FC's output spread grows with P: 7/P keeps P=14's like P=7's
     off_w = (torch.randn(2 * P * P, P * P * C, generator=g)
              * (0.03 * 7 / P)).to(dev)
     off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
 
     geom, roi_h, roi_w, sub_h, sub_w = deform.pool_geometry(
-        rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+        rois, P=P, S=S, M=M, spatial_scale=1 / st)
     kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
     pass1_k = deform.pool_pass(feat, geom, None, **kw)
     pass1_p = deform.pool_pass_plain(feat, geom, None, **kw)
@@ -478,7 +534,8 @@ def check_pool(dev, sh):
     pooled_k = deform.pool_pass(feat, geom, pypx, **kw)
     pooled_p = deform.pool_pass_plain(feat, geom, pypx, **kw)
     full_k = deform.fused_offset_pool(feat, rois, off_w, off_b,
-                                      rois_per_image=rpi, pooled_size=P)
+                                      rois_per_image=rpi, pooled_size=P,
+                                      spatial_scale=1 / st)
     torch.cuda.synchronize()
     ok, worst, parts = True, 0.0, []
     for name, a, b in (("pass A", pass1_k, pass1_p),
@@ -501,7 +558,7 @@ def check_pool(dev, sh):
                2 * (feat.numel() * 4 + R * 16 + R * P * P * C * 4)
                + R * 2 * P * P * 4, 2 * 8.0 * R * P * P * S * S * C)
     print(f"fused_pool [{sh['label']}]: P={P} B={B} rpi={rpi} C={C} map "
-          f"{H}x{W}, "
+          f"{H}x{W} at stride {st}, "
           f"{clamped:.1%} of window starts on the margin clamp; max abs err "
           f"{', '.join(parts)}; kernel pass A {ms_a:.4f} ms + pass B "
           f"{ms_b:.4f} ms = {ms:.4f} ms, plain "
@@ -511,11 +568,13 @@ def check_pool(dev, sh):
 
 
 def train_shapes(cfg) -> dict:
-    """The training path's shapes: a batch of chips at stride 16, the
-    sampled rois per chip, conv_new_1's 256 channels, the C5 mid width."""
+    """The training path's shapes: a batch of chips at the config's stride,
+    the sampled rois per chip, conv_new_1's 256 channels, the C5 mid width
+    (ResNet-101's)."""
     return dict(label="training", B=int(cfg.TRAIN.BATCH_IMAGES),
                 H=cfg.TRAIN.CHIP_SIZE // cfg.network.RPN_FEAT_STRIDE,
                 W=cfg.TRAIN.CHIP_SIZE // cfg.network.RPN_FEAT_STRIDE,
+                stride=int(cfg.network.RPN_FEAT_STRIDE),
                 rois=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
                 pre_nms=int(cfg.TRAIN.RPN_PRE_NMS_TOP_N), C=256, C5=512,
                 M=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)) * 4,
@@ -556,7 +615,7 @@ def check_pool_bwd(dev, sh):
     rois = rois.to(dev)
     gout = torch.randn(R, P * P, C, generator=g).to(dev)
     geom, roi_h, roi_w, sub_h, sub_w = deform.pool_geometry(
-        rois, P=P, S=S, M=M, spatial_scale=1 / 16)
+        rois, P=P, S=S, M=M, spatial_scale=1 / sh.get("stride", 16))
     kw = dict(rois_per_image=rpi, P=P, S=S, M=M)
     ok, worst, parts = True, 0.0, []
     for label, scale in (("zero offsets", 0.0), ("random offsets", 0.3)):
@@ -656,7 +715,7 @@ def check_im2col_bwd(dev, sh):
     # derivatives and their products with gcol)
     nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * off.numel() * 4
     r = result(ok, worst, ms, plain_ms, nbytes, 20.0 * gcol.numel(), lib_ms)
-    print(f"deform_im2col_bwd [training]: x [{B},{H},{W},{C}] bf16, G={G}, "
+    print(f"deform_im2col_bwd [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
           f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms at +-6 px "
           f"({nbytes / ms / 1e6:.0f} GB/s effective), {ms_small:.4f} ms at "
           f"+-0.5 px, {ms_zero:.4f} ms at zero offsets, plain "
@@ -811,14 +870,18 @@ TOLERANCES = {
 }
 
 
-def kernel_phase(dev, cfg, mcfg, acfg) -> tuple[bool, list]:
+def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
     """Each kernel against its plain version: the forward kernels at every
     test scale's shapes, at AutoFocus's smallest FocusChip tiers and at the
     training shapes (scale 0 first: its times and bound go into the JSON
     line), the pool also at the mask branch's training and inference
     shapes and at the FocusChip tiers (P=14), the backward kernels at the
     training shapes (the pool's also at P=14), the patch extraction at the
-    mask branch's shapes of every test scale."""
+    mask branch's shapes of every test scale. The model zoo (phase 7): the
+    im2col and its backward at ResNeXt-101's C5 width (2048 channels, 512
+    per deformable group; inference scale 0 and training), NMS, the pool
+    and its backward at MobileNetV2's stride-32 maps (``zcfg``: every test
+    scale and training)."""
     from sniper_tpu_torch.ops import cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -830,14 +893,19 @@ def kernel_phase(dev, cfg, mcfg, acfg) -> tuple[bool, list]:
     # the mask branch's inference pool: P=14 on the mask config's maps
     mask_infer = [dict(s, P=14, label=f"mask inference {s['label']}")
                   for s in main_path_shapes(mcfg) + focus]
+    x101 = [dict(sh, C5=2048, conv_groups=64, label=f"x101 {sh['label']}")
+            for sh in (main_path_shapes(cfg)[0], train_shapes(cfg))]
+    mnv2 = [dict(sh, label=f"mobilenetv2 {sh['label']}")
+            for sh in main_path_shapes(zcfg) + [train_shapes(zcfg)]]
     results: list = []
     ok = True
     for kernel, check, at in (
-            (cuda.NMS, check_nms, both),
-            (cuda.DEFORM_IM2COL, check_im2col, both),
-            (cuda.FUSED_POOL, check_pool, both + mask_train + mask_infer),
-            (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train),
-            (cuda.POOL_BWD, check_pool_bwd, train + mask_train),
+            (cuda.NMS, check_nms, both + mnv2),
+            (cuda.DEFORM_IM2COL, check_im2col, both + x101),
+            (cuda.FUSED_POOL, check_pool,
+             both + mask_train + mask_infer + mnv2),
+            (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train + x101[1:]),
+            (cuda.POOL_BWD, check_pool_bwd, train + mask_train + mnv2[-1:]),
             (cuda.ROI_PATCH, check_roi_patch, main_path_shapes(mcfg))):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
         runs = [check(dev, sh) for sh in at]
@@ -905,6 +973,27 @@ def plain_versions():
         (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
          deform.pool_pass_bwd, deform.extract_patches,
          proposals.nms_sorted) = saved
+
+
+def in_range_threshold(out, im_info, valid_range, k: int = 20) -> float:
+    """A class threshold under the foreground scores of each image's k best
+    rois whose boxes lie inside ``valid_range`` (Tester.aggregate's area
+    filter, in image px) with a margin of 20% in side, so that the scale's
+    regressed boxes keep some detections through the aggregation."""
+    scale = torch.as_tensor(im_info, dtype=torch.float32,
+                            device=out["rois"].device)[:, 2, None, None]
+    rois = out["rois"][..., 1:5].float() / scale
+    area = ((rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1]))
+    ok = out["roi_valid"].bool()
+    lo, hi = valid_range
+    if lo > 0:
+        ok = ok & (area > (1.2 * lo) ** 2)
+    if hi > 0:
+        ok = ok & (area <= (hi / 1.2) ** 2)
+    fg = out["cls_prob"][..., 1:].amax(-1).float()
+    per_image = [fg[i][ok[i]].topk(min(k, int(ok[i].sum()))).values.min()
+                 for i in range(len(fg)) if ok[i].any()]
+    return float(min(per_image)) * 0.99 if per_image else 0.0
 
 
 @contextlib.contextmanager
@@ -1352,6 +1441,18 @@ TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
                 "trunk.stage4_unit1.conv2_weight",
                 "trunk.stage3_unit23.conv1.weight",
                 "trunk.stage2_unit1.bn1.weight")
+# the model zoo's trunks: ResNeXt-101's names above (its C5 conv2_weight is
+# the grouped deformable one) and its grouped plain 3x3 and shortcut BN;
+# MobileNetV2's depthwise, expand and last convs
+ZOO_TRUNK_LEAVES = {
+    "resnet": TRUNK_LEAVES,
+    "resnext": TRUNK_LEAVES + ("trunk.stage2_unit1.conv2_weight",
+                               "trunk.stage3_unit1.sc_bn.weight"),
+    "mobilenetv2": ("trunk.last_conv.conv2d.weight",
+                    "trunk.seq5_block2.depthwise.conv2d.weight",
+                    "trunk.seq3_block0.exp.batchnorm.weight",
+                    "trunk.seq1_block1.linear.conv2d.weight"),
+}
 # fixed bounds for an fp32 trunk with TF32 off, where the two paths differ
 # only in the order of fp32 sums (the pool's taps, the backward kernels'
 # atomics): the trunk's forward is identical in both, so no ReLU or
@@ -1359,9 +1460,12 @@ TRUNK_LEAVES = ("trunk.stage4_unit3.offset.weight",
 STEP_LOSS_REL, HEAD_GRAD_REL, TRUNK_GRAD_REL = 1e-5, 1e-4, 1e-4
 # with the mask branch, the mask head's ReLUs take the pool's output with
 # the init's zero biases, so activations sit around zero and rounding flips
-# a few of them: each bound is then the larger of the fixed one and
-# NOISE_MULT times the plain path's own spread under NOISE_ULPS of noise on
-# every pool pass (the largest of NOISE_DRAWS seeded draws)
+# a few of them; so are the model zoo's (ResNeXt-101's head offset FC's
+# gradient moved by 8.6e-4 between the paths on the card, where R101's
+# stays within 1e-4; MobileNetV2's 52 BatchNorms train in an
+# ill-conditioned chain): each bound is then the larger of the fixed one
+# and NOISE_MULT times the plain path's own spread under NOISE_ULPS of
+# noise on every pool pass (the largest of NOISE_DRAWS seeded draws)
 NOISE_ULPS, NOISE_MULT, NOISE_DRAWS = 4, 4.0, 2
 
 
@@ -1396,12 +1500,13 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     DCN im2col and its backward differ between the paths; with the mask
     branch under TRAIN.WITH_MASK, the batch's GT masks rasterized from an
     ellipse in each GT box, and the bounds widened to NOISE_MULT times the
-    plain path's spread under pool_noise, read in the same run; with the
+    plain path's spread under pool_noise, read in the same run, as for the
+    model zoo's trunks; with the
     FocusPixel head under TRAIN.AUTO_FOCUS, seeded FocusPixel labels in the
     batch, focus_loss among the losses and the head's leaves among the
-    gradients). The trunk
-    runs
-    in fp32 here, so that a fixed bound holds: in bf16 one rounding step
+    gradients). The trunk leaves are ZOO_TRUNK_LEAVES of the model's trunk.
+    The trunk runs in fp32 here, so that a fixed bound holds: in bf16 one
+    rounding step
     apart early in the backward decorrelates every later bf16 rounding of
     the trunk's gradients (phase 2 holds each kernel against its plain
     version in bf16, and the recipe's runs train in bf16)."""
@@ -1422,7 +1527,7 @@ def train_step_check(dev, cfg, tag: str) -> bool:
         p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
     B, S, G = 2, 256, 6
     g = torch.Generator().manual_seed(9)
-    A, fh = cfg.network.NUM_ANCHORS, S // 16
+    A, fh = cfg.network.NUM_ANCHORS, S // cfg.network.RPN_FEAT_STRIDE
     gt = torch.full((B, G, 5), -1.0)
     xy = torch.rand(B, G - 1, 2, generator=g) * 150
     wh = 20 + torch.rand(B, G - 1, 2, generator=g) * 90
@@ -1456,7 +1561,10 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     heads = (RPN_LEAVES if rpn_only else
              HEAD_LEAVES + (MASK_LEAVES if with_mask else ())
              + (AF_LEAVES if with_af else ()))
-    trunk = TRUNK_LEAVES if rpn_only else ("conv_new_1.weight",) + TRUNK_LEAVES
+    trunk = ZOO_TRUNK_LEAVES[model.trunk_type]
+    if not rpn_only:
+        trunk = ("conv_new_1.weight",) + trunk
+    noisy_bounds = with_mask or model.trunk_type != "resnet"
 
     def one_step():
         model.zero_grad(set_to_none=True)
@@ -1476,7 +1584,7 @@ def train_step_check(dev, cfg, tag: str) -> bool:
         mk, gk = one_step()
         with plain_versions():
             mp, gp = one_step()
-            for seed in range(NOISE_DRAWS) if with_mask else ():
+            for seed in range(NOISE_DRAWS) if noisy_bounds else ():
                 with pool_noise(NOISE_ULPS, seed):
                     noisy.append(one_step())
     finally:
@@ -1489,7 +1597,7 @@ def train_step_check(dev, cfg, tag: str) -> bool:
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
     def widen(base, spread):
-        return max(base, NOISE_MULT * spread) if with_mask else base
+        return max(base, NOISE_MULT * spread) if noisy_bounds else base
 
     ok = all(math.isfinite(v) for v in mk.values())
     loss_err = loss_rel(mk)
@@ -1505,12 +1613,12 @@ def train_step_check(dev, cfg, tag: str) -> bool:
             ok &= e <= tol and float(gp[k].norm()) > 0
             parts.append(f"{k} {e:.2e}" + (
                 f" (plain path's noise spread {spread:.2e}, tolerance "
-                f"{tol:.2e})" if with_mask else ""))
+                f"{tol:.2e})" if noisy_bounds else ""))
     noise = (f"; the plain path against itself with {NOISE_ULPS}-ulp noise "
              f"on every pool pass ({NOISE_DRAWS} draws) spreads its losses "
              f"by {loss_spread:.2e}, and each tolerance is the larger of the "
              f"fixed one and {NOISE_MULT:g} times that leaf's spread"
-             if with_mask else "")
+             if noisy_bounds else "")
     print(f"{tag} 2 chips of {S}x{S}, fp32 trunk, one forward and "
           f"backward, kernel path vs plain path on the card: losses {mk}; "
           f"max relative loss error {loss_err:.2e} (tolerance "
@@ -1620,8 +1728,8 @@ def loader_ms_per_batch(roidb, cfg, n=8) -> float:
 
 def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
                    out_dir=None, every_step=(), idle=(), per_step=None,
-                   varying=()):
-    """run_training for WARMUP_STEPS + TIMED_STEPS steps with the launch
+                   varying=(), timed_steps=TIMED_STEPS):
+    """run_training for WARMUP_STEPS + ``timed_steps`` steps with the launch
     counters zeroed just before and read after every step. Passes when the
     losses are finite, every kernel of
     ``every_step`` launched at every step, every other training kernel in
@@ -1632,7 +1740,7 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
     from sniper_tpu_torch.main_train import run_training
     from sniper_tpu_torch.ops import cuda
 
-    n_steps = WARMUP_STEPS + TIMED_STEPS
+    n_steps = WARMUP_STEPS + timed_steps
     times, snaps, losses = [], [], []
     t_last = [0.0]
 
@@ -1666,7 +1774,7 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
                 for i in range(len(snaps))
                 for n, c in (per_step or {}).items())
     varies = all(len({m[k] for m in losses}) > 1 for k in varying)
-    good = (res["step"] == n_steps and len(timed) == TIMED_STEPS and finite
+    good = (res["step"] == n_steps and len(timed) == timed_steps and finite
             and each_step and all(launches[n] == 0 for n in idle)
             and all(over_timed[n] for n in TRAINING_KERNELS
                     if n not in idle) and exact and varies)
@@ -1674,7 +1782,7 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
     med = srt[len(srt) // 2]
     bs = cfg.TRAIN.BATCH_IMAGES
     print(f"{tag} run_training, {n_steps} steps ({WARMUP_STEPS} warm-up, "
-          f"{TIMED_STEPS} timed): median {med:.1f} ms per step (min "
+          f"{timed_steps} timed): median {med:.1f} ms per step (min "
           f"{srt[0]:.1f}, max {srt[-1]:.1f}), {bs * 1e3 / med:.1f} chips/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card}]; host clock around steps that end in a synchronize, "
@@ -1978,8 +2086,8 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
               "flipped": False} for i in range(2)]
     # a few steps on synthetic images leave the foreground scores below the
     # Tester's default threshold (1e-3): the restored model's scale-0
-    # forward sets it under each chip's 20th best foreground score, so that
-    # run_detection keeps detections and their masks
+    # forward sets it under the scores of the rois inside scale 0's valid
+    # range, so that run_detection keeps detections and their masks
     init_inference_crops(roidb)
     n = _scale_post_nms(tcfg, 0, model)
     batch = next(iter(TestChipIterator(roidb, tcfg, 0, 2,
@@ -1990,8 +2098,9 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
     fwd_ok = (tuple(mp.shape) == (2, n, model.mask_size, model.mask_size)
               and bool(torch.isfinite(mp).all()) and float(mp.min()) >= 0
               and float(mp.max()) <= 1)
-    fg = out["cls_prob"][..., 1:].reshape(len(mp), -1).float()
-    thresh = float(fg.topk(20, dim=1).values[:, -1].min()) * 0.99
+    fg = out["cls_prob"][..., 1:].float()
+    thresh = in_range_threshold(out, batch["im_info"],
+                                tcfg.TEST.VALID_RANGES[0])
     with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh):
         stats = run_detection(tcfg, model, None, roidb,
                               MaskCountingDataset(paste=False), det_dir, dev,
@@ -2445,8 +2554,11 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
                        _scale_post_nms(tcfg, 0, model))(
         batch["data"], batch["im_info"])
     fp = out["focus_prob"]
-    fg = out["cls_prob"][..., 1:].reshape(len(fp), -1).float()
-    thresh = float(fg.topk(20, dim=1).values[:, -1].min()) * 0.99
+    # scale 0 keeps only boxes of 75 px and more, and the finer scales prune
+    # the boxes at their FocusChips' borders: the threshold comes from the
+    # rois inside scale 0's valid range
+    thresh = in_range_threshold(out, batch["im_info"],
+                                tcfg.TEST.VALID_RANGES[0])
     with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh), \
             focus_chips() as chips:
         stats = run_detection(tcfg, model, None, roidb, CountingDataset(),
@@ -2465,6 +2577,343 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
     print(f"autofocus training: (t1) {'PASS' if ok1 else 'FAIL'}, (t2) "
           f"{'PASS' if ok2 else 'FAIL'}, (t3) {'PASS' if ok3 else 'FAIL'}")
     return ok1 and ok2 and ok3, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_CONFIG = "configs/sniper_mobilenetv2_e2e.yml"
+X101_SYMBOL = "resnext_mx_101"  # on CONFIG, as `--set symbol resnext_mx_101`
+ZOO_REPS = 5  # timed passes over each scale's batches in (z1) and (z3)
+ZOO_TIMED_STEPS = 10  # after WARMUP_STEPS, in (z2) and (z4)
+
+
+def zoo_cfgs(root: str) -> dict:
+    """The zoo's two configurations as the CLIs load them: the flagship yml
+    with the X101 symbol (neither the reference nor this repository ships
+    an X101 yml), and MobileNetV2's yml."""
+    from sniper_tpu_torch.config import load_config
+
+    return {"x101": load_config(os.path.join(root, CONFIG),
+                                ["symbol", X101_SYMBOL]),
+            "mobilenetv2": load_config(os.path.join(root, ZOO_CONFIG))}
+
+
+def zoo_inference(dev, zcfg, tag: str, card: str,
+                  per_batch: dict) -> tuple[bool, dict]:
+    """(z1)/(z3): the model at full width and depth with seeded random
+    weights: (a) the kernel path against the plain path on a small input,
+    phase 3 (a)'s bounds; (b) run_detection over phase 3's synthetic
+    images, counters zeroed just before and read just after, each kernel
+    launched ``per_batch`` times per batch; (c) per-scale ms per batch
+    (median and min-max over ZOO_REPS host-clocked passes), img/s, peak
+    memory, and the trunk's share of the forward's device time (CUDA
+    events on one batch). Returns (ok, (b)'s launches)."""
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.infer.tester import device_normalize
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+
+    model = init_detector(get_model(zcfg), seed=0, offset_std=1e-3)
+    model.to(dev).eval()
+    print(f"{tag}: symbol {zcfg.symbol}, trunk {model.trunk_type}, stride "
+          f"{model.feat_stride}, head fc {model.rcnn.fc_new_2.weight.shape[0]}"
+          f", {zcfg.dataset.NUM_CLASSES} classes, scales "
+          f"{[tuple(s) for s in zcfg.TEST.SCALES]}, batches "
+          f"{list(zcfg.TEST.BATCH_IMAGES)}, post-NMS per scale "
+          f"{list(zcfg.TEST.N_PROPOSAL_PER_SCALE)}, trunk dtype {model.dtype};"
+          f" {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+          f"seeded random weights (seed 0, offsets normal(1e-3))")
+    ok = True
+
+    # (a) kernel path against the plain path, on a small input
+    g = torch.Generator().manual_seed(13)
+    data = (torch.randn(1, 256, 320, 3, generator=g) * 50).to(dev)
+    info = torch.tensor([[256.0, 320.0, 1.0]], device=dev)
+    with torch.inference_mode():
+        torch.backends.cudnn.deterministic = True
+        out_k = model(data, info)
+        with plain_versions():
+            out_p = model(data, info)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    same_rois = torch.equal(out_k["rois"], out_p["rois"])
+    err = float((out_k["cls_prob"] - out_p["cls_prob"]).abs().max())
+    berr = float((out_k["bbox_pred"] - out_p["bbox_pred"]).abs().max())
+    good = same_rois and err <= 1e-3 and berr <= 1e-3
+    print(f"{tag} (a) 256x320 input, kernel path vs plain path on the card: "
+          f"rois identical {same_rois}, cls_prob max abs err {err:.3e}, "
+          f"bbox_pred max abs err {berr:.3e}; tolerance 1e-3 (phase 3 "
+          f"(a)'s): {'PASS' if good else 'FAIL'}")
+    ok &= good
+
+    # (b) run_detection over the synthetic images
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(N_IMAGES)]
+    for k in cuda.KERNELS:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        stats = run_detection(zcfg, model, None, roidb, CountingDataset(),
+                              out_dir, dev, image_loader=synth_image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+
+    # (c) per-scale forward times at the shipped batch sizes
+    init_inference_crops(roidb)
+    torch.cuda.reset_peak_memory_stats()
+    ms_per_image, n_batches = 0.0, 0
+    for s in range(len(zcfg.TEST.SCALES)):
+        bs = zcfg.TEST.BATCH_IMAGES[s]
+        n = _scale_post_nms(zcfg, s, model)
+        batches = list(TestChipIterator(roidb, zcfg, s, bs,
+                                        image_loader=synth_image))
+        n_batches += len(batches)
+        fwd = make_forward(model, None, dev, zcfg.network.PIXEL_MEANS, n)
+        out = fwd(batches[0]["data"], batches[0]["im_info"])
+        torch.cuda.synchronize()
+        shapes_ok = (tuple(out["rois"].shape) == (bs, n, 5)
+                     and tuple(out["cls_prob"].shape) == (bs, n, 81)
+                     and all(bool(torch.isfinite(out[k]).all())
+                             for k in ("rois", "cls_prob", "bbox_pred")))
+        per_rep = []
+        for _ in range(ZOO_REPS):
+            t0 = time.perf_counter()
+            for b in batches:
+                fwd(b["data"], b["im_info"])
+            torch.cuda.synchronize()
+            per_rep.append((time.perf_counter() - t0) * 1e3 / len(batches))
+        per_rep.sort()
+        ms = per_rep[len(per_rep) // 2]
+        # the trunk's share of the forward's device time, on batch 0
+        info0 = torch.as_tensor(batches[0]["im_info"],
+                                dtype=torch.float32).to(dev)
+        x0 = device_normalize(torch.as_tensor(batches[0]["data"]).to(dev),
+                              info0, zcfg.network.PIXEL_MEANS)
+        with torch.inference_mode():
+            trunk_ms = time_ms(lambda: model.trunk(x0.permute(0, 3, 1, 2)),
+                               3)
+            fwd_ms = time_ms(lambda: model(x0, info0, post_nms_top_n=n), 3)
+        hw = batches[0]["data"].shape[1:3]
+        print(f"{tag} (c) scale {s}: canvas {hw[0]}x{hw[1]}, batch {bs}, {n} "
+              f"rois/img: median {ms:.2f} ms/batch (min {per_rep[0]:.2f}, max "
+              f"{per_rep[-1]:.2f} over {ZOO_REPS} passes of {len(batches)} "
+              f"batches), {bs * 1e3 / ms:.1f} img/s [{card}]; device time of "
+              f"one batch's forward {fwd_ms:.2f} ms, its trunk {trunk_ms:.2f} "
+              f"ms ({100 * trunk_ms / fwd_ms:.1f}%); shapes and finiteness "
+              f"{'PASS' if shapes_ok else 'FAIL'}")
+        ok &= shapes_ok
+        ms_per_image += ms / bs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} (c) three-scale pyramid: {ms_per_image:.2f} ms/img, "
+          f"{1e3 / ms_per_image:.1f} img/s, peak memory {peak:.2f} GiB "
+          f"(forward only, sum of the scales' medians, random weights; a "
+          f"smoke reading) [{card}]")
+    exact = all(launches[k] == c * n_batches for k, c in per_batch.items())
+    good = stats["detections"] > 0 and exact
+    print(f"{tag} (b) run_detection over {N_IMAGES} synthetic {IM_W}x{IM_H} "
+          f"images: {stats}, launches {launches} over {n_batches} batches, "
+          f"per batch exactly {per_batch}: {exact}; {wall:.2f} s wall "
+          f"including first-call set-up: {'PASS' if good else 'FAIL'}")
+    ok &= good
+    del model
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def x101_backbone(cfg, model, tmp: str, tag: str) -> bool:
+    """(z2) A synthetic ImageNet-style X101 backbone written as an MXNet
+    .params file from mapping_rows, imported by load_pretrained. Under the
+    yml's FIXED_PARAMS the import raises, as the JAX package's does: no
+    import row reaches stage 1's ``sc_bn`` (ROADMAP.md Queue 3); so it
+    imports with ``stage1`` out of FIXED_PARAMS (the training keeps the
+    yml's), every loaded tensor held against the file."""
+    import copy
+
+    from sniper_tpu_torch.train.pretrained import (
+        MXParamsError,
+        load_pretrained,
+    )
+
+    prefix = os.path.join(tmp, X101_SYMBOL)
+    path = f"{prefix}-0000.params"
+    flat = synthetic_backbone(model, path)
+    cfg.network.pretrained = prefix
+    try:
+        load_pretrained(cfg, model, lambda m: None)
+        raised = ""
+    except MXParamsError as e:
+        raised = str(e)
+    relaxed = copy.deepcopy(cfg)
+    relaxed.network.FIXED_PARAMS = [p for p in cfg.network.FIXED_PARAMS
+                                    if p != "stage1"]
+    report = load_pretrained(relaxed, model, lambda m: print(f"{tag} {m}"))
+    state = model.state_dict()
+    equal = all(np.array_equal(state[key].numpy(), flat[mx])
+                for key, mx in report.loaded)
+    classifier = ["fc1_bias", "fc1_weight"]
+    ok = ("sc_bn" in raised and equal and not report.mismatched
+          and len(report.loaded) == len(flat) - len(classifier)
+          and report.unmapped_keys == classifier)
+    print(f"{tag} synthetic X101 backbone ({os.path.getsize(path) / 2**20:.1f}"
+          f" MB MXNet .params, seeded, from mapping_rows): under the yml's "
+          f"FIXED_PARAMS {list(cfg.network.FIXED_PARAMS)} load_pretrained "
+          f"raises on stage 1's unmapped sc_bn, as the JAX import does: "
+          f"{'sc_bn' in raised}; under {relaxed.network.FIXED_PARAMS}: "
+          f"{len(report.loaded)} tensors loaded, every one equal to the "
+          f"file's {equal}, {len(report.missing)} kept at init, unused "
+          f"{report.unmapped_keys}: {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def zoo_training(dev, zcfg, cfg_file: str, tag: str, tmp: str, card: str,
+                 per_step: dict) -> tuple[bool, dict]:
+    """(z2)/(z4): the one-step check of phase 5 (a) on the model; for X101
+    the synthetic backbone's import (x101_backbone), for MobileNetV2 none
+    (network.pretrained empty: the JAX import maps no MobileNetV2 trunk
+    weight); run_training at the yml's BATCH_IMAGES and chip size over
+    phase 5's synthetic roidb without negative chips (no proposals are
+    extracted for these models here), WARMUP_STEPS + ZOO_TIMED_STEPS steps,
+    each step's launches exactly ``per_step``; MobileNetV2's first_conv
+    bit for bit unmoved (FIXED_PARAMS) while its BatchNorm's running
+    statistics move; then main_test's restore of the checkpoint and
+    run_detection on two images. Returns (ok, run_training's launches)."""
+    import copy
+
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train.checkpoint import restore_inference_state
+
+    cfg = train_cfg(zcfg)
+    cfg.TRAIN.USE_NEG_CHIPS = False
+    cfg.output_path = os.path.join(tmp, "output")
+    cfg.network.pretrained = ""
+    ok1 = train_step_check(dev, cfg, f"{tag} (one step)")
+    model = init_detector(get_model(cfg), seed=0)
+    mnv2 = model.trunk_type == "mobilenetv2"
+    ok_import = True if mnv2 else x101_backbone(cfg, model, tmp, tag)
+    model.to(dev)
+    stem = {k: v.detach().clone()
+            for k, v in (model.trunk.first_conv.state_dict().items()
+                         if mnv2 else ())}
+    roidb = build_roidb(cfg, lambda m: print(f"{tag} {m}"),
+                        datasets=[SynthTrainDataset()])
+    out_dir = os.path.join(cfg.output_path, config_name(cfg_file),
+                           cfg.dataset.image_set)
+    print(f"{tag} {cfg_file} (symbol {cfg.symbol}): trunk {model.trunk_type}"
+          f", BATCH_IMAGES {cfg.TRAIN.BATCH_IMAGES}, chips "
+          f"{cfg.TRAIN.CHIP_SIZE}, FIXED_PARAMS "
+          f"{list(cfg.network.FIXED_PARAMS)}, trunk dtype {model.dtype}, "
+          f"{'seeded init' if mnv2 else 'the imported backbone'}")
+    loader = make_loader(copy.deepcopy(roidb), cfg, 0,
+                         image_loader=synth_train_image)
+    idle = tuple(k for k, c in per_step.items() if c == 0)
+    try:
+        ok2, launches, _ = timed_training(
+            dev, cfg, model, loader, card, tag, out_dir=out_dir,
+            every_step=tuple(k for k, c in per_step.items() if c),
+            idle=idle, per_step=per_step, timed_steps=ZOO_TIMED_STEPS)
+    finally:
+        loader.close()
+    ckpt = os.path.join(out_dir, "checkpoints", "epoch_0001.pt")
+    ok2 &= os.path.exists(ckpt)
+    if mnv2:
+        after = model.trunk.first_conv.state_dict()
+        fixed = all(torch.equal(after[k], v) for k, v in stem.items()
+                    if "running" not in k)
+        moved = all(not torch.equal(after[k], v) for k, v in stem.items()
+                    if "running" in k)
+        ok2 &= fixed and moved
+        print(f"{tag} trunk.first_conv (FIXED_PARAMS): parameters bit for "
+              f"bit unmoved {fixed}, BatchNorm running statistics moved "
+              f"{moved}")
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = copy.deepcopy(cfg)
+    tcfg.TEST.TEST_EPOCH = cfg.TRAIN.end_epoch
+    model = get_model(tcfg)
+    source = restore_inference_state(tcfg, model, config_name(cfg_file),
+                                     lambda m: print(f"{tag} {m}"))
+    model.to(dev).eval()
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(2)]
+    # as (m3): a class threshold under the restored model's scores
+    init_inference_crops(roidb)
+    batch = next(iter(TestChipIterator(roidb, tcfg, 0, 2,
+                                       image_loader=synth_image)))
+    out = make_forward(model, None, dev, tcfg.network.PIXEL_MEANS,
+                       _scale_post_nms(tcfg, 0, model))(
+        batch["data"], batch["im_info"])
+    thresh = in_range_threshold(out, batch["im_info"],
+                                tcfg.TEST.VALID_RANGES[0])
+    with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh):
+        stats = run_detection(tcfg, model, None, roidb, CountingDataset(),
+                              det_dir, dev, image_loader=synth_image)
+    ok3 = source == "checkpoint" and stats["detections"] > 0
+    print(f"{tag} main_test's restore ({source}) of the checkpoint; "
+          f"run_detection on 2 synthetic {IM_W}x{IM_H} images at class "
+          f"threshold {thresh:.3e}: {stats}: {'PASS' if ok3 else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"{tag}: one-step check {'PASS' if ok1 else 'FAIL'}, backbone "
+          f"{'PASS' if ok_import else 'FAIL'}, run_training "
+          f"{'PASS' if ok2 else 'FAIL'}, restore and detection "
+          f"{'PASS' if ok3 else 'FAIL'}")
+    return ok1 and ok_import and ok2 and ok3, launches
+
+
+def zoo_phase(dev, zcfgs: dict, card: str) -> tuple[bool, dict]:
+    """(z1) X101 inference, (z2) X101 training, (z3) MobileNetV2 inference,
+    (z4) MobileNetV2 training. Returns (ok, {path: launches})."""
+    from sniper_tpu_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    x1, x2, p4 = (cuda.DEFORM_IM2COL.name, cuda.DEFORM_IM2COL_BWD.name,
+                  cuda.NMS.name)
+    pool, pool_bwd, patch = (cuda.FUSED_POOL.name, cuda.POOL_BWD.name,
+                             cuda.ROI_PATCH.name)
+    ok, paths = True, {}
+    for name, cfg_file, dcn in (("x101", CONFIG, 3),
+                                ("mobilenetv2", ZOO_CONFIG, 0)):
+        zcfg = zcfgs[name]
+        z = "(z1)" if dcn else "(z3)"
+        good, paths[f"{name} inference"] = zoo_inference(
+            dev, zcfg, f"zoo {z} {name}", card,
+            {x1: dcn, p4: 1, pool: 2, x2: 0, pool_bwd: 0, patch: 0})
+        ok &= good
+        z = "(z2)" if dcn else "(z4)"
+        with tempfile.TemporaryDirectory() as tmp:
+            good, paths[f"{name} training"] = zoo_training(
+                dev, zcfg, cfg_file, f"zoo {z} {name}", tmp, card,
+                {x1: dcn, x2: dcn, p4: 1, pool: 2, pool_bwd: 2, patch: 0})
+        ok &= good
+    print(f"zoo: (z1)-(z4) {'PASS' if ok else 'FAIL'} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ok, paths
 
 
 def dir_mib(path: str) -> float:
@@ -2530,8 +2979,9 @@ def main() -> int:
     mcfg = load_config(os.path.join(root, MASK_CONFIG))
     acfg = load_config(os.path.join(root, AF_CONFIG))
     amcfg = load_config(os.path.join(root, AF_MASK_CONFIG))
+    zcfgs = zoo_cfgs(root)
     card = environment()
-    ok_k, results = kernel_phase(dev, cfg, mcfg, acfg)
+    ok_k, results = kernel_phase(dev, cfg, mcfg, acfg, zcfgs["mobilenetv2"])
     torch.cuda.synchronize()
     ok_e, launches_infer = e2e_phase(dev, cfg, card)
     torch.cuda.synchronize()
@@ -2540,6 +2990,8 @@ def main() -> int:
     ok_a, launches_af = autofocus_inference(dev, acfg, amcfg, card)
     torch.cuda.synchronize()
     ok_t, launches_train = train_phase(dev, cfg, mcfg, acfg, card)
+    torch.cuda.synchronize()
+    ok_z, launches_zoo = zoo_phase(dev, zcfgs, card)
     torch.cuda.synchronize()
 
     # "launches": the mask-branch inference run for the kernels it runs
@@ -2553,7 +3005,8 @@ def main() -> int:
                 else "training (recipe)")
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
-               "autofocus inference": launches_af, **launches_train}
+               "autofocus inference": launches_af, **launches_train,
+               **launches_zoo}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -2565,10 +3018,11 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
-    if not (ok_k and ok_e and ok_m and ok_a and ok_t):
+    if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
               f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
-              f"the recipe and autofocus training {ok_t})")
+              f"the recipe and autofocus training {ok_t}, the model zoo "
+              f"{ok_z})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

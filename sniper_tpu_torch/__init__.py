@@ -9,8 +9,11 @@ of ``sniper_tpu``: it keeps its own copies of the host modules it needs
 The slices ported so far, for the flagship R101 detector
 (``configs/sniper_res101_e2e.yml``) on one device: multi-scale inference
 (``main_test.run_detection`` -> ``infer.tester.Tester`` -> ``aggregate``)
-and SNIPER training (``main_train.run_training``); and the mask branch's
-inference (``configs/sniper_res101_e2e_mask.yml``).
+and SNIPER training (``main_train.run_training``), with the mask branch
+(``configs/sniper_res101_e2e_mask.yml``) and AutoFocus
+(``configs/sniper_res101_e2e_autofocus.yml``); and the rest of the model
+zoo, ResNeXt-101 (the registry symbol ``resnext_mx_101``) and MobileNetV2
+(``configs/sniper_mobilenetv2_e2e.yml``), inference and training.
 
 Package layout (the names of ``sniper_tpu``'s modules):
   config/       the config tree (a copy of sniper_tpu/config)
@@ -19,8 +22,9 @@ Package layout (the names of ``sniper_tpu``'s modules):
                 deformable conv + ROI pool with their backward passes, the
                 patch route of the pool (the mask branch's);
                 ops/cuda.py builds and loads the CUDA kernels in csrc/
-  models/       ResNet trunk, BatchNorm, RPN / R-CNN / mask heads,
-                detector, losses, registry, init
+  models/       ResNet, ResNeXt and MobileNetV2 trunks, BatchNorm, RPN /
+                R-CNN / mask / FocusPixel heads, detector, losses,
+                registry, init
   chips/        SNIPER chip generation and box assignment
   data/         the training chip loader, anchor targets, roidb building,
                 test-time batches, the COCO / VOC readers and evaluators

@@ -3,13 +3,16 @@
 The port's modules carry the flax tree's names, so a leaf's path maps to a
 key directly; only the leaf names and layouts change:
 
-- ``kernel`` of a conv, HWIO -> ``weight``, OIHW;
+- ``kernel`` of a conv, HWIO -> ``weight``, OIHW (a grouped conv's
+  [kh,kw,in/groups,out] -> [out,in/groups,kh,kw]: MobileNetV2's depthwise
+  [3,3,1,exp] -> [exp,1,3,3]);
 - ``kernel`` of a transposed conv (flax ``ConvTranspose``, [kh,kw,in,out])
   -> ``weight`` of ``nn.ConvTranspose2d``, [in,out,kh,kw], flipped in both
   spatial axes: with flax's SAME padding and untransposed kernel, output
   row 2i + a of the stride-2 2x2 deconv takes tap 1 - a, torch's tap a;
-- ``conv2_kernel`` (the deformable 3x3, [3,3,mid,mid]) -> ``conv2_weight``,
-  OIHW;
+- ``conv2_kernel`` (the deformable 3x3 of ResNet's C5, [3,3,mid,mid], and
+  ResNeXt's grouped 3x3 of every unit, [3,3,f/64,f]) -> ``conv2_weight``,
+  OIHW ([f,f/64,3,3]);
 - ``kernel`` of a ``_Lin`` / Dense, [in, out] -> ``weight``, [out, in];
 - ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``;
 - batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.

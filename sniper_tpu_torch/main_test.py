@@ -12,7 +12,9 @@ and masks. With TEST.AUTO_FOCUS (configs/sniper_res101_e2e_autofocus.yml)
 the scales run coarse to fine: after every scale but the last, the
 FocusPixel maps of its chips become the next scale's FocusChips
 (chips/autofocus.add_chips), which the test iterator bins into the
-smallest canvas tier that holds them.
+smallest canvas tier that holds them. The model zoo serves the same way:
+ResNeXt-101 with ``--set symbol resnext_mx_101`` on the flagship yml,
+MobileNetV2 with configs/sniper_mobilenetv2_e2e.yml (stride 32).
 
   python -m sniper_tpu_torch.main_test --cfg configs/sniper_res101_e2e.yml \\
       [--weights model.pt] [--set TEST.EXTRACT_PROPOSALS True ...]

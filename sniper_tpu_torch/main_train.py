@@ -15,7 +15,10 @@ checkpoint main_test's TEST.EXTRACT_PROPOSALS reads); TRAIN.WITH_MASK
 (configs/sniper_res101_e2e_mask.yml) adds the mask branch and its loss,
 with the GT polygons rasterized by the chip loader; TRAIN.AUTO_FOCUS
 (configs/sniper_res101_e2e_autofocus.yml) adds the FocusPixel head and
-``focus_loss`` against the chip loader's FocusPixel labels. Each epoch re-rolls
+``focus_loss`` against the chip loader's FocusPixel labels. The model zoo
+trains the same way: ResNeXt-101 with ``--set symbol resnext_mx_101`` on
+the flagship yml, MobileNetV2 with configs/sniper_mobilenetv2_e2e.yml.
+Each epoch re-rolls
 the chips, assembles batches in a background thread and uploads them
 (pinned memory, non-blocking copies) in a second one, so both overlap the
 device's steps; the step's metrics stay on the device until a log line

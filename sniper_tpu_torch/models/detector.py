@@ -1,8 +1,8 @@
 """The SNIPER detector: training and inference branches.
 
-Port of sniper_tpu/models/detector.py:139-223,294-354: trunk -> C4||C5
-concat -> RPN -> softmax over the {bg, fg} axis -> ``conv_new_1`` + ReLU
-cast to fp32, then
+Port of sniper_tpu/models/detector.py:114-223,294-354: trunk -> its
+detection map -> RPN -> softmax over the {bg, fg} axis -> ``conv_new_1`` +
+ReLU cast to fp32, then
 
 - inference: ``multi_proposal`` -> the fused deformable R-CNN head ->
   class softmax and ``bbox_pred * stds + means``; with ``with_mask``, the
@@ -27,6 +27,15 @@ cast to fp32, then
   ``conv_new_1``, R-CNN, mask or FocusPixel modules; training returns the
   RPN outputs and the trunk's telemetry, inference the proposals of
   ``multi_proposal``.
+
+The trunk (``trunk_type``, detector.py:114-145): ``"resnet"`` (R101/R50,
+models/resnet.py) or ``"resnext"`` (X101, models/resnext.py), C4||C5 at
+stride 16, or ``"mobilenetv2"`` (models/mobilenetv2.py), one map at stride
+32 with ``head_fc_dim`` 512 in the registry. Each trunk's ``feature`` is its
+detection map in the compute dtype, ``out_channels`` wide, which the RPN,
+``conv_new_1`` and the FocusPixel head read. The JAX detector casts
+MobileNetV2's map to fp32, and those convs cast it back to the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ from sniper_tpu_torch.models.heads import (
     RCNNHead,
     RPNHead,
 )
+from sniper_tpu_torch.models.mobilenetv2 import MobileNetV2Trunk
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
+from sniper_tpu_torch.models.resnext import ResNeXtTrunk
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
 from sniper_tpu_torch.ops.deform import fused_offset_pool
 from sniper_tpu_torch.ops.mask_target import mask_targets_from_dense
@@ -62,6 +73,7 @@ class SNIPERDetector(nn.Module):
         anchor_ratios: Sequence[float] = (0.5, 1, 2),
         anchor_scales: Sequence[float] = (2, 4, 7, 10, 13, 16, 24),
         feat_stride: int = 16,
+        trunk_type: str = "resnet",
         units: Sequence[int] = (3, 4, 23, 3),
         head_fc_dim: int = 1024,
         head_margin_bins: int = 1,
@@ -109,22 +121,31 @@ class SNIPERDetector(nn.Module):
                              persistent=False)
         self.register_buffer("bbox_means", torch.tensor(bbox_means),
                              persistent=False)
-        self.trunk = ResNetTrunk(units=units, dtype=dtype)
-        self.rpn = RPNHead(1024 + 2048, num_anchors)
+        self.trunk_type = trunk_type
+        if trunk_type == "resnet":
+            self.trunk = ResNetTrunk(units=units, dtype=dtype)
+        elif trunk_type == "resnext":
+            self.trunk = ResNeXtTrunk(units=units, dtype=dtype)
+        elif trunk_type == "mobilenetv2":
+            self.trunk = MobileNetV2Trunk(dtype=dtype)
+        else:
+            raise ValueError(f"unknown trunk_type {trunk_type!r}")
+        feat_ch = self.trunk.out_channels
+        self.rpn = RPNHead(feat_ch, num_anchors)
         self.rpn_only = rpn_only
         self.with_mask = with_mask and not rpn_only
         self.mask_size = 28  # the mask head's deconv doubles the 14x14 pool
         self.num_mask_rois = NUM_MASK_ROIS
         self.head_margin_bins = head_margin_bins
         if not rpn_only:
-            self.conv_new_1 = nn.Conv2d(1024 + 2048, 256, 1)
+            self.conv_new_1 = nn.Conv2d(feat_ch, 256, 1)
             self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
                                  fc_dim=head_fc_dim,
                                  margin_bins=head_margin_bins)
         # the FocusPixel head: JAX's RPN-only branch returns before it
         self.with_autofocus = autofocus and not rpn_only
         if self.with_autofocus:
-            self.autofocus = AutoFocusHead(1024 + 2048)
+            self.autofocus = AutoFocusHead(feat_ch)
         if self.with_mask:
             # the 14x14 pool's offset FC: the first 196 outputs are dy
             self.mask_offset = nn.Linear(14 * 14 * 256, 2 * 14 * 14)
@@ -143,8 +164,7 @@ class SNIPERDetector(nn.Module):
         """Trunk and RPN: (feat, rpn cls logits [B,H,W,2,A], rpn bbox
         [B,4A,H,W], fg probs [B,A,H,W])."""
         x = data.permute(0, 3, 1, 2)  # channels_last NCHW view of NHWC data
-        c4, c5 = self.trunk(x, stats)
-        feat = torch.cat([c4.to(self.dtype), c5.to(self.dtype)], dim=1)
+        feat = self.trunk.feature(x, stats)
         rpn_cls_logits, rpn_bbox = self.rpn(feat)
         rpn_fg = torch.softmax(rpn_cls_logits, dim=3)[..., 1, :]
         rpn_fg = rpn_fg.permute(0, 3, 1, 2).contiguous()  # [B,A,H,W]

@@ -4,8 +4,11 @@ For runs without a checkpoint (the chip smoke test, benchmarks): the same
 distributions as the flax initializers, drawn from an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s):
 
-- convs: lecun_normal (truncated normal, variance 1/fan_in), zero bias;
-- the deformable 3x3: variance_scaling(2.0, "fan_out", truncated normal);
+- convs: lecun_normal (truncated normal, variance 1/fan_in, fan_in =
+  in/groups * kh * kw: 9 for MobileNetV2's depthwise 3x3), zero bias;
+- ``conv2_weight`` (the deformable 3x3 of ResNet's C5, and the grouped 3x3
+  of every ResNeXt unit, deformable or not): variance_scaling(2.0,
+  "fan_out", truncated normal), fan_out = 9 * out;
 - RPN, ``conv_new_1``, the R-CNN FCs, every mask-head layer and the
   FocusPixel head's three convs: normal(0.01), zero bias;
 - offset convs and the R-CNN and mask offset FCs: zeros, or

@@ -1,15 +1,20 @@
 """Model registry: config symbol -> detector constructor.
 
-Port of the ``resnet_mx_101_e2e``, ``resnet_mx_101_e2e_mask`` and
-``resnet_mx_50_e2e`` entries of sniper_tpu/models/registry.py:73-115,
-149-156; TRAIN.WITH_MASK turns the mask branch on, as in the JAX package. ``TRAIN.bf16`` selects the
+Port of sniper_tpu/models/registry.py:73-156: ``resnet_mx_101_e2e``,
+``resnet_mx_101_e2e_mask``, ``resnet_mx_50_e2e``, ``resnext_mx_101`` (the
+X101 trunk with 64 conv groups) and ``mobilenetv2_e2e`` (the MobileNetV2
+trunk, ``head_fc_dim`` 512, the stride of network.RPN_FEAT_STRIDE: 32 in
+configs/sniper_mobilenetv2_e2e.yml); TRAIN.WITH_MASK turns the mask branch
+on, as in the JAX package. ``TRAIN.bf16`` selects the
 trunk's compute dtype, as in the JAX package. The TEST.* RPN keys drive the
 inference branch and the TRAIN.* keys the training sampler, whose roi count
 per image is TRAIN.RPN_POST_NMS_TOP_N (the reference op emits exactly that
 many). Single device only: ``network.BN_MODE`` "sync" is plain batch
-statistics there. ``network.POOL_KERNEL`` is
-not read: its einsum/pallas/fused choice exists only for the TPU, and here
-the device of the tensors decides between a kernel and its plain version.
+statistics there. ``network.POOL_KERNEL`` and
+``network.RESNEXT_SUPERGROUPS`` are not read: the einsum/pallas/fused choice
+and the supergroups of ResNeXt's block-diagonal 3x3 exist only for the TPU.
+Here the device of the tensors decides between a kernel and its plain
+version, and ResNeXt's grouped 3x3 is one grouped convolution.
 """
 
 from __future__ import annotations
@@ -19,46 +24,57 @@ import torch
 from sniper_tpu_torch.models.detector import SNIPERDetector
 
 
-def _resnet(units):
+def _detector(cfg, overrides, **trunk):
+    kw = dict(
+        num_classes=cfg.dataset.NUM_CLASSES,
+        num_anchors=cfg.network.NUM_ANCHORS,
+        anchor_ratios=tuple(cfg.network.ANCHOR_RATIOS),
+        anchor_scales=tuple(cfg.network.ANCHOR_SCALES),
+        feat_stride=cfg.network.RPN_FEAT_STRIDE,
+        autofocus=bool(cfg.TRAIN.AUTO_FOCUS or cfg.TEST.AUTO_FOCUS),
+        with_mask=bool(cfg.TRAIN.WITH_MASK),
+        rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL),
+        dtype=torch.bfloat16 if cfg.TRAIN.bf16 else torch.float32,
+        bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
+        bbox_means=tuple(cfg.TRAIN.BBOX_MEANS),
+        pre_nms_top_n=int(cfg.TEST.RPN_PRE_NMS_TOP_N),
+        post_nms_top_n=int(cfg.TEST.RPN_POST_NMS_TOP_N),
+        nms_thresh=float(cfg.TEST.RPN_NMS_THRESH),
+        rpn_min_size=float(cfg.TEST.RPN_MIN_SIZE),
+        train_pre_nms=int(cfg.TRAIN.RPN_PRE_NMS_TOP_N),
+        train_post_nms=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+        train_nms_thresh=float(cfg.TRAIN.RPN_NMS_THRESH),
+        train_min_size=float(cfg.TRAIN.RPN_MIN_SIZE),
+        num_rois=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+        fg_fraction=float(cfg.TRAIN.FG_FRACTION),
+        fg_thresh=float(cfg.TRAIN.FG_THRESH),
+        bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
+        bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
+        head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
+        **trunk,
+    )
+    kw.update(overrides)
+    return SNIPERDetector(**kw)
+
+
+def _resnet(units, trunk_type="resnet"):
     def build(cfg, **overrides):
-        kw = dict(
-            num_classes=cfg.dataset.NUM_CLASSES,
-            num_anchors=cfg.network.NUM_ANCHORS,
-            anchor_ratios=tuple(cfg.network.ANCHOR_RATIOS),
-            anchor_scales=tuple(cfg.network.ANCHOR_SCALES),
-            feat_stride=cfg.network.RPN_FEAT_STRIDE,
-            units=units,
-            autofocus=bool(cfg.TRAIN.AUTO_FOCUS or cfg.TEST.AUTO_FOCUS),
-            with_mask=bool(cfg.TRAIN.WITH_MASK),
-            rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL),
-            dtype=torch.bfloat16 if cfg.TRAIN.bf16 else torch.float32,
-            bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
-            bbox_means=tuple(cfg.TRAIN.BBOX_MEANS),
-            pre_nms_top_n=int(cfg.TEST.RPN_PRE_NMS_TOP_N),
-            post_nms_top_n=int(cfg.TEST.RPN_POST_NMS_TOP_N),
-            nms_thresh=float(cfg.TEST.RPN_NMS_THRESH),
-            rpn_min_size=float(cfg.TEST.RPN_MIN_SIZE),
-            train_pre_nms=int(cfg.TRAIN.RPN_PRE_NMS_TOP_N),
-            train_post_nms=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
-            train_nms_thresh=float(cfg.TRAIN.RPN_NMS_THRESH),
-            train_min_size=float(cfg.TRAIN.RPN_MIN_SIZE),
-            num_rois=int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
-            fg_fraction=float(cfg.TRAIN.FG_FRACTION),
-            fg_thresh=float(cfg.TRAIN.FG_THRESH),
-            bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
-            bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
-            head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
-        )
-        kw.update(overrides)
-        return SNIPERDetector(**kw)
+        return _detector(cfg, overrides, trunk_type=trunk_type, units=units)
 
     return build
+
+
+def _mobilenetv2(cfg, **overrides):
+    return _detector(cfg, overrides, trunk_type="mobilenetv2",
+                     head_fc_dim=512)
 
 
 _REGISTRY = {
     "resnet_mx_101_e2e": _resnet((3, 4, 23, 3)),
     "resnet_mx_101_e2e_mask": _resnet((3, 4, 23, 3)),
     "resnet_mx_50_e2e": _resnet((3, 4, 6, 3)),
+    "resnext_mx_101": _resnet((3, 4, 23, 3), "resnext"),
+    "mobilenetv2_e2e": _mobilenetv2,
 }
 
 

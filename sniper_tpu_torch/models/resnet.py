@@ -39,7 +39,7 @@ def conv(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     module's compute dtype the same way)."""
     bias = None if mod.bias is None else mod.bias.to(x.dtype)
     return F.conv2d(x, mod.weight.to(x.dtype), bias, mod.stride, mod.padding,
-                    mod.dilation)
+                    mod.dilation, mod.groups)
 
 
 def _conv(cin, cout, k, stride=1, dilation=1, bias=False):
@@ -103,6 +103,7 @@ class ResNetTrunk(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.units = tuple(units)
+        self.out_channels = filters[3] + filters[4]
         self.bn_data = FrozenBatchNorm(3, use_scale=False,
                                        dtype=torch.float32)
         self.conv0 = nn.Conv2d(3, filters[0], 7, stride=2, padding=3,
@@ -152,3 +153,7 @@ class ResNetTrunk(nn.Module):
             for j in range(self.units[i]):
                 h = getattr(self, f"stage{i + 1}_unit{j + 1}")(h, stats)
         return c4, h
+
+    def feature(self, x: torch.Tensor, stats: list | None = None):
+        """The detection map C4||C5 in the compute dtype."""
+        return torch.cat([c.to(self.dtype) for c in self(x, stats)], dim=1)

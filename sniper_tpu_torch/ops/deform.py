@@ -3,14 +3,15 @@ and backward.
 
 Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
 
-- ``deformable_conv`` (deform.py:237-286, ``conv_groups == 1``): DCNv1
-  im2col with the JAX package's CLAMP border rule, then one
-  ``torch.matmul`` with the kernel as [K*K*Cin, Cout]. The im2col is
+- ``deformable_conv`` (deform.py:237-286): DCNv1 im2col with the JAX
+  package's CLAMP border rule, then one ``torch.matmul`` with the kernel as
+  [K*K*Cin, Cout], or with ``conv_groups > 1`` (ResNeXt's C5) one
+  ``torch.bmm`` over the col copied group-major. The im2col is
   ``DeformIm2col``, the counterpart of ``_make_im2col``'s custom VJP: its
   forward is ``deform_im2col`` (the CUDA kernel in csrc/deform_im2col.cu on
   CUDA tensors, the plain version on the CPU) and its backward
   ``deform_im2col_bwd`` (csrc/deform_im2col_bwd.cu, or the plain version).
-  The weight gradient and gcol = gout @ W^T come from the matmul's own
+  The weight gradient and gcol = gout @ W^T come from the product's own
   autograd, as the JAX package leaves that product to XLA.
 - ``fused_offset_pool`` (deform.py:643-794 with fused_pool.py's composed
   form): ``FusedOffsetPool``, the counterpart of ``_make_fused_pool_vjp``.
@@ -230,16 +231,47 @@ class DeformIm2col(torch.autograd.Function):
         return gx, goff, None, None, None
 
 
+def group_major(col, conv_groups):
+    """The col [B,H,W,K*K,Cin] copied group-major: [CG, B*H*W, K*K*cg_in]
+    (deform.py:270-278)."""
+    B, H, W, KK, Cin = col.shape
+    cg_in = Cin // conv_groups
+    return (col.reshape(B * H * W, KK, conv_groups, cg_in).permute(2, 0, 1, 3)
+            .reshape(conv_groups, B * H * W, KK * cg_in))
+
+
+def grouped_product(col, weight, conv_groups):
+    """The grouped convolution over the deformed taps (deform.py:262-286):
+    col [B,H,W,K*K,Cin] group-major, times the OIHW weight [Cout,
+    Cin/conv_groups, K, K] as [CG, K*K*cg_in, cg_out] in one torch.bmm.
+    Returns [B,H,W,Cout] in col's dtype."""
+    B, H, W, KK, Cin = col.shape
+    CG = conv_groups
+    cout, cg_in, K = weight.shape[0], weight.shape[1], weight.shape[2]
+    cg_out = cout // CG
+    w_g = (weight.reshape(CG, cg_out, cg_in, K, K).permute(0, 3, 4, 2, 1)
+           .reshape(CG, KK * cg_in, cg_out).to(col.dtype))
+    out = torch.bmm(group_major(col, CG), w_g)  # [CG, B*H*W, cg_out]
+    return out.permute(1, 0, 2).reshape(B, H, W, cout)
+
+
 def deformable_conv(x, offsets, weight, *, num_groups=4, kernel_size=3,
-                    dilation=2):
+                    dilation=2, conv_groups=1):
     """DCNv1 convolution, stride 1, 'same' padding. x [B,H,W,Cin],
-    offsets [B,H,W,G*K*K*2], weight [Cout,Cin,K,K] (OIHW). Returns
-    [B,H,W,Cout] in x's dtype (the matmul accumulates in fp32)."""
+    offsets [B,H,W,G*K*K*2], weight [Cout,Cin/conv_groups,K,K] (OIHW).
+    Returns [B,H,W,Cout] in x's dtype (the products accumulate in fp32).
+
+    ``conv_groups > 1`` is the grouped convolution over the deformed taps
+    (ResNeXt's C5): the im2col stays one over all Cin channels, then
+    ``grouped_product``."""
     B, H, W, Cin = x.shape
     K = kernel_size
+    KK = K * K
     col = DeformIm2col.apply(x, offsets, num_groups, K, dilation)
-    w = weight.permute(2, 3, 1, 0).reshape(K * K * Cin, -1).to(x.dtype)
-    return torch.matmul(col.reshape(B, H, W, K * K * Cin), w)
+    if conv_groups == 1:
+        w = weight.permute(2, 3, 1, 0).reshape(KK * Cin, -1).to(x.dtype)
+        return torch.matmul(col.reshape(B, H, W, KK * Cin), w)
+    return grouped_product(col, weight, conv_groups)
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,13 @@ MXNet backbone and re-initializes only the new detection layers. Here:
 - ``import_reference_params``: the MXNet flat names (``conv0_weight``,
   ``stage3_unit12_bn2_gamma``, ``fc_new_1_weight``, ...) onto the port's
   ``state_dict`` keys, which carry the flax tree's module names, so the map
-  is the JAX package's ``_mapping_rows`` walked over the port's modules.
-  Layouts: MXNet convs are OIHW, as torch's are (the deformable units'
-  ``conv2_weight`` too), and plain FCs are [out, in]: both pass unchanged.
+  is the JAX package's ``_mapping_rows`` walked over the port's modules,
+  with the same rows: for ResNeXt none for a unit's ``sc_bn``, for
+  MobileNetV2 none in the trunk (what the reference's X101 and MNv2
+  ``.params`` call those tensors is not settled; ROADMAP.md Queue 3).
+  Layouts: MXNet convs are OIHW, as torch's are (``conv2_weight`` too, the
+  grouped one of ResNeXt included), and plain FCs are [out, in]: both pass
+  unchanged.
   The two FCs that read the pooled feature (``rcnn.offset``,
   ``rcnn.fc_new_1``) go from MXNet's NCHW-flattened [out, C*P*P] to the
   port's [out, P*P*C]. BatchNorm ``_gamma`` / ``_beta`` / ``_moving_mean``
@@ -254,14 +258,28 @@ _TRANSFORMS = {"rcnn.offset.weight": fc_from_pool,
                "mask.mask_deconv.weight": _deconv_as_jax}
 
 
+# the trunk modules the JAX import has rows for (_mapping_rows): the stem,
+# and in each ``stage*`` unit these children and the unit's own
+# ``conv2_weight``
+_STEM = ("bn_data", "conv0", "bn0")
+_UNIT_CHILDREN = ("bn1", "bn2", "bn3", "conv1", "conv2", "conv3", "sc",
+                  "offset")
+
+
 def _mx_prefix(module_name: str) -> str | None:
     """The MXNet name prefix of a module: the trunk's path joined by "_",
     a head layer's own name (``autofocus.conv_new_2`` -> ``conv_new_2``,
     as the JAX import's rows name it); None for modules the reference has
-    no weights for (the 14x14 pool's ``mask_offset``)."""
+    no weights for (the 14x14 pool's ``mask_offset``) and for the trunk
+    modules the JAX import has no row for: ResNeXt's ``sc_bn`` and every
+    module of the MobileNetV2 trunk."""
     parts = module_name.split(".")
-    if parts[0] == "trunk" and len(parts) > 1:
-        return "_".join(parts[1:])
+    if parts[0] == "trunk":
+        stage = len(parts) > 1 and parts[1].startswith("stage")
+        if (len(parts) == 2 and (parts[1] in _STEM or stage)) or (
+                len(parts) == 3 and stage and parts[2] in _UNIT_CHILDREN):
+            return "_".join(parts[1:])
+        return None
     if parts[0] in ("rpn", "rcnn", "mask", "autofocus") and len(parts) == 2:
         return parts[1]
     if module_name == "conv_new_1":

@@ -46,6 +46,10 @@ IM2COL_EDGES = {
     # the C5 map of AutoFocus's smallest FocusChip tier (256x320 canvas) at
     # dilation 2: the border clamp touches most taps
     "focus_tier": (2, 16, 20, 128, 4, 2, "random"),
+    # ResNeXt-101's C5 width: 512 channels per deformable group, where the
+    # backward leaves its warp-reduced route (L = C/G/V > 32) for the
+    # shared-memory sums
+    "x101_c5": (1, 6, 9, 2048, 4, 2, "random"),
 }
 
 
@@ -126,3 +130,78 @@ def tiny_torch_detector(variables=None, **overrides):
     if variables is not None:
         load_flax_variables(model, variables)
     return model
+
+
+# the model zoo's tiny detectors: TINY with the trunk of each JAX registry
+# symbol (X101: full widths and 64 groups at units (1,1,1,1); MobileNetV2:
+# full width, stride 32)
+ZOO = {
+    "resnext": dict(trunk_type="resnext"),
+    "mobilenetv2": dict(trunk_type="mobilenetv2", head_fc_dim=512,
+                        feat_stride=32),
+}
+# the JAX detector's ResNeXt takes its group count (default 1) from the
+# registry; the port's ResNeXtTrunk has 64
+ZOO_JAX = {"resnext": dict(num_trunk_groups=64), "mobilenetv2": {}}
+
+
+def flax_shapes(module, *args, **kwargs):
+    """The variable tree of ``module.init(key, *args, **kwargs)`` as shapes,
+    traced and not run (a flax init at full width costs tens of seconds of
+    op-by-op compiles here)."""
+    return jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
+
+
+def port_to_flax(shapes, model):
+    """``model``'s state_dict as flax variables of the tree ``shapes``: the
+    inverse of convert for convs, grouped ones included, and Dense layers
+    (no transposed conv). Every leaf of the tree must have a port tensor of
+    the converted shape."""
+    from sniper_tpu_torch.convert import _LEAF
+
+    state = model.state_dict()
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, path + (k,))
+                continue
+            key = ".".join(path[1:] + (_LEAF[path[0], k],))
+            t = state[key].detach().numpy()
+            if k in ("kernel", "conv2_kernel") and t.ndim == 4:
+                t = t.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            elif k == "kernel":
+                t = t.T
+            assert t.shape == tuple(v.shape), (key, t.shape, v.shape)
+            out[k] = np.ascontiguousarray(t, np.float32)
+        return out
+
+    return {c: walk(dict(t), (c,)) for c, t in shapes.items()}
+
+
+def zoo_jax_detector(kind, **overrides):
+    """The tiny fp32 flax detector of ZOO[kind]."""
+    from sniper_tpu.models.detector import SNIPERDetector
+
+    kw = dict(TINY, dtype=jnp.float32, num_rois=TINY["post_nms_top_n"],
+              **ZOO[kind], **ZOO_JAX[kind])
+    kw.update(overrides)
+    return SNIPERDetector(**kw)
+
+
+def zoo_variables(kind, seed=0, perturb=None, **overrides):
+    """Flax variables (NumPy) of ZOO[kind]'s tiny detector: the port's
+    seeded init (models/init.py, the flax initialisers' distributions)
+    written into the flax tree, then ``perturb(variables)`` when given."""
+    from sniper_tpu_torch.models.init import init_detector
+
+    shapes = flax_shapes(zoo_jax_detector(kind, **overrides),
+                         jnp.zeros((1, 64, 64, 3), jnp.float32),
+                         jnp.asarray([[64.0, 64.0, 1.0]], jnp.float32),
+                         train=False)
+    model = init_detector(tiny_torch_detector(**ZOO[kind], **overrides),
+                          seed=seed)
+    variables = port_to_flax(shapes, model)
+    return perturb(variables) if perturb else variables
