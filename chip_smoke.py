@@ -128,11 +128,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    deformable group) at inference scale 0 and training, with the time of
    the grouped product after it, X2 there at training, and NMS, the pool
    and its backward at MobileNetV2's stride-32 maps.
+8. Data parallelism (parallel/, configs/sniper_res101_e2e.yml at full
+   width and depth). (d1) One training step on 2 gloo ranks sharing the
+   one card (NCCL refuses two ranks on a card), 8 + 8 of 16 chips of
+   512x512, sync BatchNorm, fp32 trunk, DDP, through the kernels, against
+   the one-process step on the 16 joined chips with the same sampler
+   priorities (rank 1's chips sample fewer anchors, so the ranks' valid
+   counts differ): the losses, named gradients and the training
+   BatchNorms' running-statistics update within the one-process step's own
+   spread under pool and BatchNorm noise (scripts/dp_step_controls.py
+   shows planted faults failing this gate), the ranks' gradients, updated
+   leaves and statistics identical, each rank's launches one step's. (d2) main_train.run_training of the
+   recipe (bf16, 16 chips of 512x512) as the one rank of an NCCL group and
+   in one process, in turns (one process, NCCL, NCCL, one process),
+   WARMUP_STEPS + DP_TIMED_STEPS steps each with every step's launches
+   exact: the median ms per step of each. (d3) main_test.make_forward over
+   two replicas on the card, bit for bit one replica's output on the same
+   halves with the rois' batch index global, and a batch of 3 refused.
+   Each path's launches go into the JSON line.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
 for the two backward kernels, with every path's counts beside them, the
-mask training's, AutoFocus's and the model zoo's among them); the
+mask training's, AutoFocus's, the model zoo's and data parallelism's
+among them); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -1492,6 +1511,46 @@ def pool_noise(ulps: int, seed: int):
         deform.pool_pass = inner
 
 
+def step_batch(cfg, model, B: int, S: int, *, with_mask=False,
+               with_af=False, seed: int = 9):
+    """A seeded training batch of B chips of SxS (fp32 pixels, 5 GT boxes
+    each, sparse RPN targets; GT masks rasterized from an ellipse in each
+    GT box with ``with_mask``, FocusPixel labels with ``with_af``) and the
+    sampler's fg and bg priorities for ``model``, on the host."""
+    G = 6
+    g = torch.Generator().manual_seed(seed)
+    A, fh = cfg.network.NUM_ANCHORS, S // cfg.network.RPN_FEAT_STRIDE
+    gt = torch.full((B, G, 5), -1.0)
+    xy = torch.rand(B, G - 1, 2, generator=g) * 150
+    wh = 20 + torch.rand(B, G - 1, 2, generator=g) * 90
+    gt[:, :G - 1, :2], gt[:, :G - 1, 2:4] = xy, xy + wh
+    gt[:, :G - 1, 4] = torch.randint(1, 81, (B, G - 1), generator=g).float()
+    pids = torch.stack([torch.randperm(A * fh * fh, generator=g)[:256]
+                        for _ in range(B)])
+    batch = {
+        "data": torch.randn(B, S, S, 3, generator=g) * 40,
+        "im_info": torch.tensor([[S, S, 1.0]] * B),
+        "gt_boxes": gt, "valid_ranges": torch.tensor([[0.0, 1e5]] * B),
+        "rpn_pids": pids.int(),
+        "rpn_label_vals": (torch.rand(B, 256, generator=g) < 0.3).float(),
+        "fg_pids": pids[:, :32].int(),
+        "fg_targets": torch.randn(B, 32, 4, generator=g) * 0.2,
+    }
+    if with_mask:
+        from sniper_tpu_torch.data.mask_utils import rasterize_gt_masks
+
+        batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
+            [[ellipse_polygon(b, 24)] if b[4] >= 0 else [] for b in rows],
+            rows[:, :4], grid=112, max_n_gts=G) for rows in gt.numpy()]))
+    if with_af:
+        batch["scale_label"] = (torch.randint(0, 3, (B, fh * fh),
+                                              generator=g) - 1).float()
+    n_cand = model.train_kw["post_nms"] + G
+    pri = (torch.rand(B, n_cand, generator=g),
+           torch.rand(B, n_cand, generator=g))
+    return batch, pri
+
+
 def train_step_check(dev, cfg, tag: str) -> bool:
     """One training forward and backward on 2 chips of 256x256 at full
     width, once through the kernels and once through their plain versions
@@ -1525,38 +1584,11 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     model = init_detector(get_model(cfg), seed=0).to(dev).train()
     for name, p in model.named_parameters():
         p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
-    B, S, G = 2, 256, 6
-    g = torch.Generator().manual_seed(9)
-    A, fh = cfg.network.NUM_ANCHORS, S // cfg.network.RPN_FEAT_STRIDE
-    gt = torch.full((B, G, 5), -1.0)
-    xy = torch.rand(B, G - 1, 2, generator=g) * 150
-    wh = 20 + torch.rand(B, G - 1, 2, generator=g) * 90
-    gt[:, :G - 1, :2], gt[:, :G - 1, 2:4] = xy, xy + wh
-    gt[:, :G - 1, 4] = torch.randint(1, 81, (B, G - 1), generator=g).float()
-    pids = torch.stack([torch.randperm(A * fh * fh, generator=g)[:256]
-                        for _ in range(B)])
-    batch = {
-        "data": torch.randn(B, S, S, 3, generator=g) * 40,
-        "im_info": torch.tensor([[S, S, 1.0]] * B),
-        "gt_boxes": gt, "valid_ranges": torch.tensor([[0.0, 1e5]] * B),
-        "rpn_pids": pids.int(),
-        "rpn_label_vals": (torch.rand(B, 256, generator=g) < 0.3).float(),
-        "fg_pids": pids[:, :32].int(),
-        "fg_targets": torch.randn(B, 32, 4, generator=g) * 0.2,
-    }
-    if with_mask:
-        from sniper_tpu_torch.data.mask_utils import rasterize_gt_masks
-
-        batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
-            [[ellipse_polygon(b, 24)] if b[4] >= 0 else [] for b in rows],
-            rows[:, :4], grid=112, max_n_gts=G) for rows in gt.numpy()]))
-    if with_af:
-        batch["scale_label"] = (torch.randint(0, 3, (B, fh * fh),
-                                              generator=g) - 1).float()
+    B, S = 2, 256
+    batch, pri = step_batch(cfg, model, B, S, with_mask=with_mask,
+                            with_af=with_af)
     batch = {k: v.to(dev) for k, v in batch.items()}
-    n_cand = model.train_kw["post_nms"] + G
-    pri = (torch.rand(B, n_cand, generator=g).to(dev),
-           torch.rand(B, n_cand, generator=g).to(dev))
+    pri = tuple(p.to(dev) for p in pri)
     params = dict(model.named_parameters())
     heads = (RPN_LEAVES if rpn_only else
              HEAD_LEAVES + (MASK_LEAVES if with_mask else ())
@@ -2916,6 +2948,450 @@ def zoo_phase(dev, zcfgs: dict, card: str) -> tuple[bool, dict]:
     return ok, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 8: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_CHIPS, DP_SIZE = 16, 512  # (d1)'s global batch: 8 chips per rank
+DP_TIMED_STEPS = 6  # after WARMUP_STEPS, in each run of (d2)
+DP_LOSSES = ("loss", "rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
+             "rcnn_bbox_loss")
+DP_LEAVES = ("conv_new_1.weight",) + HEAD_LEAVES + RPN_LEAVES + TRUNK_LEAVES
+# one training step's launches of the flagship detector
+STEP_LAUNCHES = {"deform_im2col": 3, "deform_im2col_bwd": 3, "nms": 1,
+                 "fused_pool": 2, "fused_pool_bwd": 2, "roi_patch": 0}
+
+
+@contextlib.contextmanager
+def bn_noise(ulps: int, seed: int):
+    """Multiply every training-mode BatchNorm's output by
+    1 + ulps * 2^-23 * u, u uniform in [-1, 1) from a seeded generator on
+    the card: the size of the rounding by which the global batch's
+    statistics, all-reduced from the ranks' sums, differ from one process's
+    (restored on exit). The random trunk amplifies that rounding far above
+    pool_noise's spread, so (d1) bounds the sound step with both;
+    scripts/dp_step_controls.py holds the sound step and each planted
+    fault against either bound."""
+    from sniper_tpu_torch.models import norm
+
+    inner = norm.TrainBatchNorm.forward
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noisy(self, x):
+        y = inner(self, x)
+        if not self.training:
+            return y
+        u = torch.rand(y.shape, generator=gen, device=y.device) * 2 - 1
+        return y * (1 + ulps * 2.0 ** -23 * u).to(y.dtype)
+
+    norm.TrainBatchNorm.forward = noisy
+    try:
+        yield
+    finally:
+        norm.TrainBatchNorm.forward = inner
+
+
+# (d1)'s rank 1 keeps DP_RANK1_ANCHORS of each chip's sampled anchors, so
+# that the ranks' RPN valid counts differ (8 x 256 against 8 x 64) and a
+# loss normalized by a rank's own count is not the global one
+DP_RANK1_ANCHORS = 64
+# planted faults of (d1), for scripts/dp_step_controls.py: "local"
+# BatchNorm in place of "sync"; each rank's own valid count ("count"); the
+# world-size scale of the loss dropped ("scale"); both, which makes the
+# step the mean of the ranks' own mean losses ("rank means")
+DP_FAULTS = ("local", "count", "scale", "rank means")
+
+
+def dp_batch(cfg, model):
+    """(d1)'s 16 chips: step_batch's, with rank 1's chips (8-15) sampling
+    DP_RANK1_ANCHORS anchors each (the rest padded -1)."""
+    batch, pri = step_batch(cfg, model, DP_CHIPS, DP_SIZE)
+    batch["rpn_pids"][DP_CHIPS // 2:, DP_RANK1_ANCHORS:] = -1
+    return batch, pri
+
+
+def bn_stats(model) -> dict:
+    """Every training BatchNorm's running mean and variance, each kind
+    concatenated over the layers (fp32, on the host)."""
+    from sniper_tpu_torch.models.norm import TrainBatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, TrainBatchNorm)]
+    return {k: torch.cat([getattr(m, k).detach().float().cpu()
+                          for m in bns])
+            for k in ("running_mean", "running_var")}
+
+
+def plant_fault(fault, cfg):
+    """Put one of DP_FAULTS into this process's port (and ``cfg``)."""
+    from sniper_tpu_torch.models import losses
+    from sniper_tpu_torch.train import trainer
+
+    if fault == "local":
+        cfg.network.BN_MODE = "local"
+    if fault in ("count", "rank means"):
+        losses.global_count = trainer.global_count = lambda c: c
+    if fault in ("scale", "rank means"):
+        trainer.world_size = lambda: 1
+    if fault is not None and fault not in DP_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def dp_rank(rank, device, cfg, out_dir, fault=None):
+    """(d1) one of two gloo ranks on the same card: the detector of ``cfg``
+    from init_detector's seed 0, this rank's 8 of dp_batch's 16 chips and
+    their rows of its priorities, one make_train_step step through DDP and
+    the kernels, with the launch counters zeroed just before (``fault``,
+    one of DP_FAULTS, planted first); saves the global metrics
+    (reduce_metrics), the DP_LEAVES' gradients and values after the step,
+    the BatchNorms' running statistics' update (bn_stats after less
+    before), the launches and the rank's peak memory to
+    <out_dir>/rank<rank>.pt."""
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.parallel.mesh import data_parallel
+    from sniper_tpu_torch.train.optimizer import make_optimizer
+    from sniper_tpu_torch.train.trainer import make_train_step, reduce_metrics
+
+    plant_fault(fault, cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = init_detector(get_model(cfg), seed=0).to(device)
+    batch, pri = dp_batch(cfg, model)
+    b = DP_CHIPS // 2
+    rows = slice(rank * b, (rank + 1) * b)
+    batch = {k: v[rows].to(device) for k, v in batch.items()}
+    pri = tuple(p[rows].to(device) for p in pri)
+    opt, sched, _ = make_optimizer(cfg, 100, model)
+    step = make_train_step(data_parallel(model, device), opt, sched,
+                           DP_CHIPS, rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE)
+    before = bn_stats(model)
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in cuda.KERNELS:
+        k.launches = 0
+    m = step(batch, priorities=pri)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    params = dict(model.named_parameters())
+    torch.save({
+        "metrics": {k: float(v) for k, v in reduce_metrics([m])[0].items()},
+        "grads": {k: params[k].grad.float().cpu() for k in DP_LEAVES},
+        "params": {k: params[k].detach().float().cpu() for k in DP_LEAVES},
+        "stats": {k: v - before[k] for k, v in bn_stats(model).items()},
+        "launches": launches,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30},
+        os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def dp_ranks(dev, cfg, tmp: str, fault=None) -> tuple[list, float]:
+    """(d1)'s two ranks (dp_rank) on ``dev``, fp32 trunk. Returns their
+    saved results and the seconds the launch took."""
+    import copy
+
+    from sniper_tpu_torch.parallel import distributed
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.bf16 = False
+    t0 = time.perf_counter()
+    store = f"file://{tmp}/d1_store_{(fault or 'sound').replace(' ', '_')}"
+    distributed.launch(dp_rank, [dev, dev], store, args=(cfg, tmp, fault),
+                       timeout_s=600)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    return ranks, time.perf_counter() - t0
+
+
+def dp_reference(dev, cfg, noise_bn: bool) -> dict:
+    """The one-process step on (d1)'s 16 joined chips through the kernels,
+    fp32 trunk: the DP_LOSSES, the DP_LEAVES' gradients and the BatchNorms'
+    running statistics' update, then the same under NOISE_ULPS of noise on
+    every pool pass (train_step_check's pool_noise) and, with
+    ``noise_bn``, on every training BatchNorm's output (bn_noise), one run
+    per seed of NOISE_DRAWS. Returns {"clean": ..., "noisy": [...],
+    "peak_gib": the clean step's peak memory}."""
+    import copy
+
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.losses import total_loss
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.optimizer import is_fixed
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.bf16 = False
+    model = init_detector(get_model(cfg), seed=0).to(dev).train()
+    for name, p in model.named_parameters():
+        p.requires_grad_(not is_fixed(name, cfg.network.FIXED_PARAMS))
+    batch, pri = dp_batch(cfg, model)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    pri = tuple(p.to(dev) for p in pri)
+    params = dict(model.named_parameters())
+    init = copy.deepcopy({k: v for k, v in model.state_dict().items()
+                          if "running_" in k})
+
+    def one_step():
+        model.load_state_dict(init, strict=False)
+        before = bn_stats(model)
+        model.zero_grad(set_to_none=True)
+        out = model(batch["data"], batch["im_info"], batch["gt_boxes"],
+                    batch["valid_ranges"], train=True, priorities=pri)
+        _, m = total_loss(out, batch, DP_CHIPS, cfg.TRAIN.RPN_BATCH_SIZE)
+        m["loss"].backward()
+        torch.cuda.synchronize()
+        return {"metrics": {k: float(m[k].detach()) for k in DP_LOSSES},
+                "grads": {k: params[k].grad.float().cpu() for k in DP_LEAVES},
+                "stats": {k: v - before[k]
+                          for k, v in bn_stats(model).items()}}
+
+    # TF32 off, as in dp_rank: a TF32 rounding of the convs' inputs turns
+    # a few fp32 ulps into ~1e-3, which the random trunk amplifies
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = {"clean": one_step(),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "noisy": []}
+        for seed in range(NOISE_DRAWS):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(pool_noise(NOISE_ULPS, seed))
+                if noise_bn:
+                    stack.enter_context(bn_noise(NOISE_ULPS, seed))
+                ref["noisy"].append(one_step())
+    finally:
+        torch.backends.cudnn.deterministic = False
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dp_compare(rank0: dict, ref: dict) -> tuple[bool, dict]:
+    """A rank's step (dp_rank's file) against the one-process step
+    (dp_reference): each reading, its noise spread (the largest of the
+    noisy runs' distances from the clean one) and its tolerance, the larger
+    of the fixed bound (STEP_LOSS_REL for the losses and the running
+    statistics' update, HEAD_GRAD_REL or TRUNK_GRAD_REL for a gradient) and
+    NOISE_MULT times the spread. Returns (all within, {name: (reading,
+    spread, tolerance)})."""
+    clean, noisy = ref["clean"], ref["noisy"]
+
+    def loss_rel(m):
+        return max(abs(m[k] - clean["metrics"][k])
+                   / max(abs(clean["metrics"][k]), 1e-12) for k in DP_LOSSES)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    rows = {"losses": (loss_rel(rank0["metrics"]),
+                       max(loss_rel(n["metrics"]) for n in noisy),
+                       STEP_LOSS_REL)}
+    for k in DP_LEAVES:
+        base = TRUNK_GRAD_REL if k.startswith(("trunk", "conv_new")) \
+            else HEAD_GRAD_REL
+        rows[k] = (rel(rank0["grads"][k], clean["grads"][k]),
+                   max(rel(n["grads"][k], clean["grads"][k]) for n in noisy),
+                   base)
+    for k in ("running_mean", "running_var"):
+        rows[f"BatchNorm {k} update"] = (
+            rel(rank0["stats"][k], clean["stats"][k]),
+            max(rel(n["stats"][k], clean["stats"][k]) for n in noisy),
+            STEP_LOSS_REL)
+    rows = {k: (e, spread, max(base, NOISE_MULT * spread))
+            for k, (e, spread, base) in rows.items()}
+    ok = all(math.isfinite(rank0["metrics"][k]) for k in DP_LOSSES)
+    ok &= all(e <= tol for e, _, tol in rows.values())
+    ok &= all(float(clean["grads"][k].norm()) > 0 for k in DP_LEAVES)
+    return ok, rows
+
+
+def dp_step_check(dev, cfg, tmp: str) -> tuple[bool, dict]:
+    """(d1) one 2-rank step (dp_ranks: gloo, since NCCL refuses two ranks on
+    one card; sync BatchNorm) against the one-process step on the 16
+    joined chips with the same priorities (dp_reference), both through the
+    kernels with an fp32 trunk (dp_compare's bounds, the noise on the pool
+    passes and the training BatchNorms); the two ranks' gradients, updated
+    leaves and running statistics identical; each rank's launches one
+    step's. Returns (ok, the ranks' launches summed)."""
+    ranks, t_ranks = dp_ranks(dev, cfg, tmp)
+    ref = dp_reference(dev, cfg, noise_bn=True)
+    r0, r1 = ranks
+    ok, rows = dp_compare(r0, ref)
+    parts = [f"{k} {e:.2e} (spread {spread:.2e}, tolerance {tol:.2e})"
+             for k, (e, spread, tol) in rows.items()]
+    same = all(torch.equal(r0[c][k], r1[c][k])
+               for c in ("grads", "params", "stats") for k in r0[c])
+    each = all(r["launches"] == STEP_LAUNCHES for r in ranks)
+    ok &= same and each
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    print(f"dp (d1) {DP_CHIPS} chips of {DP_SIZE}x{DP_SIZE}, fp32 trunk, "
+          f"sync BatchNorm: one step on 2 gloo ranks of {DP_CHIPS // 2} "
+          f"chips on the one card (DDP, {t_ranks:.1f} s with the ranks' "
+          f"start-up; rank 1's chips sample {DP_RANK1_ANCHORS} anchors "
+          f"each, rank 0's 256) against one process on the {DP_CHIPS} "
+          f"joined chips, the same sampler priorities, both through the "
+          f"kernels. Losses: ranks "
+          f"{ {k: r0['metrics'][k] for k in DP_LOSSES} }, one process "
+          f"{ref['clean']['metrics']}. Relative errors against one process "
+          f"(losses: the largest; gradients after DDP's all-reduce and the "
+          f"training BatchNorms' running-statistics update: L2), each "
+          f"beside the one-process step's own spread under {NOISE_ULPS}-ulp "
+          f"noise on every pool pass and training BatchNorm ({NOISE_DRAWS} "
+          f"draws) and its tolerance, the larger of {STEP_LOSS_REL} (losses, "
+          f"statistics), {HEAD_GRAD_REL} (heads) or {TRUNK_GRAD_REL} (trunk) "
+          f"and {NOISE_MULT:g} x the spread: {'; '.join(parts)}. The two "
+          f"ranks' gradients, updated leaves and statistics identical: "
+          f"{same}. Peak memory per rank {r0['peak_gib']:.2f} / "
+          f"{r1['peak_gib']:.2f} GiB, one process {ref['peak_gib']:.2f} GiB. "
+          f"Launches per rank {r0['launches']} / {r1['launches']}, one "
+          f"step's {STEP_LAUNCHES}: {each}: {'PASS' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def dp_training(dev, cfg, tmp: str, card: str) -> tuple[bool, dict]:
+    """(d2) main_train.run_training of the flagship recipe (bf16, 16 chips
+    of 512x512 over SynthTrainDataset, no negative chips) for WARMUP_STEPS +
+    DP_TIMED_STEPS steps, in one process and as the one rank of an NCCL
+    group (DDP, the collectives of the metrics and the step count), in
+    turns (one process, NCCL, NCCL, one process), every step's launches
+    exactly one step's. Returns (ok, the first NCCL run's launches)."""
+    import copy
+
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.parallel import distributed
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.USE_NEG_CHIPS = False
+    roidb = build_roidb(cfg, lambda m: None, datasets=[SynthTrainDataset()])
+    ok, meds, launches = True, {"one process": [], "NCCL": []}, None
+    for i, run in enumerate(("one process", "NCCL", "NCCL", "one process")):
+        model = init_detector(get_model(cfg), seed=0)
+        loader = make_loader(copy.deepcopy(roidb), cfg, 0,
+                             image_loader=synth_train_image)
+        if run == "NCCL":
+            distributed.init_group(f"file://{tmp}/d2_store{i}", 1, 0, dev,
+                                   backend="nccl")
+        try:
+            good, got, med = timed_training(
+                dev, cfg, model, loader, card, f"dp (d2) {run}",
+                per_step=STEP_LAUNCHES, timed_steps=DP_TIMED_STEPS)
+            good &= distributed.is_distributed() == (run == "NCCL")
+        finally:
+            loader.close()
+            if run == "NCCL":
+                torch.distributed.destroy_process_group()
+        ok &= good
+        meds[run].append(med)
+        if run == "NCCL" and launches is None:
+            launches = got
+        del model
+        torch.cuda.empty_cache()
+    print(f"dp (d2) run_training medians, ms per step of "
+          f"{cfg.TRAIN.BATCH_IMAGES} chips, in turns: one process "
+          f"{meds['one process'][0]:.1f} / {meds['one process'][1]:.1f}, "
+          f"the one rank of an NCCL group (DDP) {meds['NCCL'][0]:.1f} / "
+          f"{meds['NCCL'][1]:.1f} [{card}]; host clock, a smoke reading: "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def dp_inference(dev, cfg) -> tuple[bool, dict]:
+    """(d3) main_test.make_forward over two replicas on the one card, fp32
+    trunk, 4 uint8 canvases of 256x320, each replica 2 of them: every
+    output identical, bit for bit, to one replica's on the same two halves
+    (the rois' batch index of the second half moved by 2), the batch-index
+    column the image's index in the whole batch, the replicas' launches two
+    batches'; then a batch of 3 raises ValueError. The one replica's
+    forward over all 4 canvases is printed beside: cuDNN picks its
+    algorithms per batch size, so it rounds otherwise, and a random RPN's
+    proposals can move with that rounding. Returns (ok, the two replicas'
+    launches)."""
+    import copy
+
+    from sniper_tpu_torch.main_test import make_forward
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.bf16 = False
+    model = init_detector(get_model(cfg), seed=0, offset_std=1e-3)
+    g = torch.Generator().manual_seed(5)
+    data = (torch.rand(4, 256, 320, 3, generator=g) * 255).to(torch.uint8)
+    im_info = torch.tensor([[256.0, 320.0, 1.0]] * 4)
+    means = cfg.network.PIXEL_MEANS
+    torch.backends.cudnn.deterministic = True
+    try:
+        one_fwd = make_forward(model, None, dev, means)
+        full = one_fwd(data, im_info)
+        halves = [one_fwd(data[:2], im_info[:2]),
+                  one_fwd(data[2:], im_info[2:])]
+        two_fwd = make_forward(model, None, [dev, dev], means)
+        for k in cuda.KERNELS:
+            k.launches = 0
+        two = two_fwd(data, im_info)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in cuda.KERNELS}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    shifted = halves[1]["rois"].clone()  # not an inference tensor
+    shifted[..., 0] += 2
+    halves[1] = dict(halves[1], rois=shifted)
+    one = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
+    identical = {k: torch.equal(one[k], two[k]) for k in one}
+    want = {"deform_im2col": 6, "nms": 2, "fused_pool": 4,
+            "deform_im2col_bwd": 0, "fused_pool_bwd": 0, "roi_patch": 0}
+    idx = two["rois"][..., 0]
+    global_idx = torch.equal(idx, torch.arange(4.0, device=idx.device)
+                             [:, None].expand_as(idx))
+    same_rois = int((full["rois"] == one["rois"]).all(-1).sum())
+    errs = {k: f"{float((full[k] - one[k]).abs().amax()):.3g}"
+            for k in ("roi_scores", "cls_prob", "bbox_pred")}
+    try:
+        two_fwd(data[:3], im_info[:3])
+        refused = False
+    except ValueError as e:
+        refused = "not divisible" in str(e)
+    ok = all(identical.values()) and global_idx and refused \
+        and launches == want
+    print(f"dp (d3) make_forward over 2 replicas on {dev}, fp32 trunk, 4 "
+          f"canvases of 256x320: identical to one replica on the same two "
+          f"halves {identical}, batch-index column global {global_idx}, "
+          f"launches {launches} (two batches of 2: {want}), a batch of 3 "
+          f"raises ValueError {refused}: {'PASS' if ok else 'FAIL'}. "
+          f"Beside it, one replica on all 4 canvases against the same "
+          f"replica on 2 + 2 (cuDNN's per-batch-size algorithms): "
+          f"{same_rois} of {full['rois'].shape[0] * full['rois'].shape[1]} "
+          f"rois identical, max abs differences {errs}")
+    del model, one_fwd, two_fwd
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def dp_phase(dev, cfg, card: str) -> tuple[bool, dict]:
+    """(d1) the 2-rank step, (d2) run_training in an NCCL group, (d3)
+    inference over two replicas. Returns (ok, {path: launches})."""
+    t0 = time.perf_counter()
+    tcfg = train_cfg(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        ok1, l1 = dp_step_check(dev, tcfg, tmp)
+        ok2, l2 = dp_training(dev, tcfg, tmp, card)
+    ok3, l3 = dp_inference(dev, cfg)
+    ok = ok1 and ok2 and ok3
+    print(f"dp: (d1) {'PASS' if ok1 else 'FAIL'}, (d2) "
+          f"{'PASS' if ok2 else 'FAIL'}, (d3) {'PASS' if ok3 else 'FAIL'} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return ok, {"dp training step (2 gloo ranks)": l1,
+                "dp training (NCCL, world 1)": l2,
+                "dp inference (2 replicas)": l3}
+
+
 def dir_mib(path: str) -> float:
     """The size of the files under ``path``, in MiB."""
     return sum(os.path.getsize(os.path.join(d, f))
@@ -2993,6 +3469,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ok_z, launches_zoo = zoo_phase(dev, zcfgs, card)
     torch.cuda.synchronize()
+    ok_d, launches_dp = dp_phase(dev, cfg, card)
+    torch.cuda.synchronize()
 
     # "launches": the mask-branch inference run for the kernels it runs
     # (the patch extraction's 0: no path runs it); the recipe's phase 3
@@ -3006,7 +3484,7 @@ def main() -> int:
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
                "autofocus inference": launches_af, **launches_train,
-               **launches_zoo}
+               **launches_zoo, **launches_dp}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -3018,11 +3496,11 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
-    if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z):
+    if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z and ok_d):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
               f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
               f"the recipe and autofocus training {ok_t}, the model zoo "
-              f"{ok_z})")
+              f"{ok_z}, data parallelism {ok_d})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -7,13 +7,14 @@ of ``sniper_tpu``: it keeps its own copies of the host modules it needs
 (the config tree, the dataset readers, the COCO evaluator, mask pasting).
 
 The slices ported so far, for the flagship R101 detector
-(``configs/sniper_res101_e2e.yml``) on one device: multi-scale inference
+(``configs/sniper_res101_e2e.yml``): multi-scale inference
 (``main_test.run_detection`` -> ``infer.tester.Tester`` -> ``aggregate``)
 and SNIPER training (``main_train.run_training``), with the mask branch
 (``configs/sniper_res101_e2e_mask.yml``) and AutoFocus
 (``configs/sniper_res101_e2e_autofocus.yml``); and the rest of the model
 zoo, ResNeXt-101 (the registry symbol ``resnext_mx_101``) and MobileNetV2
-(``configs/sniper_mobilenetv2_e2e.yml``), inference and training.
+(``configs/sniper_mobilenetv2_e2e.yml``), inference and training; and data
+parallelism over several cards for both (``parallel.num_devices``).
 
 Package layout (the names of ``sniper_tpu``'s modules):
   config/       the config tree (a copy of sniper_tpu/config)
@@ -31,6 +32,8 @@ Package layout (the names of ``sniper_tpu``'s modules):
   train/        the train step, optimizer, metrics, checkpoints
   infer/        the multi-scale Tester and its aggregation, mask pasting
                 and RLE encoding
+  parallel/     data parallelism: the process group (NCCL, gloo), DDP,
+                inference replicas
   main_train    the training CLI
   main_test     the inference CLI
 """

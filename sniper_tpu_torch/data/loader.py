@@ -330,7 +330,14 @@ class ChipLoader:
         return sample
 
     def __iter__(self):
-        for start in range(0, self.size, self.batch_size):
+        return self.batches()
+
+    def batches(self, limit: int | None = None):
+        """The epoch's batches, or its first ``limit``. Iterating reads no
+        rng: the next epoch's roll is the same however far this one ran."""
+        stop = self.size if limit is None else min(
+            self.size, limit * self.batch_size)
+        for start in range(0, stop, self.batch_size):
             positions = range(start, start + self.batch_size)
             if self._pool is not None:
                 samples = list(self._pool.map(self._sample, positions))

@@ -6,7 +6,7 @@ ChipLoader (TRAIN.LOADER_PROCESS). The training interpreter's own threads
 lock; this module moves the whole ChipLoader into a child process, so that
 the parent only copies finished batches out of shared memory.
 ``ProcessChipLoader`` has the surface ``run_training`` uses: ``reset``,
-``__len__``, ``__iter__`` and ``close``.
+``__len__``, ``__iter__``, ``batches`` and ``close``.
 
 Protocol (one duplex pipe; depth + 1 shared-memory slots allocated on the
 first non-empty epoch from the first batch's byte size: shapes are static,
@@ -14,7 +14,8 @@ so every batch fits):
 
   ("reset",)  -> ("reset", n_chips)
   ("len",)    -> ("len", n_batches)
-  ("epoch",)  -> ("ready", nbytes | 0)   nbytes > 0 asks for the slots;
+  ("epoch", limit) -> ("ready", nbytes | 0)   the epoch's first ``limit``
+                 batches (all for None); nbytes > 0 asks for the slots;
                  the parent replies ("slots", [names]) then, and primes
                  depth + 1 free-slot ints. Per batch the child receives a
                  free slot int, writes the arrays and replies ("batch",
@@ -27,11 +28,15 @@ so every batch fits):
 The child is spawned, never forked (the parent holds CUDA and threads), and
 it hides the cards from itself before it builds the loader, so it can
 never initialise CUDA. Its exceptions arrive as ("error", traceback) and
-re-raise in the parent. An epoch abandoned before its end (the iterator
-closed early, as ``run_training``'s ``max_steps`` truncation does) leaves
-the protocol mid-batch: the child is killed, and the next call respawns it
-and replays one reset. A respawned child's rng restarts, so after an
-abandoned epoch the chip rolls no longer follow the in-process loader's.
+re-raise in the parent. An epoch cut short on purpose is asked for as
+``batches(limit)`` (``run_training`` cuts each epoch to the ranks' global
+minimum of steps and to ``max_steps``): the child stops after ``limit``
+batches and closes the epoch itself, as the in-process loader's
+``batches(limit)`` does. An epoch abandoned before its end (the iterator
+closed early, on an error) leaves the protocol mid-batch: the child is
+killed, and the next call respawns it and replays one reset. A respawned
+child's rng restarts, so after an abandoned epoch the chip rolls no longer
+follow the in-process loader's.
 The injected ``image_loader`` is pickled to the child: it must be a
 module-level function.
 """
@@ -69,7 +74,7 @@ def _child_main(conn, spec, depth):
             elif msg[0] == "len":
                 conn.send(("len", len(loader)))
             elif msg[0] == "epoch":
-                it = iter(loader)
+                it = loader.batches(msg[1])
                 first = next(it, None)
                 if first is not None and not slots:
                     total = sum(v.nbytes for v in first.values())
@@ -168,8 +173,13 @@ class ProcessChipLoader:
         return self._len
 
     def __iter__(self):
+        return self.batches()
+
+    def batches(self, limit: int | None = None):
+        """The epoch's batches, or its first ``limit``, which the child
+        closes like a whole epoch (module doc)."""
         self._ensure()
-        self.conn.send(("epoch",))
+        self.conn.send(("epoch", limit))
         msg = self._recv()
         if msg[0] != "ready":
             raise RuntimeError(f"loader process protocol: {msg[0]!r}")

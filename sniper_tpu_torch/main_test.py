@@ -1,8 +1,9 @@
-"""SNIPER inference / evaluation CLI on one CUDA device.
+"""SNIPER inference / evaluation CLI on one CUDA device, or data-parallel
+over several.
 
-Port of main_test.py:52-79,137-163,174-341 (``make_forward``,
-``_scale_post_nms``, ``run_detection``, ``run_proposal_extraction``),
-single device only: multi-scale detection over TEST.SCALES with the
+Port of main_test.py:52-341 (``make_forward``, ``_scale_post_nms``,
+``_test_num_devices``, ``run_detection``, ``run_proposal_extraction``):
+multi-scale detection over TEST.SCALES with the
 per-scale post-NMS roi counts of a list-valued TEST.N_PROPOSAL_PER_SCALE,
 aggregation with per-scale valid ranges and soft-NMS, then the dataset's
 evaluation. A detector with the
@@ -26,13 +27,18 @@ checkpoint of epoch TEST.TEST_EPOCH, else ``network.pretrained``, else the
 seeded init. TEST.EXTRACT_PROPOSALS (with TRAIN.ONLY_PROPOSAL) runs the
 RPN over ``dataset.test_image_set`` at every TEST.SCALES entry and writes
 ``<TEST.PROPOSAL_SAVE_PATH>/<dataset name>_rpn.pkl``, the proposals that
-training's negative-chip mining reads. Multi-device inference is a later
-slice.
+training's negative-chip mining reads.
+
+``--set parallel.num_devices N`` (N > 1; an explicit opt-in, -1 is one
+device, as in the JAX CLI) serves data-parallel: each batch splits along
+dim 0 over eval replicas on the cards 0..N-1 (N replicas on the CPU), and
+every scale's TEST.BATCH_IMAGES must then be a multiple of N.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pickle
 
@@ -45,31 +51,89 @@ from sniper_tpu_torch.data.test_loader import (
     init_inference_crops,
 )
 from sniper_tpu_torch.infer.tester import Tester, device_normalize
+from sniper_tpu_torch.parallel.mesh import replicate
 
 
-def make_forward(model, state, device, pixel_means, post_nms_top_n=None):
-    """Inference forward on ``device``. ``state`` (a state_dict, or None
-    when ``model`` already holds its weights) is loaded first. Batches
-    arrive as uint8 RGB canvases and are mean-subtracted on the device
-    (device_normalize); fp32 input passes through. Returns the detector's
-    output dict of device tensors (launches are asynchronous: the Tester
-    copies them to the host one batch later)."""
+def make_forward(model, state, devices, pixel_means, post_nms_top_n=None):
+    """Inference forward on ``devices``: one device, or a list of them with
+    one eval replica each (parallel/mesh.replicate; several may name the
+    same device). ``state`` (a state_dict, or None when ``model`` already
+    holds its weights) is loaded first. Batches arrive as uint8 RGB
+    canvases and are mean-subtracted on the device (device_normalize); fp32
+    input passes through. Over N replicas a batch splits along dim 0 into N
+    equal shards (ValueError when it does not divide), each replica runs
+    its shard, and the outputs are joined on the first device, the rois'
+    batch-index column made global (each replica numbers its images from
+    0), as main_test.py:94-130. Returns the detector's output dict of
+    device tensors (launches are asynchronous: the Tester copies them to
+    the host one batch later)."""
     if state is not None:
         model.load_state_dict(state)
-    model.to(device).eval()
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    devices = [torch.device(d) for d in devices]
+    replicas = replicate(model, devices)
+
+    def run(replica, device, data, im_info):
+        cuda = device.type == "cuda"
+        # the kernels launch on the current card's stream
+        with torch.cuda.device(device) if cuda else contextlib.nullcontext():
+            if cuda:
+                data = data.pin_memory()
+            data = data.to(device, non_blocking=True)
+            im_info = im_info.to(device)
+            data = device_normalize(data, im_info, pixel_means)
+            return replica(data, im_info, post_nms_top_n=post_nms_top_n)
 
     @torch.inference_mode()
     def forward(data, im_info):
         data = torch.as_tensor(data)
         im_info = torch.as_tensor(im_info, dtype=torch.float32)
-        if torch.device(device).type == "cuda":
-            data = data.pin_memory()
-        data = data.to(device, non_blocking=True)
-        im_info = im_info.to(device)
-        data = device_normalize(data, im_info, pixel_means)
-        return model(data, im_info, post_nms_top_n=post_nms_top_n)
+        n = len(replicas)
+        if n == 1:
+            return run(replicas[0], devices[0], data, im_info)
+        if data.shape[0] % n:
+            raise ValueError(
+                f"test batch {data.shape[0]} not divisible by {n} devices "
+                "(set TEST.BATCH_IMAGES to a multiple of "
+                "parallel.num_devices)")
+        outs = [run(r, d, x, i) for r, d, x, i in zip(
+            replicas, devices, data.chunk(n), im_info.chunk(n))]
+        joined = {k: torch.cat([o[k].to(devices[0]) for o in outs])
+                  for k in outs[0]}
+        # each replica numbers its images from 0
+        shard = data.shape[0] // n
+        first = torch.arange(0, data.shape[0], shard, device=devices[0])
+        joined["rois"][..., 0] += first.repeat_interleave(shard)[:, None]
+        return joined
 
     return forward
+
+
+def _test_num_devices(cfg) -> int:
+    """parallel.num_devices for inference (main_test.py:166-171): an
+    explicit opt-in, unlike training, where -1 is every device: each
+    scale's batch must divide the count, so fanning out silently would
+    break small-batch runs."""
+    n = int(cfg.parallel.num_devices)
+    return n if n > 1 else 1
+
+
+def inference_devices(cfg, device) -> list:
+    """The devices of the replicas that serve ``cfg`` on ``device``'s kind:
+    ``device`` alone, or under parallel.num_devices N > 1 the cards 0..N-1
+    (ValueError when fewer are visible), N times the CPU."""
+    device = torch.device(device)
+    n = _test_num_devices(cfg)
+    if n == 1:
+        return [device]
+    if device.type != "cuda":
+        return [device] * n
+    visible = torch.cuda.device_count()
+    if n > visible:
+        raise ValueError(f"parallel.num_devices {n} but {visible} CUDA "
+                         "devices are visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _scale_post_nms(cfg, s, model):
@@ -102,17 +166,19 @@ def run_detection(cfg, model, state, roidb, dataset, out_dir, device,
     ``inference_crops`` with the next scale's FocusChips. A scale's
     ``dets_scale{s}.pkl`` keeps its maps, so a run resumed from it makes
     the same chips. ``image_loader`` replaces cv2.imread (tests and
-    synthetic runs inject one)."""
+    synthetic runs inject one). Under parallel.num_devices N > 1 the
+    forward runs on N replicas (``inference_devices``)."""
     init_inference_crops(roidb)
     if state is not None:
         model.load_state_dict(state)
     with_masks = bool(model.with_mask)
+    devices = inference_devices(cfg, device)
     testers: dict = {}
 
     def get_tester(post_nms):
         if post_nms not in testers:
             testers[post_nms] = Tester(
-                make_forward(model, None, device, cfg.network.PIXEL_MEANS,
+                make_forward(model, None, devices, cfg.network.PIXEL_MEANS,
                              post_nms_top_n=post_nms),
                 cfg, dataset.num_classes,
             )
@@ -169,10 +235,11 @@ def run_proposal_extraction(cfg, model, state, roidb, dataset, device,
     per image ([N,5] boxes and score in the image's coordinates), pickled
     as {"boxes": [...]} to TEST.PROPOSAL_SAVE_PATH/<dataset.name>_rpn.pkl
     under a temporary name and renamed (existence means "done"). ``model``
-    is an RPN-only detector; ``state`` as in run_detection. Returns the
-    file's path."""
+    is an RPN-only detector; ``state`` and parallel.num_devices as in
+    run_detection. Returns the file's path."""
     init_inference_crops(roidb)
-    forward = make_forward(model, state, device, cfg.network.PIXEL_MEANS)
+    forward = make_forward(model, state, inference_devices(cfg, device),
+                           cfg.network.PIXEL_MEANS)
     tester = Tester(forward, cfg, dataset.num_classes)
     loader_kw = {} if image_loader is None else {"image_loader": image_loader}
     agg = None

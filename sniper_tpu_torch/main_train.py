@@ -1,6 +1,6 @@
-"""SNIPER training CLI on one CUDA device.
+"""SNIPER training CLI, on one CUDA device or data-parallel over several.
 
-Port of main_train.py:19-346 without multi-host: config -> roidb (flips,
+Port of main_train.py:19-346: config -> roidb (flips,
 filtering, RPN proposals for negative-chip mining, regression-target
 statistics) -> chip loader (in this process, or in a spawned one with
 TRAIN.LOADER_PROCESS) -> detector with seeded random weights, then the
@@ -26,25 +26,46 @@ reads them. A checkpoint per epoch goes to
 ``<output_path>/<cfg name>/<image_set>/checkpoints/epoch_<n>.pt``, and
 ``TRAIN.begin_epoch = n`` resumes from it.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-OHEM and data parallelism (more than one device).
+Data parallelism (parallel/), as the JAX CLI's multi-process convention
+(main_train.py:129-156,229-232), one card per rank:
+- ``--set parallel.num_devices N`` (N > 1, or -1 with several visible
+  cards) starts one worker process per card from this one; more cards
+  than the machine shows raise ValueError;
+- under torchrun (or ``parallel.num_processes`` with
+  ``parallel.coordinator_address`` and ``parallel.process_id``, or their
+  SNIPER_* variables) each process is one rank and joins the group.
+Each rank trains on ``shard_roidb``'s slice with its own loader of
+TRAIN.BATCH_IMAGES chips seeded TRAIN.seed + rank, and every rank runs
+``global_min_steps`` steps an epoch; the global batch is BATCH_IMAGES x
+ranks. Only rank 0 logs and writes checkpoints, which hold the unwrapped
+model's state_dict (a one-process model loads them). A rank that fails
+ends the run with an error.
+
+Not ported yet, raising NotImplementedError with its ROADMAP item: OHEM.
 """
 
 from __future__ import annotations
 
 import argparse
-import itertools
 import logging
 import os
+import shutil
+import tempfile
 import time
 
 import torch
 
 from sniper_tpu_torch.data.loader import ChipLoader, Prefetcher
+from sniper_tpu_torch.parallel import distributed
+from sniper_tpu_torch.parallel.mesh import data_parallel
 from sniper_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from sniper_tpu_torch.train.metrics import MetricTracker
 from sniper_tpu_torch.train.optimizer import make_optimizer
-from sniper_tpu_torch.train.trainer import make_train_step, to_device
+from sniper_tpu_torch.train.trainer import (
+    make_train_step,
+    reduce_metrics,
+    to_device,
+)
 
 LOG_EVERY = 20  # steps between progress lines (the JAX CLI's)
 
@@ -126,18 +147,26 @@ def num_devices(cfg, device) -> int:
 
 
 def check_ported(cfg, device):
-    """Raise NotImplementedError for the options of later slices, training
-    on ``device`` included."""
-    todo = [
-        (cfg.TRAIN.ENABLE_OHEM, "OHEM (TRAIN.ENABLE_OHEM)", 5),
-        (num_devices(cfg, device) > 1,
-         "data parallelism (parallel.num_devices > 1, or -1 with several "
-         "cards)", 7),
-    ]
-    for on, what, item in todo:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+    """Raise NotImplementedError for the options of later slices, and
+    ValueError for a device count the run cannot have: more cards than the
+    machine shows for a CUDA ``device``, or, in a process group, an
+    explicit parallel.num_devices other than its size."""
+    if cfg.TRAIN.ENABLE_OHEM:
+        raise NotImplementedError(
+            "OHEM (TRAIN.ENABLE_OHEM) is not ported yet (ROADMAP.md Queue 1 "
+            "item 5)")
+    n = int(cfg.parallel.num_devices)
+    if distributed.is_distributed():
+        if n != -1 and n != distributed.world_size():
+            raise ValueError(
+                f"parallel.num_devices {n} but the process group has "
+                f"{distributed.world_size()} ranks")
+        return
+    n = num_devices(cfg, device)
+    visible = torch.cuda.device_count()
+    if torch.device(device).type == "cuda" and n > visible:
+        raise ValueError(f"parallel.num_devices {n} but {visible} CUDA "
+                         "devices are visible")
 
 
 def _epoch_telemetry(em: dict, cfg, log):
@@ -165,17 +194,33 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     and checkpoint each epoch under ``out_dir`` when given. ``max_steps``
     ends the run after that many steps (an epoch cut short that way leaves
     a ProcessChipLoader's child to be respawned); ``step_hook(step,
-    metrics)`` runs after every step (metrics are 0-d device tensors).
-    Returns the last epoch's metric means and the step count."""
+    metrics)`` runs after every step (metrics are 0-d device tensors, under
+    data parallelism the rank's shares: trainer.py's module doc).
+
+    In a process group (parallel/distributed.py) this is one rank's part:
+    ``loader`` holds its shard, the model is DDP-wrapped, the global batch
+    is BATCH_IMAGES x ranks, every rank runs the global minimum of the
+    ranks' steps, the metrics are reduced over the ranks at each log line,
+    the sampler's generator is seeded TRAIN.seed + rank, and only rank 0
+    logs and checkpoints. Returns the last epoch's metric means (global)
+    and the step count."""
     check_ported(cfg, device)
+    rank, world = distributed.rank(), distributed.world_size()
+    if rank != 0:
+        log = _quiet
     model.to(device)
     n_chips = loader.reset()
-    log(f"epoch {cfg.TRAIN.begin_epoch}: {n_chips} chips")
-    epoch_size = max(len(loader), 1)
+    log(f"epoch {cfg.TRAIN.begin_epoch}: {n_chips} chips"
+        + (f" on rank 0 of {world}" if distributed.is_distributed() else ""))
+    epoch_size = max(distributed.global_min_steps(len(loader)), 1)
     opt, sched, schedule = make_optimizer(cfg, epoch_size, model)
-    gen = torch.Generator(device=device).manual_seed(int(cfg.TRAIN.seed))
+    gen = torch.Generator(device=device).manual_seed(
+        int(cfg.TRAIN.seed) + rank)
+    net = data_parallel(model, device) if distributed.is_distributed() \
+        else model
+    batch_images = cfg.TRAIN.BATCH_IMAGES * world
     step_fn = make_train_step(
-        model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
+        net, opt, sched, batch_images,
         rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
         pixel_means=cfg.network.PIXEL_MEANS, generator=gen,
         rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL))
@@ -190,24 +235,21 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     for epoch in range(cfg.TRAIN.begin_epoch, cfg.TRAIN.end_epoch):
         if epoch > cfg.TRAIN.begin_epoch:
             log(f"epoch {epoch}: {loader.reset()} chips")
-        n = len(loader)
+        n = distributed.global_min_steps(len(loader))
         if max_steps is not None:
             n = min(n, max_steps - (step - start))
         tracker = MetricTracker()
         pending: list = []
 
         def flush():
-            for m in pending:
-                tracker.update(m, cfg.TRAIN.BATCH_IMAGES)
+            for m in reduce_metrics(pending):
+                tracker.update(m, batch_images)
             pending.clear()
 
         # two stages, each in its own thread: batch assembly on the host,
-        # then the upload. A whole epoch is read to its end (a loader
-        # process closes its epoch there); max_steps cuts it with islice
-        batches = iter(loader)
-        if n < len(loader):
-            batches = itertools.islice(batches, n)
-        host = Prefetcher(batches)
+        # then the upload. The loader is told the epoch's step count, so a
+        # loader process closes the cut epoch itself and keeps its rng
+        host = Prefetcher(loader.batches(n))
         for batch in Prefetcher(to_device(b, device) for b in host):
             metrics = step_fn(batch)
             pending.append(metrics)
@@ -221,13 +263,17 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
         flush()
         means = tracker.means()
         _epoch_telemetry(means, cfg, log)
-        if ckpt_dir is not None:
+        if ckpt_dir is not None and rank == 0:
             path = save_checkpoint(ckpt_dir, epoch + 1, model, opt, sched,
                                    step)
             log(f"saved checkpoint {path}")
         if max_steps is not None and step - start >= max_steps:
             break
     return {"step": step, "means": means}
+
+
+def _quiet(*_):
+    pass
 
 
 def create_logger(output_path: str, cfg_name: str, image_set: str):
@@ -262,11 +308,79 @@ def make_loader(roidb, cfg, seed, image_loader=None):
     return ChipLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES, seed=seed, **kw)
 
 
-def main(argv=None):
-    from sniper_tpu_torch.config import config_name, load_config
+def train(cfg, cfg_file: str, device):
+    """One run of the CLI on ``device``: the whole run in one process, or
+    one rank's part of it in a process group (module doc)."""
+    from sniper_tpu_torch.config import config_name
     from sniper_tpu_torch.models.init import init_detector
     from sniper_tpu_torch.models.registry import get_model
     from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    rank, world = distributed.rank(), distributed.world_size()
+    output_path = cfg.output_path or "./output"
+    name, image_set = config_name(cfg_file), str(cfg.dataset.image_set)
+    out_dir = os.path.join(output_path, name, image_set)
+    log = (create_logger(output_path, name, image_set)[0].info if rank == 0
+           else _quiet)
+    # every rank measures the regression statistics on the whole roidb,
+    # then keeps its slice
+    roidb = distributed.shard_roidb(build_roidb(cfg, log), rank, world)
+    if world > 1:
+        log(f"rank 0 of {world}: {len(roidb)} roidb images, global batch "
+            f"{cfg.TRAIN.BATCH_IMAGES * world}")
+    # the bbox means/stds may have been measured on the roidb: build the
+    # model after build_roidb; the import comes before the optimizer
+    model = init_detector(get_model(cfg), seed=int(cfg.TRAIN.seed))
+    load_pretrained(cfg, model, log)
+    loader = make_loader(roidb, cfg, int(cfg.TRAIN.seed) + rank)
+    try:
+        return run_training(cfg, model, loader, torch.device(device),
+                            out_dir=out_dir, log=log)
+    finally:
+        loader.close()
+
+
+def _train_rank(rank, device, cfg, cfg_file):
+    if device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // distributed.world_size()))
+    train(cfg, cfg_file, device)
+
+
+def launch_training(cfg, cfg_file: str, device):
+    """The CLI's run: in this process on one device; one spawned rank per
+    device when parallel.num_devices resolves to more than one (the CUDA
+    cards 0..N-1, or N gloo ranks on the CPU); or, when this process is one
+    rank of a run started from outside, that rank's part."""
+    device = torch.device(device)
+    if distributed.num_processes(cfg) > 1:
+        distributed.maybe_init_distributed(cfg, device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        try:
+            check_ported(cfg, device)
+            train(cfg, cfg_file, device)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
+    check_ported(cfg, device)
+    n = num_devices(cfg, device)
+    if n <= 1:
+        train(cfg, cfg_file, device)
+        return
+    devices = ([torch.device("cuda", i) for i in range(n)]
+               if device.type == "cuda" else [device] * n)
+    store = tempfile.mkdtemp(prefix="sniper_dp_")
+    try:
+        distributed.launch(_train_rank, devices,
+                           f"file://{os.path.join(store, 'rendezvous')}",
+                           args=(cfg, cfg_file))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def main(argv=None):
+    from sniper_tpu_torch.config import load_config
 
     p = argparse.ArgumentParser(description="Train a SNIPER detector (torch)")
     p.add_argument("--cfg", required=True, help="experiment yaml")
@@ -275,21 +389,7 @@ def main(argv=None):
                    help="config overrides: key value ...")
     args = p.parse_args(argv)
     cfg = load_config(args.cfg, args.overrides)
-    check_ported(cfg, args.device)
-    logger, out_dir = create_logger(cfg.output_path or "./output",
-                                    config_name(args.cfg),
-                                    str(cfg.dataset.image_set))
-    roidb = build_roidb(cfg, logger.info)
-    # the bbox means/stds may have been measured on the roidb: build the
-    # model after build_roidb; the import comes before the optimizer
-    model = init_detector(get_model(cfg), seed=int(cfg.TRAIN.seed))
-    load_pretrained(cfg, model, logger.info)
-    loader = make_loader(roidb, cfg, int(cfg.TRAIN.seed))
-    try:
-        run_training(cfg, model, loader, torch.device(args.device),
-                     out_dir=out_dir, log=logger.info)
-    finally:
-        loader.close()
+    launch_training(cfg, args.cfg, args.device)
 
 
 if __name__ == "__main__":

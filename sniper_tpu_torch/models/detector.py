@@ -36,6 +36,11 @@ detection map in the compute dtype, ``out_channels`` wide, which the RPN,
 ``conv_new_1`` and the FocusPixel head read. The JAX detector casts
 MobileNetV2's map to fp32, and those convs cast it back to the compute
 dtype.
+
+``bn_mode`` (network.BN_MODE through the registry) is whose statistics the
+trunk's training-mode BatchNorms use across the ranks of a process group:
+the global batch's ("sync") or each rank's own ("local"); see
+models/norm.py.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from sniper_tpu_torch.models.heads import (
     RPNHead,
 )
 from sniper_tpu_torch.models.mobilenetv2 import MobileNetV2Trunk
+from sniper_tpu_torch.models.norm import BN_MODES, TrainBatchNorm
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.models.resnext import ResNeXtTrunk
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
@@ -96,6 +102,7 @@ class SNIPERDetector(nn.Module):
         autofocus: bool = False,
         with_mask: bool = False,
         rpn_only: bool = False,
+        bn_mode: str = "sync",
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -150,6 +157,13 @@ class SNIPERDetector(nn.Module):
             # the 14x14 pool's offset FC: the first 196 outputs are dy
             self.mask_offset = nn.Linear(14 * 14 * 256, 2 * 14 * 14)
             self.mask = MaskHead(num_classes - 1)
+        # whose statistics the training-mode BatchNorms use across the
+        # ranks of a process group (models/norm.py)
+        if bn_mode not in BN_MODES:
+            raise ValueError(f"bn_mode must be sync|local, got {bn_mode!r}")
+        for m in self.modules():
+            if isinstance(m, TrainBatchNorm):
+                m.mode = bn_mode
         self._anchors: dict = {}
 
     def anchors(self, fh: int, fw: int, device) -> torch.Tensor:

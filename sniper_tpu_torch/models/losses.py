@@ -14,11 +14,20 @@ Queue 1 item 5):
   mask rois, -1 ignored;
 - the AutoFocus term: the valid-normalized CE of the FocusPixel logits
   against the chip loader's ``scale_label``, -1 (don't care) ignored.
+
+Under data parallelism each rank computes its share of the one global loss
+of the JAX package's step (sniper_tpu/train/trainer.py:82-160): the CE
+terms divide the rank's sum by the global valid count (an all-reduce of
+the count, without gradient), and the box terms by the global
+``batch_images`` their caller passes. The shares add up over the ranks to
+the loss of the joined batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sniper_tpu_torch.parallel.distributed import global_count
 
 
 def smooth_l1(x):
@@ -28,14 +37,15 @@ def smooth_l1(x):
 
 def softmax_ce_ignore(logits, labels):
     """Valid-normalized CE. logits [..., C], labels [...] int with -1
-    ignore. Returns a 0-d fp32 tensor."""
+    ignore; the valid count is the global one across the ranks of a
+    process group. Returns a 0-d fp32 tensor."""
     logits = logits.float()
     labels = labels.long()
     valid = labels >= 0
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / global_count(valid.sum()).clamp_min(1)
 
 
 def _rpn_logits(rpn_cls_logits):

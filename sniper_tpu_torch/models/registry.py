@@ -9,8 +9,8 @@ on, as in the JAX package. ``TRAIN.bf16`` selects the
 trunk's compute dtype, as in the JAX package. The TEST.* RPN keys drive the
 inference branch and the TRAIN.* keys the training sampler, whose roi count
 per image is TRAIN.RPN_POST_NMS_TOP_N (the reference op emits exactly that
-many). Single device only: ``network.BN_MODE`` "sync" is plain batch
-statistics there. ``network.POOL_KERNEL`` and
+many). ``network.BN_MODE`` is checked as the JAX registry checks it
+(``_bn_mode``). ``network.POOL_KERNEL`` and
 ``network.RESNEXT_SUPERGROUPS`` are not read: the einsum/pallas/fused choice
 and the supergroups of ResNeXt's block-diagonal 3x3 exist only for the TPU.
 Here the device of the tensors decides between a kernel and its plain
@@ -22,6 +22,21 @@ from __future__ import annotations
 import torch
 
 from sniper_tpu_torch.models.detector import SNIPERDetector
+from sniper_tpu_torch.models.norm import BN_MODES
+
+
+def _bn_mode(cfg) -> str:
+    """network.BN_MODE (sniper_tpu/models/registry.py:51-70): "sync" (the
+    default) normalizes with the global batch's statistics across the
+    data-parallel ranks, "local" with each rank's own (the reference's
+    per-GPU BatchNorm). Any other value raises ValueError. The JAX
+    registry resolves "local" on one device to "sync"; TrainBatchNorm
+    needs no resolving, since both modes are plain batch statistics
+    without a group of more than one rank (models/norm.py)."""
+    mode = str(getattr(cfg.network, "BN_MODE", "sync"))
+    if mode not in BN_MODES:
+        raise ValueError(f"network.BN_MODE must be sync|local, got {mode!r}")
+    return mode
 
 
 def _detector(cfg, overrides, **trunk):
@@ -51,6 +66,7 @@ def _detector(cfg, overrides, **trunk):
         bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
         bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
         head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
+        bn_mode=_bn_mode(cfg),
         **trunk,
     )
     kw.update(overrides)

@@ -24,6 +24,7 @@ format, so the NHWC view the deformable conv needs is free.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Sequence
 
 import torch
@@ -67,6 +68,8 @@ class PreActBottleneck(nn.Module):
             self.offset = nn.Conv2d(mid, deform_groups * 2 * 9, 3, padding=2,
                                     dilation=2)
             self.conv2_weight = nn.Parameter(torch.empty(mid, mid, 3, 3))
+            # nn.Conv2d's default init: never uninitialized memory
+            nn.init.kaiming_uniform_(self.conv2_weight, a=math.sqrt(5))
         else:
             self.conv2 = _conv(mid, mid, 3, stride, dilation)
         self.bn3 = bn(mid, dtype=dtype)

@@ -30,6 +30,7 @@ format.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -58,6 +59,8 @@ class ResNeXtUnit(nn.Module):
         if deform:
             self.offset = nn.Conv2d(f, 4 * 2 * 9, 3, padding=2, dilation=2)
         self.conv2_weight = nn.Parameter(torch.empty(f, f // num_groups, 3, 3))
+        # nn.Conv2d's default init: never uninitialized memory
+        nn.init.kaiming_uniform_(self.conv2_weight, a=math.sqrt(5))
         self.bn2 = bn(f, dtype=dtype)
         self.conv3 = nn.Conv2d(f, f, 1, bias=False)
         self.bn3 = bn(f, dtype=dtype)

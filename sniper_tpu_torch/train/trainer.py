@@ -1,6 +1,6 @@
-"""The single-device training step.
+"""The training step, on one device or one rank of a process group.
 
-Port of sniper_tpu/train/trainer.py:82-182 on one device: uint8 batches
+Port of sniper_tpu/train/trainer.py:82-182: uint8 batches
 are mean-subtracted on the device over each chip's ``data_extent``, then
 the detector's training forward, ``total_loss``, the backward, one SGD
 step and the lr scheduler's step. The BatchNorms of stages 2-4 update their
@@ -16,24 +16,47 @@ model's AutoFocus head and a batch with ``scale_label``, also
 batch's uint8 ``gt_masks`` go to the model as they are: it casts them
 where it crop-resizes. The caller reads them when it logs. The sampler draws from an explicit
 ``torch.Generator`` on the device.
+
+Data parallel (parallel/): the model is DDP-wrapped, each rank steps on its
+own shard of the global batch, and ``batch_images`` is the global batch
+(BATCH_IMAGES x ranks), which the box losses divide by, as JAX's
+``batch_images_global``. Each rank's loss is its share of the global loss
+(models/losses.py), and its metrics are shares too: the losses,
+``rcnn_acc`` and ``rcnn_fg_frac`` (their denominator is the global valid
+roi count) add up over the ranks, the ``*_max`` telemetry takes the ranks'
+maximum and the rest their mean. ``reduce_metrics`` does that at a log
+boundary, so the step itself never waits for the other ranks' metrics.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from sniper_tpu_torch.infer.tester import device_normalize
 from sniper_tpu_torch.models.losses import total_loss
+from sniper_tpu_torch.parallel.distributed import (
+    global_count,
+    is_distributed,
+    world_size,
+)
 
 
 def make_train_step(model, optimizer, scheduler, batch_images: int, *,
                     rpn_batch_size: int = 256, pixel_means=None,
                     generator: torch.Generator | None = None,
                     rpn_only: bool = False):
-    """Returns step(batch) -> metrics. ``batch`` is a dict of tensors on
-    the model's device (the chip loader's keys)."""
+    """Returns step(batch, priorities=None) -> metrics. ``batch`` is a dict
+    of tensors on the model's device (the chip loader's keys);
+    ``priorities`` replace the sampler's draws from ``generator`` (see
+    ops/proposals.multi_proposal_target). ``batch_images`` is the global
+    batch under data parallelism (module doc)."""
+    # DDP averages the ranks' gradients, and each rank's loss is its share
+    # of the one global loss: scaled by the world size, the average is the
+    # sum, the gradient of the global loss (x 1 without a group)
+    world = world_size()
 
-    def step(batch):
+    def step(batch, priorities=None):
         data = batch["data"]
         if data.dtype == torch.uint8:
             if pixel_means is None:
@@ -45,24 +68,52 @@ def make_train_step(model, optimizer, scheduler, batch_images: int, *,
         model.train()
         out = model(data, batch["im_info"], batch["gt_boxes"],
                     batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
-                    train=True, generator=generator)
+                    train=True, generator=generator, priorities=priorities)
         loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size,
                                    rpn_only=rpn_only)
         if not rpn_only:
             labels = out["rcnn_labels"]
             pred = out["cls_score"].detach().argmax(-1)
             valid = labels >= 0
-            n_valid = valid.sum().clamp_min(1)
+            n_valid = global_count(valid.sum()).clamp_min(1)
             metrics["rcnn_acc"] = ((pred == labels) & valid).sum() / n_valid
             metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
         metrics.update(out["stats"])
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss * world).backward()
         optimizer.step()
         scheduler.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _is_share(name: str) -> bool:
+    return name.endswith("loss") or name in ("rcnn_acc", "rcnn_fg_frac")
+
+
+def reduce_metrics(steps: list) -> list:
+    """The global metrics of a list of steps' metric dicts (0-d device
+    tensors, the same keys in each) over the ranks of a process group: the
+    shares summed, ``*_max`` the maximum, the rest the mean (module doc).
+    Two all-reduces for the whole list; a collective, so every rank calls
+    it at the same step. Without a group the dicts are returned as they
+    are."""
+    if not steps or not is_distributed():
+        return steps
+    keys = sorted(steps[0])
+    t = torch.stack([torch.stack([m[k].float() for k in keys])
+                     for m in steps])
+    top = t.clone()
+    dist.all_reduce(t)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    world = dist.get_world_size()
+    out = []
+    for row, row_max in zip(t, top):
+        out.append({k: (row_max[i] if k.endswith("_max") else
+                        row[i] if _is_share(k) else row[i] / world)
+                    for i, k in enumerate(keys)})
+    return out
 
 
 def to_device(batch: dict, device) -> dict:

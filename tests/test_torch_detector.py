@@ -195,3 +195,22 @@ def test_init_detector_follows_the_flax_init():
                       offset_std=1e-3).requires_grad_(False)
     assert abs(float(a.rcnn.offset.weight.std()) / 1e-3 - 1) < 0.05
     assert torch.equal(a.trunk.stage3_unit1.conv1.weight, w)
+
+
+@pytest.mark.parametrize("trunk_type", ["resnet", "resnext"])
+def test_a_built_detector_holds_no_uninitialized_weight(trunk_type):
+    """Every parameter of a freshly built detector is initialized, as
+    nn.Conv2d's are: the deformable 3x3s' conv2_weight too, which once held
+    whatever memory torch.empty returned until init_detector or an import
+    filled it, so a run that trained without either depended on the
+    process's history."""
+    weights = []
+    for _ in range(2):
+        torch.manual_seed(3)
+        model = tiny_torch_detector(trunk_type=trunk_type)
+        w = model.trunk.stage4_unit1.conv2_weight.detach().clone()
+        bound = 1.0 / np.sqrt(w[0].numel())  # kaiming_uniform(a=sqrt(5))
+        assert float(w.abs().max()) <= bound
+        assert float(w.abs().max()) > 0.5 * bound
+        weights.append(w)
+    assert torch.equal(*weights)

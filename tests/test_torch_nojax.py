@@ -53,6 +53,8 @@ def test_every_module_imports_without_jax():
     assert "sniper_tpu_torch.data.shm_loader" in mods
     assert "sniper_tpu_torch.models.resnext" in mods
     assert "sniper_tpu_torch.models.mobilenetv2" in mods
+    assert "sniper_tpu_torch.parallel.distributed" in mods
+    assert "sniper_tpu_torch.parallel.mesh" in mods
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

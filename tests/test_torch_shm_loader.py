@@ -126,6 +126,28 @@ def test_process_loader_matches_chip_loader(roidb):
     assert not proc.proc.is_alive()
 
 
+def test_cut_epochs_keep_the_child_and_its_rolls(roidb):
+    """batches(limit) closes a cut epoch in the child: the same process
+    serves three cut epochs, each the in-process loader's cut epoch."""
+    cfg = make_cfg()
+    ref = ChipLoader(copy.deepcopy(roidb), cfg, 2, image_loader=image_loader,
+                     seed=4)
+    proc = ProcessChipLoader(roidb, cfg, 2, seed=4, image_loader=image_loader)
+    try:
+        pid = None
+        for epoch in range(3):
+            assert proc.reset() == ref.reset(), epoch
+            assert len(proc) == len(ref) > 1
+            got = [{k: v.copy() for k, v in b.items()}
+                   for b in proc.batches(1)]
+            _assert_same(got, list(ref.batches(1)), f"epoch {epoch}")
+            assert len(got) == 1
+            pid = pid or proc.proc.pid
+            assert proc.proc.is_alive() and proc.proc.pid == pid, epoch
+    finally:
+        proc.close()
+
+
 def test_child_error_reraises_in_parent(roidb):
     proc = ProcessChipLoader(roidb, make_cfg(), 2, image_loader=failing_loader)
     try:

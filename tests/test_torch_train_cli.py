@@ -136,10 +136,11 @@ def test_run_training_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TRAIN.ENABLE_OHEM", True, 5), ("parallel.num_devices", 4, 7)])
+    ("TRAIN.ENABLE_OHEM", True, 5)])
 def test_unported_training_options_raise(key, value, item):
     """The options of later slices raise with their ROADMAP item. The
-    options ported since run in their own tests: TRAIN.WITH_MASK in
+    options ported since run in their own tests: data parallelism
+    (parallel.num_devices) in test_torch_dp_*, TRAIN.WITH_MASK in
     test_torch_mask_train and below, TRAIN.AUTO_FOCUS in
     test_torch_autofocus and test_torch_autofocus_pipeline, TRAIN.ONLY_PROPOSAL in
     test_torch_rpn_only and test_torch_recipe, network.pretrained in
@@ -155,19 +156,20 @@ def test_unported_training_options_raise(key, value, item):
 @pytest.mark.parametrize("count", [1, 2])
 def test_all_devices_resolves_to_the_visible_cards(monkeypatch, count):
     """parallel.num_devices = -1 is every visible card on a CUDA device
-    (the JAX CLI's reading) and one device on the CPU; more than one
-    raises until data parallelism is ported."""
+    (the JAX CLI's reading) and one device on the CPU, and training takes
+    them all; asking for more cards than are visible raises, where the
+    CPU's ranks are processes and any count goes."""
     cfg = make_cfg()
     cfg.parallel.num_devices = -1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     assert num_devices(cfg, "cuda") == count
     assert num_devices(cfg, torch.device("cpu")) == 1
     check_ported(cfg, torch.device("cpu"))
-    if count > 1:
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            check_ported(cfg, torch.device("cuda", 0))
-    else:
+    check_ported(cfg, torch.device("cuda", 0))
+    cfg.parallel.num_devices = count + 1
+    with pytest.raises(ValueError, match="CUDA devices are visible"):
         check_ported(cfg, torch.device("cuda", 0))
+    check_ported(cfg, torch.device("cpu"))
 
 
 def test_mask_training_checkpoints_and_restores_with_masks(tmp_path):
