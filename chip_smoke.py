@@ -146,12 +146,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    two replicas on the card, bit for bit one replica's output on the same
    halves with the rois' batch index global, and a batch of 3 refused.
    Each path's launches go into the JSON line.
+9. The remaining options at full width and depth, from (r1)'s backbone and
+   (r3)'s proposals (phase 5), each sub-phase a stage of
+   utils/profiler.StageTimer, whose report it prints. (o1) OHEM
+   (TRAIN.ENABLE_OHEM on the flagship yml, BATCH_ROIS_OHEM 128 of 300 rois
+   per chip): the one-step check of 5 (a) with OHEM, then run_training for
+   WARMUP_STEPS + OPT_TIMED_STEPS steps with every step's launches exact
+   (X1 3, X2 3, NMS 1, pool 2, its backward 2), and the rois each chip
+   kept (min / median / max, every one at least 128). (o2)
+   configs/sniper_res101_e2e_mask_autofocus.yml's training (the mask
+   branch and the FocusPixel head together, all six losses): the same
+   steps, the pool and its backward 4 each per step, mask_loss and
+   focus_loss above 0 at the first step and moving. (o3) TRAIN.VISUALIZE on
+   the flagship yml, dumps every VIS_FREQ steps over VIS_STEPS: the
+   loader's chip renderings and the prediction dumps (pkl with the JAX
+   payload's keys, jpg) read back, each dump's launches exactly one test
+   forward's (X1 3, NMS 1, pool 2), ms per dump. (o4) demo.detect on a
+   synthetic 640x480 JPEG with the seeded weights saved as a checkpoint and
+   restored as the CLI restores them: one batch-1 test forward's launches
+   per scale, the rendered image written, seconds per image; one detect
+   under utils/profiler.device_trace, whose Chrome trace names the csrc
+   kernels (its size printed); and one pass of scale 0 through
+   Tester.get_detections(per_chip_nms=True), equal to the NumPy soft-NMS of
+   the same forward's per-class detections. Each path's launches go into
+   the JSON line.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
 for the two backward kernels, with every path's counts beside them, the
 mask training's, AutoFocus's, the model zoo's and data parallelism's
-among them); the
+among them, and phase 9's); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -1551,6 +1575,11 @@ def step_batch(cfg, model, B: int, S: int, *, with_mask=False,
     return batch, pri
 
 
+def ohem_rois(cfg) -> int:
+    """The OHEM rois per chip the CLI trains with (0: OHEM off)."""
+    return int(cfg.TRAIN.BATCH_ROIS_OHEM) if cfg.TRAIN.ENABLE_OHEM else 0
+
+
 def train_step_check(dev, cfg, tag: str) -> bool:
     """One training forward and backward on 2 chips of 256x256 at full
     width, once through the kernels and once through their plain versions
@@ -1563,7 +1592,9 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     model zoo's trunks; with the
     FocusPixel head under TRAIN.AUTO_FOCUS, seeded FocusPixel labels in the
     batch, focus_loss among the losses and the head's leaves among the
-    gradients). The trunk leaves are ZOO_TRUNK_LEAVES of the model's trunk.
+    gradients; under TRAIN.ENABLE_OHEM the losses of the hardest
+    BATCH_ROIS_OHEM rois per chip). The trunk leaves are ZOO_TRUNK_LEAVES
+    of the model's trunk.
     The trunk runs in fp32 here, so that a fixed bound holds: in bf16 one
     rounding step
     apart early in the backward decorrelates every later bf16 rounding of
@@ -1604,12 +1635,19 @@ def train_step_check(dev, cfg, tag: str) -> bool:
                     batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
                     train=True, priorities=pri)
         _, m = total_loss(out, batch, B, cfg.TRAIN.RPN_BATCH_SIZE,
-                          rpn_only=rpn_only)
+                          rpn_only=rpn_only, ohem_rois=ohem_rois(cfg))
         m["loss"].backward()
         torch.cuda.synchronize()
         return ({k: float(v.detach()) for k, v in m.items()},
                 {k: params[k].grad.float().clone() for k in heads + trunk})
 
+    # TF32 off (phase 2 turns it off for the run; a check called without
+    # phase 2 must too): in TF32 two plain-path runs' trunk gradients part
+    # by far more than the fixed bounds
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     noisy = []
     try:
@@ -1621,6 +1659,8 @@ def train_step_check(dev, cfg, tag: str) -> bool:
                     noisy.append(one_step())
     finally:
         torch.backends.cudnn.deterministic = False
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
     def loss_rel(m):
         return max(abs(m[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in m)
@@ -1760,14 +1800,15 @@ def loader_ms_per_batch(roidb, cfg, n=8) -> float:
 
 def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
                    out_dir=None, every_step=(), idle=(), per_step=None,
-                   varying=(), timed_steps=TIMED_STEPS):
+                   varying=(), positive_first=(), timed_steps=TIMED_STEPS):
     """run_training for WARMUP_STEPS + ``timed_steps`` steps with the launch
     counters zeroed just before and read after every step. Passes when the
     losses are finite, every kernel of
     ``every_step`` launched at every step, every other training kernel in
     the timed steps unless it is in ``idle``, whose kernels must not launch
     at all, each kernel of ``per_step`` exactly that many times in every
-    step, and each metric of ``varying`` not the same at every step.
+    step, each metric of ``varying`` not the same at every step, and each
+    of ``positive_first`` above 0 at the first step.
     Returns (ok, launches over the whole run, median ms per step)."""
     from sniper_tpu_torch.main_train import run_training
     from sniper_tpu_torch.ops import cuda
@@ -1806,10 +1847,11 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
                 for i in range(len(snaps))
                 for n, c in (per_step or {}).items())
     varies = all(len({m[k] for m in losses}) > 1 for k in varying)
+    positive = all(losses[0][k] > 0 for k in positive_first)
     good = (res["step"] == n_steps and len(timed) == timed_steps and finite
             and each_step and all(launches[n] == 0 for n in idle)
             and all(over_timed[n] for n in TRAINING_KERNELS
-                    if n not in idle) and exact and varies)
+                    if n not in idle) and exact and varies and positive)
     srt = sorted(timed)
     med = srt[len(srt) // 2]
     bs = cfg.TRAIN.BATCH_IMAGES
@@ -1824,6 +1866,8 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
           f"{list(idle)} never launched {all(launches[n] == 0 for n in idle)}"
           + (f"; per step exactly {per_step}: {exact}" if per_step else "")
           + (f"; {list(varying)} not constant: {varies}" if varying else "")
+          + (f"; {list(positive_first)} above 0 at the first step: "
+             f"{positive}" if positive_first else "")
           + f"; losses finite {finite}: {'PASS' if good else 'FAIL'}")
     return good, launches, med
 
@@ -3392,41 +3436,419 @@ def dp_phase(dev, cfg, card: str) -> tuple[bool, dict]:
                 "dp inference (2 replicas)": l3}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the remaining options
+# ---------------------------------------------------------------------------
+
+OPT_TIMED_STEPS = 5  # after WARMUP_STEPS, in (o1) and (o2)
+VIS_STEPS, VIS_FREQ = 6, 2  # (o3): dumps after steps 2, 4 and 6
+# one box-detector test forward's launches (a prediction dump, a demo scale)
+FORWARD_LAUNCHES = {"deform_im2col": 3, "deform_im2col_bwd": 0, "nms": 1,
+                    "fused_pool": 2, "fused_pool_bwd": 0, "roi_patch": 0}
+# the JAX dumper's payload (sniper_tpu/train/vis_dump.py)
+DUMP_KEYS = {"step", "batch_seq", "dets", "rois", "cls_prob", "bbox_pred"}
+# the csrc kernels of a box test forward, by their __global__ names
+TRACE_KERNELS = ("deform_im2col_kernel", "nms_mask_kernel",
+                 "nms_scan_kernel", "pool_pass_kernel")
+
+
+def launch_counts() -> dict:
+    from sniper_tpu_torch.ops import cuda
+
+    return {k.name: k.launches for k in cuda.KERNELS}
+
+
+def options_cfg(cfg, tmp: str, prefix: str):
+    """The yml's training settings of train_cfg, reading (r1)'s backbone
+    and (r3)'s proposals, the run's output under ``tmp``."""
+    cfg = train_cfg(cfg)
+    cfg.output_path = os.path.join(tmp, "output")
+    cfg.proposal_path = os.path.join(tmp, "proposals")
+    cfg.network.pretrained = prefix
+    return cfg
+
+
+def options_model(cfg, log):
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train.pretrained import load_pretrained
+
+    model = init_detector(get_model(cfg), seed=0)
+    load_pretrained(cfg, model, log)
+    return model
+
+
+def ohem_training(dev, cfg, tmp: str, prefix: str,
+                  card: str) -> tuple[bool, dict]:
+    """(o1) The flagship yml with TRAIN.ENABLE_OHEM: the one-step check of
+    5 (a), then run_training from (r1)'s backbone with (r3)'s negative
+    chips, every step's launches exact, and the rois each chip kept (every
+    one at least BATCH_ROIS_OHEM: the random RPN's saturated proposals give
+    each chip more valid rois than that). Returns (ok, launches)."""
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.models import losses
+
+    ocfg = options_cfg(cfg, tmp, prefix)
+    ocfg.TRAIN.ENABLE_OHEM = True
+    k = ohem_rois(ocfg)
+    ok1 = train_step_check(dev, ocfg, "options (o1)")
+
+    def log(m):
+        print(f"options (o1) {m}")
+
+    roidb = build_roidb(ocfg, log, datasets=[SynthTrainDataset()])
+    model = options_model(ocfg, log)
+    kept: list = []
+    inner = losses.ohem_select
+
+    def counting(*args):
+        labels, weights = inner(*args)
+        kept.append((labels >= 0).sum(1))  # read after the run
+        return labels, weights
+
+    print(f"options (o1) {CONFIG} with TRAIN.ENABLE_OHEM True: "
+          f"BATCH_ROIS_OHEM {k} of {model.num_rois} sampled rois per chip, "
+          f"BATCH_IMAGES {ocfg.TRAIN.BATCH_IMAGES}, chips "
+          f"{ocfg.TRAIN.CHIP_SIZE}, trunk dtype {model.dtype}")
+    loader = make_loader(roidb, ocfg, 0, image_loader=synth_train_image)
+    losses.ohem_select = counting
+    try:
+        ok2, launches, _ = timed_training(
+            dev, ocfg, model, loader, card, "options (o1)",
+            per_step=STEP_LAUNCHES, timed_steps=OPT_TIMED_STEPS)
+    finally:
+        losses.ohem_select = inner
+        loader.close()
+    counts = sorted(int(c) for t in kept for c in t.tolist())
+    good = (len(kept) == WARMUP_STEPS + OPT_TIMED_STEPS and counts
+            and counts[0] >= k)
+    print(f"options (o1) rois kept per chip over {len(counts)} chips: min "
+          f"{counts[0] if counts else None}, median "
+          f"{counts[len(counts) // 2] if counts else None}, max "
+          f"{counts[-1] if counts else None} (at least {k}; ties at the "
+          f"threshold all kept): {'PASS' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok1 and ok2 and good, launches
+
+
+def mask_af_training(dev, amcfg, tmp: str, prefix: str,
+                     card: str) -> tuple[bool, dict]:
+    """(o2) configs/sniper_res101_e2e_mask_autofocus.yml's training: mask
+    branch and FocusPixel head together from (r1)'s backbone with (r3)'s
+    negative chips over the images with polygons, every step's launches
+    exact (the pool 4, its backward 4), all six losses finite, mask_loss
+    and focus_loss above 0 at the first step and moving. Returns (ok,
+    launches)."""
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+
+    mcfg = options_cfg(amcfg, tmp, prefix)
+
+    def log(m):
+        print(f"options (o2) {m}")
+
+    roidb = build_roidb(mcfg, log, datasets=[SynthMaskDataset()])
+    model = options_model(mcfg, log)
+    print(f"options (o2) {AF_MASK_CONFIG}: with_mask {model.with_mask}, "
+          f"autofocus {model.with_autofocus}, {model.num_rois} sampled and "
+          f"{model.num_mask_rois} mask rois per chip, BATCH_IMAGES "
+          f"{mcfg.TRAIN.BATCH_IMAGES}, chips {mcfg.TRAIN.CHIP_SIZE}, trunk "
+          f"dtype {model.dtype}")
+    per_step = dict(STEP_LAUNCHES, fused_pool=4, fused_pool_bwd=4)
+    loader = make_loader(roidb, mcfg, 0, image_loader=synth_train_image)
+    try:
+        ok, launches, _ = timed_training(
+            dev, mcfg, model, loader, card, "options (o2)",
+            per_step=per_step, varying=("mask_loss", "focus_loss"),
+            positive_first=("mask_loss", "focus_loss"),
+            timed_steps=OPT_TIMED_STEPS)
+    finally:
+        loader.close()
+    del model
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def visualize_training(dev, cfg, tmp: str, prefix: str,
+                       card: str) -> tuple[bool, dict]:
+    """(o3) The flagship yml's run_training with TRAIN.VISUALIZE at
+    visualization_freq VIS_FREQ over VIS_STEPS steps: the loader's chip
+    renderings and the prediction dumps (pkl with the JAX payload's keys,
+    jpg) read back; each dump's launches exactly one test forward's, and
+    the run's the steps' plus the dumps'. Returns (ok, launches)."""
+    import glob
+    import pickle
+
+    import cv2
+
+    from sniper_tpu_torch.main_train import build_roidb, make_loader
+    from sniper_tpu_torch.train import vis_dump
+
+    vcfg = options_cfg(cfg, tmp, prefix)
+    vcfg.TRAIN.VISUALIZE = True
+    vcfg.TRAIN.visualization_freq = VIS_FREQ
+    vcfg.TRAIN.visualization_path = os.path.join(tmp, "visualization")
+
+    def log(m):
+        print(f"options (o3) {m}")
+
+    roidb = build_roidb(vcfg, log, datasets=[SynthTrainDataset()])
+    model = options_model(vcfg, log)
+    dumps: list = []
+    inner = vis_dump.PredictionDumper.maybe_dump
+
+    def timed_dump(self, host_batch, step, batch_seq=None):
+        if step % self.freq:
+            return inner(self, host_batch, step, batch_seq)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        path = inner(self, host_batch, step, batch_seq)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        dumps.append((step, path, ms,
+                      {n: after[n] - before[n] for n in after}))
+        return path
+
+    loader = make_loader(roidb, vcfg, 0, image_loader=synth_train_image)
+    vis_dump.PredictionDumper.maybe_dump = timed_dump
+    try:
+        ok, launches, _ = timed_training(
+            dev, vcfg, model, loader, card, "options (o3)",
+            timed_steps=VIS_STEPS - WARMUP_STEPS)
+    finally:
+        vis_dump.PredictionDumper.maybe_dump = inner
+        loader.close()
+    steps = [d[0] for d in dumps]
+    each = all(d[3] == FORWARD_LAUNCHES for d in dumps)
+    total = all(launches[n] == VIS_STEPS * STEP_LAUNCHES[n]
+                + len(dumps) * FORWARD_LAUNCHES[n] for n in launches)
+    payloads_ok = True
+    for _, path, _, _ in dumps:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        payloads_ok &= (set(payload) == DUMP_KEYS
+                        and len(payload["dets"]) == model.num_classes
+                        and cv2.imread(path[:-4] + ".jpg") is not None)
+    chips = sorted(glob.glob(os.path.join(vcfg.TRAIN.visualization_path,
+                                          "chip_e1_s*.jpg")))
+    chips_ok = bool(chips) and all(
+        cv2.imread(c) is not None and cv2.imread(c).shape ==
+        (vcfg.TRAIN.CHIP_SIZE, vcfg.TRAIN.CHIP_SIZE, 3) for c in chips)
+    good = (steps == list(range(VIS_FREQ, VIS_STEPS + 1, VIS_FREQ)) and each
+            and total and payloads_ok and chips_ok)
+    ms = [round(d[2], 1) for d in dumps]
+    print(f"options (o3) prediction dumps after steps {steps}: {ms} ms each "
+          f"(host clock, synchronized, pkl and jpg written) [{card}]; "
+          f"launches per dump {[d[3] for d in dumps]}, each one test "
+          f"forward's {FORWARD_LAUNCHES}: {each}; the run's launches "
+          f"{VIS_STEPS} steps' plus {len(dumps)} dumps': {total}; payloads "
+          f"with the keys {sorted(DUMP_KEYS)} and their jpg read back "
+          f"{payloads_ok}; {len(chips)} chip renderings "
+          f"({os.path.basename(chips[0]) if chips else None} ...) read back "
+          f"{chips_ok}: {'PASS' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok and good, launches
+
+
+def demo_phase(dev, cfg, tmp: str, card: str) -> tuple[bool, dict]:
+    """(o4) demo.detect on a synthetic 640x480 JPEG with the seeded weights
+    saved as a training checkpoint and restored as the CLI restores them:
+    per scale one batch-1 test forward's launches, the rendered image
+    written, seconds per image; one detect under utils/profiler's
+    device_trace, whose Chrome trace names the csrc kernels; and one pass
+    of scale 0 through Tester.get_detections(per_chip_nms=True), equal to
+    the NumPy soft-NMS of each chip's per-class detections of the same
+    forward outputs without it. Returns (ok, the first detect's
+    launches)."""
+    import copy
+    import glob
+
+    import cv2
+
+    from sniper_tpu_torch.config import config_name
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.demo import detect, render
+    from sniper_tpu_torch.infer.tester import Tester
+    from sniper_tpu_torch.main_test import make_forward
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.ops.nms import NMSWrapper
+    from sniper_tpu_torch.train.checkpoint import (
+        restore_inference_state,
+        save_checkpoint,
+    )
+    from sniper_tpu_torch.utils.profiler import device_trace
+
+    dcfg = copy.deepcopy(cfg)
+    dcfg.output_path = os.path.join(tmp, "demo_output")
+    name = config_name(CONFIG)
+    seeded = init_detector(get_model(dcfg), seed=0)
+    save_checkpoint(os.path.join(dcfg.output_path, name,
+                                 str(dcfg.dataset.image_set), "checkpoints"),
+                    int(dcfg.TEST.TEST_EPOCH), seeded)
+    model = get_model(dcfg)
+    source = restore_inference_state(dcfg, model, name,
+                                     lambda m: print(f"options (o4) {m}"))
+    state = seeded.state_dict()
+    same = all(torch.equal(v, state[k]) for k, v in
+               model.state_dict().items())
+    del seeded
+    model.to(dev).eval()
+    im_path = os.path.join(tmp, "demo.jpg")
+    cv2.imwrite(im_path, synth_image("im0"))
+    n_scales = len(dcfg.TEST.SCALES)
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = detect(dcfg, model, None, im_path, dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {n: c * n_scales for n, c in FORWARD_LAUNCHES.items()}
+    out = render(dcfg, cv2.imread(im_path), final,
+                 os.path.join(tmp, "demo_out.jpg"))
+    drawn = cv2.imread(out)
+    n_det = sum(len(d) for d in final)
+    good = (source == "checkpoint" and same and launches == want
+            and len(final) == dcfg.dataset.NUM_CLASSES and n_det > 0
+            and all(d.ndim == 2 and d.shape[1] == 5 and np.isfinite(d).all()
+                    for d in final)
+            and drawn is not None and drawn.shape == (IM_H, IM_W, 3))
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        detect(dcfg, model, None, im_path, dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(f"options (o4) demo.detect on a synthetic {IM_W}x{IM_H} JPEG, "
+          f"{n_scales} scales at batch 1, weights restored ({source}) from "
+          f"the seeded model's checkpoint, equal to it {same}: {n_det} "
+          f"detections, the image written {out}; {first_s:.3f} s for the "
+          f"first image, then {', '.join(f'{v:.3f}' for v in secs)} s per "
+          f"image (host clock, soft-NMS of a random detector's boxes on the "
+          f"host included), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]; "
+          f"launches {launches}, {n_scales} test forwards' {want}: "
+          f"{'PASS' if good else 'FAIL'}")
+
+    trace_dir = os.path.join(tmp, "trace")
+    with device_trace(trace_dir) as prof:
+        detect(dcfg, model, None, im_path, dev)
+    files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    text = open(files[0]).read() if len(files) == 1 else ""
+    named = {k: k in text for k in TRACE_KERNELS}
+    device_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    trace_ok = len(files) == 1 and all(named.values())
+    print(f"options (o4) detect under utils/profiler.device_trace: "
+          f"{files[0] if files else None}, {len(text) / 2**20:.2f} MiB, the "
+          f"csrc kernels named {named}, {device_ms:.1f} ms of device time "
+          f"summed over its operators: {'PASS' if trace_ok else 'FAIL'}")
+
+    roidb = [{"image": im_path, "width": IM_W, "height": IM_H,
+              "flipped": False}]
+    init_inference_crops(roidb)
+    batch = next(iter(TestChipIterator(roidb, dcfg, 0, 1)))
+    fwd_out = make_forward(model, None, dev, dcfg.network.PIXEL_MEANS)(
+        batch["data"], batch["im_info"])
+    ncls = dcfg.dataset.NUM_CLASSES
+    plain, _, _ = Tester(lambda d, i: fwd_out, dcfg, ncls).get_detections(
+        [batch], roidb)
+    nmsd, _, _ = Tester(lambda d, i: fwd_out, dcfg, ncls).get_detections(
+        [batch], roidb, per_chip_nms=True)
+    wrapper = NMSWrapper(dcfg.TEST.NMS, dcfg.TEST.NMS_SIGMA)
+    nms_ok, rows = True, [0, 0]
+    for j in range(1, ncls):
+        d = plain[j][0][0]
+        ref = wrapper(d) if len(d) else d
+        nms_ok &= np.array_equal(nmsd[j][0][0], ref)
+        rows[0] += len(d)
+        rows[1] += len(ref)
+    print(f"options (o4) Tester.get_detections(per_chip_nms=True) at scale "
+          f"0: {rows[1]} of {rows[0]} per-class rows kept, equal class by "
+          f"class to the NumPy soft-NMS (TEST.NMS_SIGMA "
+          f"{dcfg.TEST.NMS_SIGMA}) of the same forward's detections without "
+          f"the flag: {'PASS' if nms_ok else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return good and trace_ok and nms_ok, launches
+
+
+def options_phase(dev, cfg, amcfg, tmp: str, prefix: str,
+                  card: str) -> tuple[bool, dict]:
+    """(o1) OHEM, (o2) mask and AutoFocus training together, (o3)
+    TRAIN.VISUALIZE, (o4) the demo, the profiler and the per-chip NMS,
+    each under a utils/profiler StageTimer stage. Returns (ok, {path:
+    launches})."""
+    from sniper_tpu_torch.utils.profiler import StageTimer
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    with timer.stage("(o1) OHEM training"):
+        ok1, l1 = ohem_training(dev, cfg, tmp, prefix, card)
+    with timer.stage("(o2) mask and AutoFocus training"):
+        ok2, l2 = mask_af_training(dev, amcfg, tmp, prefix, card)
+    with timer.stage("(o3) TRAIN.VISUALIZE training"):
+        ok3, l3 = visualize_training(dev, cfg, tmp, prefix, card)
+    with timer.stage("(o4) demo, trace and per-chip NMS"):
+        ok4, l4 = demo_phase(dev, cfg, tmp, card)
+    print("options StageTimer (host clock, set-up included):\n"
+          + timer.report())
+    print(f"options: (o1) {'PASS' if ok1 else 'FAIL'}, (o2) "
+          f"{'PASS' if ok2 else 'FAIL'}, (o3) {'PASS' if ok3 else 'FAIL'}, "
+          f"(o4) {'PASS' if ok4 else 'FAIL'} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ok1 and ok2 and ok3 and ok4, {
+        "ohem training": l1, "mask and autofocus training": l2,
+        "visualize training (dumps included)": l3,
+        "demo (3 scales at batch 1)": l4}
+
+
 def dir_mib(path: str) -> float:
     """The size of the files under ``path``, in MiB."""
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(path) for f in files) / 2**20
 
 
-def train_phase(dev, cfg, mcfg, acfg, card: str) -> tuple[bool, dict]:
+def train_phase(dev, cfg, mcfg, acfg, tmp: str,
+                card: str) -> tuple[bool, dict, str]:
     """(a) the full detector's one-step check, then the recipe (r1)-(r4),
     then the mask yml's training (m1)-(m3) and the AutoFocus yml's
-    (t1)-(t3) from (r1)'s backbone and (r3)'s proposals. Returns (ok,
-    {path: launches})."""
+    (t1)-(t3) from (r1)'s backbone and (r3)'s proposals, all under ``tmp``,
+    which keeps the backbone and the proposals for phase 9. Returns (ok,
+    {path: launches}, the backbone's network.pretrained prefix)."""
     from sniper_tpu_torch.main_train import build_roidb
 
     cfg = train_cfg(cfg)
     ok = train_step_check(dev, cfg, "train (a)")
     ds = SynthTrainDataset()
-    with tempfile.TemporaryDirectory() as tmp:
-        rcfg, cfg = recipe_cfgs(cfg, tmp)
-        ok_r1, prefix = pretrained_import(rcfg, tmp)
-        cfg.network.pretrained = prefix
-        rpn_roidb = build_roidb(rcfg, lambda m: print(f"recipe (r2) {m}"),
-                                datasets=[ds])
-        ok_r2, l_rpn = rpn_training(dev, rcfg, rpn_roidb, card)
-        ok_r3, l_ext = proposal_extraction(dev, rcfg, ds, card)
-        # a run's checkpoint (model and optimizer) is read only by the phase
-        # right after it: drop it there, so that the temporary directory
-        # holds one at a time beside the backbone and the proposals
-        sizes = [dir_mib(tmp)]
-        shutil.rmtree(cfg.output_path, ignore_errors=True)
-        ok_r4, l_rec, l_proc = recipe_training(dev, cfg, ds, card)
-        ok_m, l_mask = mask_training(dev, mcfg, tmp, prefix, card)
-        sizes.append(dir_mib(tmp))
-        shutil.rmtree(cfg.output_path, ignore_errors=True)
-        ok_af, l_af = autofocus_training(dev, acfg, tmp, prefix, card)
-        sizes.append(dir_mib(tmp))
+    rcfg, cfg = recipe_cfgs(cfg, tmp)
+    ok_r1, prefix = pretrained_import(rcfg, tmp)
+    cfg.network.pretrained = prefix
+    rpn_roidb = build_roidb(rcfg, lambda m: print(f"recipe (r2) {m}"),
+                            datasets=[ds])
+    ok_r2, l_rpn = rpn_training(dev, rcfg, rpn_roidb, card)
+    ok_r3, l_ext = proposal_extraction(dev, rcfg, ds, card)
+    # a run's checkpoint (model and optimizer) is read only by the phase
+    # right after it: drop it there, so that the temporary directory
+    # holds one at a time beside the backbone and the proposals
+    sizes = [dir_mib(tmp)]
+    shutil.rmtree(cfg.output_path, ignore_errors=True)
+    ok_r4, l_rec, l_proc = recipe_training(dev, cfg, ds, card)
+    ok_m, l_mask = mask_training(dev, mcfg, tmp, prefix, card)
+    sizes.append(dir_mib(tmp))
+    shutil.rmtree(cfg.output_path, ignore_errors=True)
+    ok_af, l_af = autofocus_training(dev, acfg, tmp, prefix, card)
+    sizes.append(dir_mib(tmp))
+    shutil.rmtree(cfg.output_path, ignore_errors=True)
     print(f"training's temporary directory (backbone, proposals, the last "
           f"run's checkpoint): {sizes[0]:.0f} MiB after (r3), {sizes[1]:.0f} "
           f"after (m3), {sizes[2]:.0f} after (t3)")
@@ -3439,7 +3861,7 @@ def train_phase(dev, cfg, mcfg, acfg, card: str) -> tuple[bool, dict]:
         "rpn training": l_rpn, "proposal extraction": l_ext,
         "training (recipe)": l_rec,
         "training (recipe, loader process)": l_proc,
-        "mask training": l_mask, "autofocus training": l_af}
+        "mask training": l_mask, "autofocus training": l_af}, prefix
 
 
 def main() -> int:
@@ -3465,12 +3887,18 @@ def main() -> int:
     torch.cuda.synchronize()
     ok_a, launches_af = autofocus_inference(dev, acfg, amcfg, card)
     torch.cuda.synchronize()
-    ok_t, launches_train = train_phase(dev, cfg, mcfg, acfg, card)
-    torch.cuda.synchronize()
-    ok_z, launches_zoo = zoo_phase(dev, zcfgs, card)
-    torch.cuda.synchronize()
-    ok_d, launches_dp = dp_phase(dev, cfg, card)
-    torch.cuda.synchronize()
+    # the recipe's backbone and proposals live here through phase 9
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_t, launches_train, prefix = train_phase(dev, cfg, mcfg, acfg, tmp,
+                                                   card)
+        torch.cuda.synchronize()
+        ok_z, launches_zoo = zoo_phase(dev, zcfgs, card)
+        torch.cuda.synchronize()
+        ok_d, launches_dp = dp_phase(dev, cfg, card)
+        torch.cuda.synchronize()
+        ok_o, launches_opt = options_phase(dev, cfg, amcfg, tmp, prefix,
+                                           card)
+        torch.cuda.synchronize()
 
     # "launches": the mask-branch inference run for the kernels it runs
     # (the patch extraction's 0: no path runs it); the recipe's phase 3
@@ -3484,7 +3912,7 @@ def main() -> int:
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
                "autofocus inference": launches_af, **launches_train,
-               **launches_zoo, **launches_dp}
+               **launches_zoo, **launches_dp, **launches_opt}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -3496,11 +3924,13 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
-    if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z and ok_d):
+    if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z and ok_d
+            and ok_o):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
               f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
               f"the recipe and autofocus training {ok_t}, the model zoo "
-              f"{ok_z}, data parallelism {ok_d})")
+              f"{ok_z}, data parallelism {ok_d}, the remaining options "
+              f"{ok_o})")
         return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))

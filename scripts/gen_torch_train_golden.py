@@ -34,10 +34,26 @@ assigner's ``_focus_map`` with AUTOFOCUS_PARAMS, so that the labels hold
 1, -1 and 0); its metrics add ``focus_loss`` and its leaves the head's
 biases. tests/test_torch_autofocus.py compares against it.
 
-The JAX steps take about 50 s here with their compile (more with the mask
-branch), which is why their outputs are frozen. Regenerate (only after an
-intentional change of the semantics):
-    python scripts/gen_torch_train_golden.py [--mask | --autofocus]
+``--mask --autofocus`` writes the fourth fixture: both branches at once, as
+configs/sniper_res101_e2e_mask_autofocus.yml trains them (the mask
+fixture's init and GT masks, the FocusPixel labels), all six losses among
+its metrics and both branches' leaves; made op by op like ``--mask``.
+tests/test_torch_mask_autofocus_train.py compares against it.
+
+``--ohem`` writes the fifth: the first fixture's detector and batch trained
+with OHEM (``ohem_rois`` OHEM_ROIS of the 16 + G sampled rois per image,
+TRAIN.ENABLE_OHEM with BATCH_ROIS_OHEM), so the R-CNN terms see each
+chip's hardest rois only; it prints each step's smallest relative gap
+between the k-th and the (k+1)-th roi loss of a chip, which must stay far
+above the frameworks' fp32 differences for the two to keep the same rois.
+tests/test_torch_ohem.py compares against it.
+
+The fixture of a set of flags is tests/fixtures/torch_train[_mask]
+[_autofocus][_ohem]_golden.json. The JAX steps take about 50 s here with
+their compile (minutes op by op with the mask branch), which is why their
+outputs are frozen. Regenerate (only after an intentional change of the
+semantics):
+    python scripts/gen_torch_train_golden.py [--mask] [--autofocus] [--ohem]
 """
 
 from __future__ import annotations
@@ -64,11 +80,7 @@ if jax.config.jax_platforms and \
         jax.config.jax_platforms.split(",")[0] != "cpu":
     jax.config.update("jax_platforms", "cpu")
 
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_train_golden.json")
-MASK_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
-                            "torch_train_mask_golden.json")
-AF_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
-                          "torch_train_autofocus_golden.json")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 
 B, H, W = 2, 64, 64
 G = 4  # GT rows per chip, the last one padding
@@ -94,19 +106,19 @@ LEAVES = (
     ("batch_stats", "trunk/stage4_unit1/bn2/var"),
     ("batch_stats", "trunk/stage1_unit1/bn2/mean"),  # frozen
 )
-MASK_METRICS = METRICS + ("mask_loss",)
-MASK_LEAVES = LEAVES + (
+# the branches' own leaves, kept beside LEAVES
+MASK_LEAVES = (
     ("params", "mask_offset/bias"),
     ("params", "mask/mask_conv_3x3_1/bias"),
     ("params", "mask/mask_deconv/bias"),
     ("params", "mask/mask_out/bias"),
 )
-AF_METRICS = METRICS + ("focus_loss",)
-AF_LEAVES = LEAVES + (
+AF_LEAVES = (
     ("params", "autofocus/conv_new_2/bias"),
     ("params", "autofocus/conv_new_3/bias"),
     ("params", "autofocus/conv_new_out/bias"),
 )
+OHEM_ROIS = 8  # of the 16 + G sampled rois per image
 # (small_thresh, dc_low, dc_high) of the FocusPixel labels: the GT boxes of
 # make_batch (sqrt areas 16 to 43 px) fall on both sides of small_thresh
 AUTOFOCUS_PARAMS = (32.0, 5.0, 90.0)
@@ -223,20 +235,50 @@ def leaf(tree, path):
     return np.asarray(tree)
 
 
-def fixture_path(mask=False, autofocus=False):
-    return MASK_FIXTURE if mask else AF_FIXTURE if autofocus else FIXTURE
+def fixture_path(mask=False, autofocus=False, ohem=False):
+    flags = "".join(f"_{n}" for n, on in (("mask", mask),
+                                          ("autofocus", autofocus),
+                                          ("ohem", ohem)) if on)
+    return os.path.join(FIXTURES, f"torch_train{flags}_golden.json")
 
 
 def metric_names(mask=False, autofocus=False):
-    return (MASK_METRICS if mask else AF_METRICS if autofocus
-            else METRICS)
+    return (METRICS + (("mask_loss",) if mask else ())
+            + (("focus_loss",) if autofocus else ()))
 
 
 def leaf_names(mask=False, autofocus=False):
-    return MASK_LEAVES if mask else AF_LEAVES if autofocus else LEAVES
+    return (LEAVES + (MASK_LEAVES if mask else ())
+            + (AF_LEAVES if autofocus else ()))
 
 
-def run_jax(mask=False, autofocus=False):
+def ohem_gap(outputs, k):
+    """The smallest relative gap, over the chips, between the k-th and the
+    (k+1)-th largest per-roi loss (cls + bbox, as ohem_select ranks them)
+    of a JAX training forward's outputs; inf when no chip has k + 1 valid
+    rois."""
+    import jax.numpy as jnp
+
+    from sniper_tpu.models.losses import smooth_l1
+
+    labels = np.asarray(outputs["rcnn_labels"])
+    logp = np.asarray(jax.nn.log_softmax(
+        jnp.asarray(outputs["cls_score"], jnp.float32), axis=-1))
+    cls = -np.take_along_axis(logp, np.maximum(labels, 0)[..., None],
+                              -1)[..., 0]
+    diff = np.asarray(outputs["bbox_pred"] - outputs["rcnn_bbox_targets"],
+                      np.float32)
+    box = (np.asarray(outputs["rcnn_bbox_weights"])
+           * np.asarray(smooth_l1(diff))).sum(-1)
+    gaps = []
+    for c, b, lab in zip(cls, box, labels):
+        t = np.sort(np.where(lab >= 0, c + b, -np.inf))[::-1]
+        if np.isfinite(t[k]):
+            gaps.append((t[k - 1] - t[k]) / abs(t[k - 1]))
+    return min(gaps, default=np.inf)
+
+
+def run_jax(mask=False, autofocus=False, ohem=False):
     import jax.numpy as jnp
 
     from sniper_tpu.models.detector import SNIPERDetector
@@ -258,11 +300,22 @@ def run_jax(mask=False, autofocus=False):
                        opt_state=tx.init(variables["params"]))
     mesh = make_mesh(1)
     step = make_train_step(model, tx, mesh, B, pixel_means=(0.0, 0.0, 0.0),
-                           with_mask=mask, with_autofocus=autofocus)
+                           with_mask=mask, with_autofocus=autofocus,
+                           ohem_rois=OHEM_ROIS if ohem else 0)
     batch = shard_batch(mesh, make_batch(mask, autofocus))
     metrics = []
     with jax.disable_jit(mask):
         for i in range(N_STEPS):
+            if ohem:
+                out = model.apply(
+                    {"params": state.params,
+                     "batch_stats": state.batch_stats},
+                    batch["data"], batch["im_info"], batch["gt_boxes"],
+                    batch["valid_ranges"], train=True,
+                    rngs={"sampling": jax.random.PRNGKey(i)},
+                    mutable=["batch_stats", "intermediates"])[0]
+                print(f"step {i}: smallest relative gap at the OHEM "
+                      f"threshold {ohem_gap(out, OHEM_ROIS):.3e}")
             state, m = step(state, batch, jax.random.PRNGKey(i))
             metrics.append({k: float(m[k])
                             for k in metric_names(mask, autofocus)})
@@ -275,14 +328,15 @@ def main():
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    kind = p.add_mutually_exclusive_group()
-    kind.add_argument("--mask", action="store_true",
-                      help="the mask branch's fixture")
-    kind.add_argument("--autofocus", action="store_true",
-                      help="the FocusPixel head's fixture")
+    p.add_argument("--mask", action="store_true",
+                   help="with the mask branch")
+    p.add_argument("--autofocus", action="store_true",
+                   help="with the FocusPixel head")
+    p.add_argument("--ohem", action="store_true",
+                   help=f"with OHEM over {OHEM_ROIS} rois per image")
     args = p.parse_args()
-    metrics, leaves = run_jax(args.mask, args.autofocus)
-    path = fixture_path(args.mask, args.autofocus)
+    metrics, leaves = run_jax(args.mask, args.autofocus, args.ohem)
+    path = fixture_path(args.mask, args.autofocus, args.ohem)
     with open(path, "w") as f:
         json.dump({"steps": N_STEPS, "metrics": metrics, "leaves": leaves},
                   f, indent=1)

@@ -12,9 +12,12 @@ the host-clock time per step, the device-busy time (sum of kernel times)
 and its share, the device time by kernel group (the five hand-written
 kernels, convolutions, GEMMs, BatchNorm, the optimizer, the rest), then the
 top kernels. The chip loader is left out: it runs on the host, in its own
-threads. Needs one CUDA device.
+threads. With TRAIN.AUTO_FOCUS the batch also carries seeded FocusPixel
+labels; with TRAIN.ENABLE_OHEM (``--set TRAIN.ENABLE_OHEM True``) the step
+trains on the BATCH_ROIS_OHEM hardest rois per chip. Needs one CUDA
+device.
 
-    python3 scripts/profile_torch_train.py [--steps 3] [--warmup 2] [--cfg configs/sniper_res101_e2e_mask.yml]
+    python3 scripts/profile_torch_train.py [--steps 3] [--warmup 2] [--cfg configs/sniper_res101_e2e_mask.yml] [--set KEY VALUE ...]
 
 TF32 stays at torch's defaults, as main_train runs.
 """
@@ -95,6 +98,9 @@ def synthetic_batch(cfg, dev, gen):
         batch["gt_masks"] = torch.from_numpy(np.stack([rasterize_gt_masks(
             [[ellipse(b)] if b[4] >= 0 else [] for b in rows], rows[:, :4],
             grid=112, max_n_gts=G) for rows in gt.numpy()]))
+    if cfg.TRAIN.AUTO_FOCUS:
+        batch["scale_label"] = (torch.randint(0, 3, (B, fh * fh),
+                                              generator=gen) - 1).float()
     return {k: v.to(dev) for k, v in batch.items()}
 
 
@@ -103,6 +109,8 @@ def main():
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--cfg", default="configs/sniper_res101_e2e.yml")
+    p.add_argument("--set", dest="overrides", nargs="*", default=[],
+                   help="config overrides: key value ...")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
@@ -121,9 +129,11 @@ def main():
     ).stdout.strip()
     print(card)
     dev = torch.device("cuda", 0)
-    cfg = load_config(os.path.join(ROOT, args.cfg))
-    print(f"{args.cfg}: symbol {cfg.symbol}, TRAIN.WITH_MASK "
-          f"{bool(cfg.TRAIN.WITH_MASK)}, cuDNN TF32 "
+    cfg = load_config(os.path.join(ROOT, args.cfg), args.overrides)
+    ohem = int(cfg.TRAIN.BATCH_ROIS_OHEM) if cfg.TRAIN.ENABLE_OHEM else 0
+    print(f"{args.cfg} {' '.join(args.overrides)}: symbol {cfg.symbol}, "
+          f"TRAIN.WITH_MASK {bool(cfg.TRAIN.WITH_MASK)}, TRAIN.AUTO_FOCUS "
+          f"{bool(cfg.TRAIN.AUTO_FOCUS)}, OHEM rois {ohem}, cuDNN TF32 "
           f"{torch.backends.cudnn.allow_tf32}")
     model = init_detector(get_model(cfg), seed=0).to(dev)
     opt, sched, _ = make_optimizer(cfg, 1000, model)
@@ -131,7 +141,8 @@ def main():
         model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
         rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
         pixel_means=cfg.network.PIXEL_MEANS,
-        generator=torch.Generator(device=dev).manual_seed(0))
+        generator=torch.Generator(device=dev).manual_seed(0),
+        ohem_rois=ohem)
     batch = synthetic_batch(cfg, dev, torch.Generator().manual_seed(0))
     for _ in range(args.warmup):
         step(batch)

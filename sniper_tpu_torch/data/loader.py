@@ -6,9 +6,10 @@ normalized on the device, and the sparse RPN targets, plus under
 TRAIN.WITH_MASK each chip's GT masks rasterized on the host
 (data/mask_utils.py), and under TRAIN.AUTO_FOCUS each chip's FocusPixel
 labels (``scale_label``). The image reader and ``Prefetcher`` are shared
-with data/test_loader.py. The training-chip rendering (TRAIN.VISUALIZE) is
-a later slice of the port (ROADMAP.md Queue 1 item 5) and raises
-NotImplementedError.
+with data/test_loader.py. With TRAIN.VISUALIZE every
+TRAIN.visualization_freq-th schedule slot's chip is rendered with its GT
+boxes to ``<TRAIN.visualization_path>/chip_e<epoch>_s<slot>.jpg``
+(utils/visualization.save_training_chip; epochs count from 1).
 
 Rebuild of the reference MNIteratorE2E + im_worker + PrefetchingIter
 (reference lib/iterators/MNIteratorE2E.py:41-220,
@@ -56,6 +57,7 @@ the in-process re-roll.
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -132,10 +134,6 @@ class ChipLoader:
 
     def __init__(self, roidb, cfg, batch_size, image_loader=load_image_cv2,
                  seed=0):
-        if bool(getattr(cfg.TRAIN, "VISUALIZE", False)):
-            raise NotImplementedError(
-                "the training-chip rendering (TRAIN.VISUALIZE) is not ported "
-                "yet (ROADMAP.md Queue 1 item 5)")
         self.roidb = roidb
         self.cfg = cfg
         self.batch_size = batch_size
@@ -163,6 +161,13 @@ class ChipLoader:
             autofocus=af,
         )
         self.size = 0
+        self._epoch = 0
+        # the training-chip rendering (the reference's MNIteratorE2E
+        # visualize under TRAIN.VISUALIZE)
+        self.vis_path = (str(cfg.TRAIN.visualization_path)
+                         if bool(getattr(cfg.TRAIN, "VISUALIZE", False))
+                         else None)
+        self.vis_freq = max(int(cfg.TRAIN.visualization_freq or 100), 1)
         self.num_workers = int(getattr(cfg.TRAIN, "NUM_THREAD", 1) or 1)
         self._pool = (
             ThreadPoolExecutor(max_workers=self.num_workers)
@@ -199,6 +204,7 @@ class ChipLoader:
         a Pool(NUM_PROCESS=64) on the same per-epoch re-roll,
         MNIteratorE2E.py:47-69)."""
         cfg = self.cfg
+        self._epoch += 1
         lo, hi = cfg.TRAIN.CHIP_STRIDE_RANGE
         stride = self.rng.randint(lo, hi)
         scales, ranges = cfg.TRAIN.SCALES, cfg.TRAIN.VALID_RANGES
@@ -273,7 +279,17 @@ class ChipLoader:
         """Assemble the training sample for schedule slot ``pos``."""
         im_idx, crop_id = self.schedule[pos]
         rng = np.random.RandomState((self._slot_seed + pos) % (2**31 - 1))
-        return self._build_sample(im_idx, crop_id, rng)
+        sample = self._build_sample(im_idx, crop_id, rng)
+        if self.vis_path is not None and pos % self.vis_freq == 0:
+            from sniper_tpu_torch.utils.visualization import (
+                save_training_chip,
+            )
+
+            save_training_chip(
+                sample, self.cfg.network.PIXEL_MEANS,
+                os.path.join(self.vis_path,
+                             f"chip_e{self._epoch}_s{pos}.jpg"))
+        return sample
 
     def _build_sample(self, im_idx, crop_id, rng):
         """Pure sample assembly: imread -> chip crop/resize -> RPN targets."""

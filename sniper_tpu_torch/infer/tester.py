@@ -93,8 +93,8 @@ class Tester:
     [B,N,4] std-denormalized, roi_valid [B,N], mask_prob [B,N,S,S] with
     the mask branch and focus_prob [B,H,W] with the AutoFocus head); for
     ``extract_proposals`` an RPN-only forward's rois, roi_scores and
-    roi_valid. The JAX Tester's per-chip NMS mode comes with the slice that
-    adds it (ROADMAP.md Queue 1 item 5).
+    roi_valid. ``get_detections(per_chip_nms=True)`` runs each chip's
+    per-class detections through the config's NMS before aggregation.
     """
 
     def __init__(self, forward_fn, cfg, num_classes: int):
@@ -161,7 +161,8 @@ class Tester:
         return boxes_out, scores_out
 
     def get_detections(self, batches, roidb, cls_thresh=1e-3,
-                       do_pruning=False, autofocus=False, with_masks=False):
+                       per_chip_nms=False, do_pruning=False, autofocus=False,
+                       with_masks=False):
         """Run detection over an iterable of batches.
 
         ``batches`` yields dicts with data [B,H,W,3], im_info [B,3],
@@ -171,7 +172,9 @@ class Tester:
         -> [N,5]); with ``autofocus`` all_maps ([img][chip] -> the chip's
         FocusPixel map), else None; with ``with_masks`` all_masks
         ([cls][img][chip] -> [N,S,S] aligned with all_boxes rows), else
-        None.
+        None. ``per_chip_nms`` passes each chip's per-class detections
+        through the config's NMS (``self.nms``, TEST.NMS / NMS_SIGMA), the
+        masks of the kept rows with them.
         """
         n_images = len(roidb)
         n_chips = [len(r["inference_crops"]) for r in roidb]
@@ -226,10 +229,17 @@ class Tester:
                         ).astype(np.float32)
                     else:
                         dets = empty
+                    m = masks[i][inds] if all_masks is not None and masks \
+                        else None
+                    if per_chip_nms and dets.shape[0]:
+                        if m is not None:
+                            dets, keep = self.nms(dets, return_indices=True)
+                            m = m[keep]
+                        else:
+                            dets = self.nms(dets)
                     all_boxes[j][im_id][chip_id] = dets
                     if all_masks is not None:
-                        all_masks[j][im_id][chip_id] = (
-                            masks[i][inds] if masks else None)
+                        all_masks[j][im_id][chip_id] = m
 
                 if do_pruning:
                     chip = roidb[im_id]["inference_crops"][chip_id]

@@ -18,6 +18,13 @@ with the GT polygons rasterized by the chip loader; TRAIN.AUTO_FOCUS
 ``focus_loss`` against the chip loader's FocusPixel labels. The model zoo
 trains the same way: ResNeXt-101 with ``--set symbol resnext_mx_101`` on
 the flagship yml, MobileNetV2 with configs/sniper_mobilenetv2_e2e.yml.
+configs/sniper_res101_e2e_mask_autofocus.yml trains the mask branch and the
+FocusPixel head together (all six losses). TRAIN.ENABLE_OHEM trains the
+R-CNN terms on the TRAIN.BATCH_ROIS_OHEM hardest sampled rois of each chip
+(ops/ohem.py). TRAIN.VISUALIZE renders every TRAIN.visualization_freq-th
+training chip with its GT boxes (data/loader.py) and, every
+visualization_freq steps, the detector's predictions on the last assembled
+batch (train/vis_dump.py), both under TRAIN.visualization_path.
 Each epoch re-rolls
 the chips, assembles batches in a background thread and uploads them
 (pinned memory, non-blocking copies) in a second one, so both overlap the
@@ -38,20 +45,19 @@ Each rank trains on ``shard_roidb``'s slice with its own loader of
 TRAIN.BATCH_IMAGES chips seeded TRAIN.seed + rank, and every rank runs
 ``global_min_steps`` steps an epoch; the global batch is BATCH_IMAGES x
 ranks. Only rank 0 logs and writes checkpoints, which hold the unwrapped
-model's state_dict (a one-process model loads them). A rank that fails
+model's state_dict (a one-process model loads them), and only rank 0
+writes TRAIN.VISUALIZE's chip renderings and prediction dumps, which the
+ranks would otherwise overwrite under the same names. A rank that fails
 ends the run with an error.
-
-Not ported yet, raising NotImplementedError with its ROADMAP item: OHEM.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
+import copy
 import os
 import shutil
 import tempfile
-import time
 
 import torch
 
@@ -66,6 +72,8 @@ from sniper_tpu_torch.train.trainer import (
     reduce_metrics,
     to_device,
 )
+from sniper_tpu_torch.train.vis_dump import PredictionDumper
+from sniper_tpu_torch.utils.logger import create_logger
 
 LOG_EVERY = 20  # steps between progress lines (the JAX CLI's)
 
@@ -146,15 +154,10 @@ def num_devices(cfg, device) -> int:
         else 1
 
 
-def check_ported(cfg, device):
-    """Raise NotImplementedError for the options of later slices, and
-    ValueError for a device count the run cannot have: more cards than the
-    machine shows for a CUDA ``device``, or, in a process group, an
-    explicit parallel.num_devices other than its size."""
-    if cfg.TRAIN.ENABLE_OHEM:
-        raise NotImplementedError(
-            "OHEM (TRAIN.ENABLE_OHEM) is not ported yet (ROADMAP.md Queue 1 "
-            "item 5)")
+def check_devices(cfg, device):
+    """Raise ValueError for a device count the run cannot have: more cards
+    than the machine shows for a CUDA ``device``, or, in a process group,
+    an explicit parallel.num_devices other than its size."""
     n = int(cfg.parallel.num_devices)
     if distributed.is_distributed():
         if n != -1 and n != distributed.world_size():
@@ -202,9 +205,16 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     is BATCH_IMAGES x ranks, every rank runs the global minimum of the
     ranks' steps, the metrics are reduced over the ranks at each log line,
     the sampler's generator is seeded TRAIN.seed + rank, and only rank 0
-    logs and checkpoints. Returns the last epoch's metric means (global)
-    and the step count."""
-    check_ported(cfg, device)
+    logs, checkpoints and dumps predictions.
+
+    TRAIN.ENABLE_OHEM trains on the TRAIN.BATCH_ROIS_OHEM hardest rois per
+    chip. TRAIN.VISUALIZE (not for TRAIN.ONLY_PROPOSAL, which has no
+    detection head) dumps the predictions of the unwrapped model on the
+    last batch the loader assembled after every visualization_freq-th step
+    (train/vis_dump.py; that batch may run ahead of the step by the
+    prefetch depth, and the dump records its own sequence number). Returns
+    the last epoch's metric means (global) and the step count."""
+    check_devices(cfg, device)
     rank, world = distributed.rank(), distributed.world_size()
     if rank != 0:
         log = _quiet
@@ -223,7 +233,13 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
         net, opt, sched, batch_images,
         rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
         pixel_means=cfg.network.PIXEL_MEANS, generator=gen,
-        rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL))
+        rpn_only=bool(cfg.TRAIN.ONLY_PROPOSAL),
+        ohem_rois=(int(cfg.TRAIN.BATCH_ROIS_OHEM)
+                   if cfg.TRAIN.ENABLE_OHEM else 0))
+    dumper = (PredictionDumper(model, cfg)
+              if bool(cfg.TRAIN.VISUALIZE) and rank == 0
+              and not cfg.TRAIN.ONLY_PROPOSAL else None)
+    last_host: list = []  # [(sequence number, host batch)]
     ckpt_dir = os.path.join(out_dir, "checkpoints") if out_dir else None
     step = 0
     if cfg.TRAIN.begin_epoch > 0:
@@ -250,12 +266,19 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
         # then the upload. The loader is told the epoch's step count, so a
         # loader process closes the cut epoch itself and keeps its rng
         host = Prefetcher(loader.batches(n))
+        if dumper is not None:
+            host = _tap(host, last_host)
         for batch in Prefetcher(to_device(b, device) for b in host):
             metrics = step_fn(batch)
             pending.append(metrics)
             step += 1
             if step_hook is not None:
                 step_hook(step, metrics)
+            if dumper is not None:
+                seq, b = last_host[0]
+                p = dumper.maybe_dump(b, step, batch_seq=seq)
+                if p:
+                    log(f"dumped predictions to {p}")
             if step % LOG_EVERY == 0:
                 flush()
                 log(tracker.format(epoch, step)
@@ -272,34 +295,30 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     return {"step": step, "means": means}
 
 
+def _tap(batches, last: list):
+    """Pass the host batches through, keeping the latest with its sequence
+    number over the run in ``last[0]`` (one tuple, replaced whole: the
+    upload thread writes it while the step loop reads it)."""
+    start = last[0][0] + 1 if last else 0
+    for seq, b in enumerate(batches, start):
+        last[:] = [(seq, b)]
+        yield b
+
+
 def _quiet(*_):
     pass
-
-
-def create_logger(output_path: str, cfg_name: str, image_set: str):
-    """Log to stdout and to <output_path>/<cfg_name>/<image_set>/."""
-    out_dir = os.path.join(output_path, cfg_name, image_set)
-    os.makedirs(out_dir, exist_ok=True)
-    ts = time.strftime("%Y-%m-%d-%H-%M")
-    logger = logging.getLogger(f"sniper_tpu_torch.{cfg_name}")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("%(asctime)s %(message)s")
-    for h in (logging.FileHandler(os.path.join(out_dir,
-                                               f"{cfg_name}_{ts}.log")),
-              logging.StreamHandler()):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    logger.propagate = False
-    return logger, out_dir
 
 
 def make_loader(roidb, cfg, seed, image_loader=None):
     """The chip loader of TRAIN.BATCH_IMAGES: a ProcessChipLoader with
     TRAIN.LOADER_PROCESS (main_train.py:149-160), else a ChipLoader.
     ``image_loader`` replaces cv2.imread (a module-level function for the
-    loader process)."""
+    loader process). Under TRAIN.VISUALIZE only rank 0's loader renders
+    chips."""
     kw = {} if image_loader is None else {"image_loader": image_loader}
+    if bool(cfg.TRAIN.VISUALIZE) and distributed.rank() != 0:
+        cfg = copy.deepcopy(cfg)
+        cfg.TRAIN.VISUALIZE = False
     if bool(getattr(cfg.TRAIN, "LOADER_PROCESS", False)):
         from sniper_tpu_torch.data.shm_loader import ProcessChipLoader
 
@@ -358,12 +377,12 @@ def launch_training(cfg, cfg_file: str, device):
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         try:
-            check_ported(cfg, device)
+            check_devices(cfg, device)
             train(cfg, cfg_file, device)
         finally:
             torch.distributed.destroy_process_group()
         return
-    check_ported(cfg, device)
+    check_devices(cfg, device)
     n = num_devices(cfg, device)
     if n <= 1:
         train(cfg, cfg_file, device)

@@ -1,7 +1,6 @@
 """Loss functions with the reference's normalizations.
 
-Port of sniper_tpu/models/losses.py:20-184 without the OHEM term (ROADMAP.md
-Queue 1 item 5):
+Port of sniper_tpu/models/losses.py:20-184:
 
 - softmax CE with ignore label -1 and 'valid' normalization (the sum over
   non-ignored entries / max(count, 1)), logits cast to fp32 first;
@@ -13,20 +12,23 @@ Queue 1 item 5):
 - the mask term: the valid-normalized CE over every target cell of the
   mask rois, -1 ignored;
 - the AutoFocus term: the valid-normalized CE of the FocusPixel logits
-  against the chip loader's ``scale_label``, -1 (don't care) ignored.
+  against the chip loader's ``scale_label``, -1 (don't care) ignored;
+- OHEM (TRAIN.ENABLE_OHEM, ops/ohem.py): before the R-CNN terms, only the
+  hardest sampled rois of each image keep their labels and box weights.
 
 Under data parallelism each rank computes its share of the one global loss
 of the JAX package's step (sniper_tpu/train/trainer.py:82-160): the CE
 terms divide the rank's sum by the global valid count (an all-reduce of
-the count, without gradient), and the box terms by the global
-``batch_images`` their caller passes. The shares add up over the ranks to
-the loss of the joined batch.
+the count, without gradient; under OHEM the count of the kept rois), and
+the box terms by the global ``batch_images`` their caller passes. The
+shares add up over the ranks to the loss of the joined batch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sniper_tpu_torch.ops.ohem import ohem_select
 from sniper_tpu_torch.parallel.distributed import global_count
 
 
@@ -35,17 +37,22 @@ def smooth_l1(x):
     return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
 
 
+def _nll(logits, labels):
+    """Each entry's CE, fp32: logits [..., C], labels [...] int, 0 where
+    the label is -1 (ignored)."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    return torch.where(labels >= 0, nll, 0.0)
+
+
 def softmax_ce_ignore(logits, labels):
     """Valid-normalized CE. logits [..., C], labels [...] int with -1
     ignore; the valid count is the global one across the ranks of a
     process group. Returns a 0-d fp32 tensor."""
-    logits = logits.float()
-    labels = labels.long()
     valid = labels >= 0
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / global_count(valid.sum()).clamp_min(1)
+    return (_nll(logits, labels).sum()
+            / global_count(valid.sum()).clamp_min(1))
 
 
 def _rpn_logits(rpn_cls_logits):
@@ -116,8 +123,20 @@ def mask_loss(mask_logits, mask_targets):
     return softmax_ce_ignore(mask_logits, mask_targets)
 
 
+def _ohem(outputs, labels, weights, ohem_rois):
+    """ohem_select on each roi's cls loss (``_nll``) and box loss (the
+    weighted smooth-L1 summed over the 4 coordinates), both fp32 [B,R].
+    The selection carries no gradient: the R-CNN terms take theirs through
+    the kept rois."""
+    with torch.no_grad():
+        diff = (outputs["bbox_pred"] - outputs["rcnn_bbox_targets"]).float()
+        return ohem_select(_nll(outputs["cls_score"], labels),
+                           (weights * smooth_l1(diff)).sum(-1), labels,
+                           weights, ohem_rois)
+
+
 def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
-               rpn_only=False):
+               rpn_only=False, ohem_rois=0):
     """The training loss from the detector's outputs and a loader batch,
     which carries either the sparse RPN targets ('rpn_pids',
     'rpn_label_vals' [B,S], 'fg_pids' [B,F], 'fg_targets' [B,F,4]) or dense
@@ -127,7 +146,9 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
     term against the batch's 'scale_label' [B,H*W] when the batch has one
     (the loader ships it under TRAIN.AUTO_FOCUS; metric ``focus_loss``);
     outputs with ``mask_logits`` (the mask branch's) add the mask term.
-    Returns (loss, metrics dict of 0-d tensors)."""
+    ``ohem_rois`` > 0 (TRAIN.BATCH_ROIS_OHEM under TRAIN.ENABLE_OHEM) keeps
+    only the hardest ``ohem_rois`` rois of each image in the R-CNN terms
+    (``_ohem``). Returns (loss, metrics dict of 0-d tensors)."""
     if "rpn_pids" in batch:
         l_rpn_cls = rpn_cls_loss_sparse(
             outputs["rpn_cls_logits"], batch["rpn_pids"],
@@ -144,10 +165,14 @@ def total_loss(outputs, batch, batch_images, rpn_batch_size=256,
         loss = l_rpn_cls + l_rpn_bbox
         return loss, {"rpn_cls_loss": l_rpn_cls, "rpn_bbox_loss": l_rpn_bbox,
                       "loss": loss}
-    l_rcnn_cls = rcnn_cls_loss(outputs["cls_score"], outputs["rcnn_labels"])
+    labels = outputs["rcnn_labels"]
+    weights = outputs["rcnn_bbox_weights"]
+    if ohem_rois:
+        labels, weights = _ohem(outputs, labels, weights, ohem_rois)
+    l_rcnn_cls = rcnn_cls_loss(outputs["cls_score"], labels)
     l_rcnn_bbox = rcnn_bbox_loss(
-        outputs["bbox_pred"], outputs["rcnn_bbox_targets"],
-        outputs["rcnn_bbox_weights"], batch_images)
+        outputs["bbox_pred"], outputs["rcnn_bbox_targets"], weights,
+        batch_images)
     loss = l_rpn_cls + l_rpn_bbox + l_rcnn_cls + l_rcnn_bbox
     metrics = {
         "rpn_cls_loss": l_rpn_cls,

@@ -12,7 +12,9 @@ device: the losses, ``rcnn_acc``, ``rcnn_fg_frac``, the head's offset
 telemetry and the trunk's ``dcn_offset_max`` (with ``rpn_only``, the RPN
 losses and the trunk's telemetry only, as trainer.py:128-145; with the
 model's AutoFocus head and a batch with ``scale_label``, also
-``focus_loss``; with the model's mask branch, also ``mask_loss``). The
+``focus_loss``; with the model's mask branch, also ``mask_loss``; under
+OHEM, ``rcnn_acc`` and ``rcnn_fg_frac`` over the sampled rois, as JAX's,
+which count before the selection). The
 batch's uint8 ``gt_masks`` go to the model as they are: it casts them
 where it crop-resizes. The caller reads them when it logs. The sampler draws from an explicit
 ``torch.Generator`` on the device.
@@ -45,12 +47,14 @@ from sniper_tpu_torch.parallel.distributed import (
 def make_train_step(model, optimizer, scheduler, batch_images: int, *,
                     rpn_batch_size: int = 256, pixel_means=None,
                     generator: torch.Generator | None = None,
-                    rpn_only: bool = False):
+                    rpn_only: bool = False, ohem_rois: int = 0):
     """Returns step(batch, priorities=None) -> metrics. ``batch`` is a dict
     of tensors on the model's device (the chip loader's keys);
     ``priorities`` replace the sampler's draws from ``generator`` (see
     ops/proposals.multi_proposal_target). ``batch_images`` is the global
-    batch under data parallelism (module doc)."""
+    batch under data parallelism (module doc). ``ohem_rois`` > 0 trains
+    the R-CNN terms on each image's hardest rois only (models/losses.py,
+    TRAIN.BATCH_ROIS_OHEM under TRAIN.ENABLE_OHEM)."""
     # DDP averages the ranks' gradients, and each rank's loss is its share
     # of the one global loss: scaled by the world size, the average is the
     # sum, the gradient of the global loss (x 1 without a group)
@@ -70,7 +74,7 @@ def make_train_step(model, optimizer, scheduler, batch_images: int, *,
                     batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
                     train=True, generator=generator, priorities=priorities)
         loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size,
-                                   rpn_only=rpn_only)
+                                   rpn_only=rpn_only, ohem_rois=ohem_rois)
         if not rpn_only:
             labels = out["rcnn_labels"]
             pred = out["cls_score"].detach().argmax(-1)

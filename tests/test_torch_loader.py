@@ -143,18 +143,6 @@ def test_chip_loader_matches_jax(roidbs, cpp_chips):
     assert negs > 0  # the epochs mined negative chips
 
 
-def test_unported_loader_options_raise(roidbs):
-    (tr, _, _), _ = roidbs
-    # TRAIN.NUM_PROCESS > 1 is ported (test_torch_shm_loader),
-    # TRAIN.WITH_MASK (test_chip_loader_with_masks_matches_jax) and
-    # TRAIN.AUTO_FOCUS (test_torch_autofocus)
-    for key, value in (("VISUALIZE", True),):
-        cfg = make_cfg()
-        setattr(cfg.TRAIN, key, value)
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            ChipLoader(tr, cfg, 2, image_loader=synth_image_loader)
-
-
 def add_polygons(roidb, rng):
     """Each GT gets an ellipse of 12 to 20 vertices inscribed in its box,
     every third one a second, triangular segment."""

@@ -2,7 +2,8 @@
 blocked in ``sys.modules``, every module of sniper_tpu_torch imports and no
 module of sniper_tpu comes along; and no source file of the port, nor
 chip_smoke.py, imports jax or sniper_tpu, at the top or inside a
-function."""
+function. Every module of sniper_tpu, and each top-level CLI the port
+serves, has its counterpart of the same name in the port."""
 
 import os
 import pkgutil
@@ -55,6 +56,8 @@ def test_every_module_imports_without_jax():
     assert "sniper_tpu_torch.models.mobilenetv2" in mods
     assert "sniper_tpu_torch.parallel.distributed" in mods
     assert "sniper_tpu_torch.parallel.mesh" in mods
+    assert "sniper_tpu_torch.demo" in mods
+    assert "sniper_tpu_torch.utils.profiler" in mods
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -75,3 +78,19 @@ def test_no_sniper_tpu_import_in_source(path):
         src = f.read()
     assert not re.search(r"^\s*(from|import)\s+sniper_tpu(\.|\s|$)", src,
                          re.M), path
+
+
+def test_every_jax_module_has_a_counterpart():
+    """sniper_tpu/<path>.py -> sniper_tpu_torch/<path>.py, but for the
+    Pallas kernels (ops/pallas/), which csrc/ replaces; the top-level demo
+    and CLIs -> sniper_tpu_torch/. bench.py is not ported yet."""
+    jax_pkg = os.path.join(ROOT, "sniper_tpu")
+    missing = [
+        os.path.relpath(os.path.join(d, f), jax_pkg)
+        for d, _, fs in os.walk(jax_pkg) for f in fs
+        if f.endswith(".py") and "pallas" not in os.path.relpath(d, jax_pkg)
+        and not os.path.exists(os.path.join(
+            PKG, os.path.relpath(os.path.join(d, f), jax_pkg)))]
+    missing += [f for f in ("demo.py", "main_train.py", "main_test.py")
+                if not os.path.exists(os.path.join(PKG, f))]
+    assert not missing, missing

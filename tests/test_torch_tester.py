@@ -1,7 +1,8 @@
 """The port's jax-free host plane (Tester, test-time batches, on-device
 normalization) against the JAX package's, on the same inputs: the copies
 must give identical results, with masks too (carried through the class
-filter, the chip-border pruning, the NMS keep and the MAX_PER_IMAGE cap)."""
+filter, the chip-border pruning, the NMS keep and the MAX_PER_IMAGE cap),
+and with the per-chip NMS (``per_chip_nms``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -177,3 +178,54 @@ def test_scale_post_nms():
                                                                   100]
     with pytest.raises(ValueError):
         _scale_post_nms(cfg, 3, None)
+
+
+@pytest.mark.parametrize("with_masks", [False, True])
+@pytest.mark.parametrize("nms", [-1, 0.3])
+def test_get_detections_per_chip_nms_matches_jax(rng, with_masks, nms):
+    """per_chip_nms: each chip's per-class detections through the
+    config's soft-NMS (TEST.NMS -1) or hard NMS, the masks of the kept rows
+    with them, as the JAX Tester's."""
+    cfg = default_config()
+    cfg.TEST.NMS = nms
+    cfg.TEST.NMS_SIGMA = 0.55 if nms < 0 else -1
+    n, ncls, S = 30, 3, 5
+    roidb = _roidb(2)
+    tloader.init_inference_crops(roidb)
+    # clustered boxes: many overlap within a class
+    centres = rng.uniform(20, 100, (2, 4, 2))[:, rng.randint(0, 4, n)]
+    half = rng.uniform(8, 20, (2, n, 2))
+    rois = np.concatenate([np.zeros((2, n, 1)), centres - half,
+                           centres + half], -1).astype(np.float32)
+    out = {"rois": rois,
+           "cls_prob": rng.dirichlet(np.ones(ncls), (2, n)).astype(np.float32),
+           "bbox_pred": (rng.randn(2, n, 4) * 0.05).astype(np.float32),
+           "roi_valid": np.arange(n)[None].repeat(2, 0) < n - 3}
+    if with_masks:
+        out["mask_prob"] = rng.rand(2, n, S, S).astype(np.float32)
+    batch = {"data": None, "im_info": np.array([[90, 130, 1.0]] * 2,
+                                               np.float32),
+             "im_scales": np.array([1.0, 1.3], np.float32),
+             "im_ids": np.array([0, 1]), "chip_ids": np.array([0, 0]),
+             "valid": np.array([True, True])}
+    kw = dict(with_masks=with_masks)
+    want = jtester.Tester(lambda d, i: out, cfg, ncls).get_detections(
+        [batch], roidb, per_chip_nms=True, **kw)
+    tester = ttester.Tester(
+        lambda d, i: {k: torch.from_numpy(np.asarray(v))
+                      for k, v in out.items()}, cfg, ncls)
+    got = tester.get_detections([batch], roidb, per_chip_nms=True, **kw)
+    plain = tester.get_detections([batch], roidb, **kw)
+    rows = plain_rows = 0
+    for c in range(1, ncls):
+        for i in range(2):
+            np.testing.assert_array_equal(got[0][c][i][0], want[0][c][i][0])
+            if with_masks:
+                np.testing.assert_array_equal(got[2][c][i][0],
+                                              want[2][c][i][0])
+                assert len(got[2][c][i][0]) == len(got[0][c][i][0])
+            rows += len(got[0][c][i][0])
+            plain_rows += len(plain[0][c][i][0])
+    # both NMS kinds drop rows here (soft-NMS those rescored under its
+    # 1e-3 floor)
+    assert 0 < rows < plain_rows

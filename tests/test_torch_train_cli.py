@@ -3,10 +3,9 @@ at a tiny size: the chip loader over a synthetic roidb -> the tiny detector
 (fp32) -> SGD steps -> a checkpoint per epoch -> resume. Its parity with
 the JAX package is held piece by piece in the other test_torch_* files; this
 test checks the wiring: finite losses, the step count, the telemetry, the
-checkpoints, and the options of later slices raising with their ROADMAP
-item. The mask config trains the same way (its polygons rasterized by the
-loader, mask_loss among the metrics), and main_test's restore of its
-checkpoint gives masks.
+checkpoints and the device counts. The mask config trains the same way (its
+polygons rasterized by the loader, mask_loss among the metrics), and
+main_test's restore of its checkpoint gives masks.
 """
 
 import math
@@ -20,7 +19,7 @@ from sniper_tpu.config import default_config
 from sniper_tpu_torch.data.loader import ChipLoader
 from sniper_tpu_torch.main_train import (
     build_roidb,
-    check_ported,
+    check_devices,
     num_devices,
     run_training,
 )
@@ -135,24 +134,6 @@ def test_run_training_trains_checkpoints_and_resumes(tmp_path):
     assert res2["step"] == steps_epoch0 + 1
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("TRAIN.ENABLE_OHEM", True, 5)])
-def test_unported_training_options_raise(key, value, item):
-    """The options of later slices raise with their ROADMAP item. The
-    options ported since run in their own tests: data parallelism
-    (parallel.num_devices) in test_torch_dp_*, TRAIN.WITH_MASK in
-    test_torch_mask_train and below, TRAIN.AUTO_FOCUS in
-    test_torch_autofocus and test_torch_autofocus_pipeline, TRAIN.ONLY_PROPOSAL in
-    test_torch_rpn_only and test_torch_recipe, network.pretrained in
-    test_torch_pretrained and test_torch_recipe, TRAIN.LOADER_PROCESS in
-    test_torch_shm_loader and test_torch_recipe."""
-    cfg = make_cfg()
-    group, name = key.split(".")
-    setattr(getattr(cfg, group), name, value)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        check_ported(cfg, torch.device("cpu"))
-
-
 @pytest.mark.parametrize("count", [1, 2])
 def test_all_devices_resolves_to_the_visible_cards(monkeypatch, count):
     """parallel.num_devices = -1 is every visible card on a CUDA device
@@ -164,12 +145,12 @@ def test_all_devices_resolves_to_the_visible_cards(monkeypatch, count):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     assert num_devices(cfg, "cuda") == count
     assert num_devices(cfg, torch.device("cpu")) == 1
-    check_ported(cfg, torch.device("cpu"))
-    check_ported(cfg, torch.device("cuda", 0))
+    check_devices(cfg, torch.device("cpu"))
+    check_devices(cfg, torch.device("cuda", 0))
     cfg.parallel.num_devices = count + 1
     with pytest.raises(ValueError, match="CUDA devices are visible"):
-        check_ported(cfg, torch.device("cuda", 0))
-    check_ported(cfg, torch.device("cpu"))
+        check_devices(cfg, torch.device("cuda", 0))
+    check_devices(cfg, torch.device("cpu"))
 
 
 def test_mask_training_checkpoints_and_restores_with_masks(tmp_path):

@@ -23,7 +23,9 @@ within 2e-2 of its norm (relative L2); the BatchNorm running statistics
 within rtol 1e-4. Frozen leaves must not move at all. The mask branch's
 three steps (tests/test_torch_mask_train.py) run through the same
 comparison, with mask_loss among the losses, and so do the FocusPixel
-head's (tests/test_torch_autofocus.py), with focus_loss among them.
+head's (tests/test_torch_autofocus.py), with focus_loss among them, both
+branches' together (tests/test_torch_mask_autofocus_train.py) and OHEM's
+(tests/test_torch_ohem.py).
 """
 
 import json
@@ -55,17 +57,19 @@ def test_three_train_steps_match_jax():
     check_three_steps(mask=False)
 
 
-def check_three_steps(mask, autofocus=False):
+def check_three_steps(mask, autofocus=False, ohem=False):
     """The port's three steps from the fixture's initial variables and
-    batch against the frozen JAX metrics and leaves."""
-    with open(gg.fixture_path(mask, autofocus)) as f:
+    batch against the frozen JAX metrics and leaves (with ``ohem``,
+    gg.OHEM_ROIS rois per image)."""
+    with open(gg.fixture_path(mask, autofocus, ohem)) as f:
         want = json.load(f)
     variables = gg.initial_variables(mask, autofocus)
     model = tiny_torch_detector(variables,
                                 **gg.model_kwargs(mask, autofocus))
     opt, sched, _ = make_optimizer(gg.make_cfg(), 100, model)
     step = make_train_step(model, opt, sched, gg.B,
-                           pixel_means=(0.0, 0.0, 0.0))
+                           pixel_means=(0.0, 0.0, 0.0),
+                           ohem_rois=gg.OHEM_ROIS if ohem else 0)
     batch = {k: torch.from_numpy(v)
              for k, v in gg.make_batch(mask, autofocus).items()}
     for i in range(want["steps"]):

@@ -100,12 +100,13 @@ def tiny_detector(bn_mode="sync"):
     return init_detector(model, seed=INIT_SEED, offset_std=OFFSET_STD)
 
 
-def train_steps(bn_mode, priorities, rank=0, world=1):
+def train_steps(bn_mode, priorities, rank=0, world=1, ohem_rois=0):
     """len(priorities) steps of make_train_step on this rank's shard of
     make_batch (all of it for one process), DDP-wrapped in a process group;
     ``priorities`` is one (fg, bg) pair of [B_GLOBAL, N_CAND] arrays per
-    step, of which the rank takes its rows. Returns (the steps' global
-    metrics as floats, the model's state_dict)."""
+    step, of which the rank takes its rows; ``ohem_rois`` as
+    make_train_step's. Returns (the steps' global metrics as floats, the
+    model's state_dict)."""
     from sniper_tpu_torch.parallel.mesh import data_parallel
     from sniper_tpu_torch.train.optimizer import make_optimizer
     from sniper_tpu_torch.train.trainer import make_train_step, reduce_metrics
@@ -115,7 +116,7 @@ def train_steps(bn_mode, priorities, rank=0, world=1):
     net = data_parallel(model, "cpu") if distributed.is_distributed() \
         else model
     step = make_train_step(net, opt, sched, B_GLOBAL,
-                           pixel_means=(0.0, 0.0, 0.0))
+                           pixel_means=(0.0, 0.0, 0.0), ohem_rois=ohem_rois)
     b = B_GLOBAL // world
     rows = slice(rank * b, (rank + 1) * b)
     batch = {k: torch.from_numpy(v[rows]) for k, v in make_batch().items()}
@@ -129,12 +130,13 @@ def train_steps(bn_mode, priorities, rank=0, world=1):
 
 
 def train_rank(rank, device, world, runs, out_dir):
-    """For each (name, bn_mode, priorities) of ``runs``: train_steps on
-    this rank, its metrics and state_dict saved to
+    """For each (name, bn_mode, priorities[, ohem_rois]) of ``runs``:
+    train_steps on this rank, its metrics and state_dict saved to
     <out_dir>/<name>_rank<rank>.pt."""
     torch.set_num_threads(1)
-    for name, bn_mode, priorities in runs:
-        metrics, state = train_steps(bn_mode, priorities, rank, world)
+    for name, bn_mode, priorities, *ohem in runs:
+        metrics, state = train_steps(bn_mode, priorities, rank, world,
+                                     *ohem)
         torch.save({"metrics": metrics, "state": state},
                    os.path.join(out_dir, f"{name}_rank{rank}.pt"))
 
