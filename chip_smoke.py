@@ -453,12 +453,14 @@ def check_im2col(dev, sh):
     )
 
     B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], sh.get("C5", 512), 4, 3, 2
+    CG = sh.get("conv_groups", 1)
     g = torch.Generator().manual_seed(2)
     x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
     # +-6 px offsets: many samples leave the map and clamp onto its border
     off = ((torch.rand(B, H, W, G * K * K * 2, generator=g) * 2 - 1) * 6.0)
     off = off.to(dev)
-    kw = dict(num_groups=G, kernel_size=K, dilation=d)
+    # with conv groups (ResNeXt's C5) the col is written group-major
+    kw = dict(num_groups=G, kernel_size=K, dilation=d, conv_groups=CG)
     a = deform_im2col(x, off, **kw)
     b = deform_im2col_plain(x, off, **kw)
     torch.cuda.synchronize()
@@ -477,40 +479,52 @@ def check_im2col(dev, sh):
     r = result(ok, err.max(), ms, plain_ms, nbytes,
                7.0 * B * H * W * KK * C, lib_ms)
     del xg, grid
+    layout = (f"col group-major over {CG} conv groups" if CG > 1
+               else "col [B,H,W,K*K,C]")
     print(f"deform_im2col [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
-          f"dilation {d}, offsets +-6 px: max abs err "
+          f"dilation {d}, offsets +-6 px, {layout}: max abs err "
           f"{float(err.max()):.3e}, bit-exact {exact}; kernel {ms:.4f} ms "
           f"({nbytes / ms / 1e6:.0f} GB/s effective), plain {plain_ms:.4f} "
           f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
           f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.0f} GB/s), "
           f"library F.grid_sample (fp32) {lib_ms:.4f} ms"
-          + grouped_product(x, off, sh.get("conv_groups", 1)))
+          + c5_conv(x, off, CG))
     torch.cuda.empty_cache()
     return r
 
 
-def grouped_product(x, off, CG: int) -> str:
-    """With ``CG`` conv groups (ResNeXt's C5): the time of what
-    deformable_conv runs after the im2col, ``grouped_product`` (the col's
-    group-major copy, the batched product with the weight and the output's
-    reorder), in bf16, and of its copy alone, beside X1's; "" for CG = 1."""
+def c5_conv(x, off, CG: int) -> str:
+    """With ``CG`` conv groups (ResNeXt's C5): the time of the whole
+    deformable conv, bf16, forward (X1, then ``grouped_product`` on the
+    group-major col as X1 writes it: the batched product and the output's
+    reorder) and forward + backward (the product's gradients, X2 on the
+    group-major gcol), and of the product alone; "" for CG = 1."""
     if CG == 1:
         return ""
     from sniper_tpu_torch.ops import deform
 
     B, H, W, C = x.shape
-    col = deform.deform_im2col(x, off, num_groups=4, kernel_size=3,
-                               dilation=2)
+    kw = dict(num_groups=4, kernel_size=3, dilation=2, conv_groups=CG)
+    col = deform.deform_im2col(x, off, **kw)
     w = torch.randn(C, C // CG, 3, 3, device=x.device,
                     dtype=torch.bfloat16) * 0.02
-    copy_ms = time_ms(lambda: deform.group_major(col, CG), 5)
-    product_ms = time_ms(lambda: deform.grouped_product(col, w, CG), 5)
-    nbytes = 2 * col.numel() * 2
+    product_ms = time_ms(lambda: deform.grouped_product(col, w, (B, H, W)),
+                         5)
     del col
-    return (f"; the grouped product after it ({CG} conv groups) "
-            f"{product_ms:.4f} ms, of which the col's group-major copy "
-            f"{copy_ms:.4f} ms ({nbytes / 1e6:.0f} MB moved, "
-            f"{nbytes / copy_ms / 1e6:.0f} GB/s)")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: deform.deformable_conv(x, off, w, **kw), 5)
+    xr = x.detach().requires_grad_()
+    offr = off.detach().requires_grad_()
+    wr = w.detach().requires_grad_()
+    gout = torch.randn(B, H, W, C, device=x.device, dtype=torch.bfloat16)
+
+    def step():
+        deform.deformable_conv(xr, offr, wr, **kw).backward(gout)
+
+    both_ms = time_ms(step, 5)
+    return (f"; the C5 conv ({CG} conv groups, the col group-major, no "
+            f"copy) forward {fwd_ms:.4f} ms, of which the grouped product "
+            f"{product_ms:.4f} ms; forward + backward {both_ms:.4f} ms")
 
 
 def im2col_as_grid_sample(x, off, G, K, d):
@@ -711,10 +725,13 @@ def check_im2col_bwd(dev, sh):
     from sniper_tpu_torch.ops import deform
 
     B, H, W, C, G, K, d = sh["B"], sh["H"], sh["W"], sh["C5"], 4, 3, 2
+    CG = sh.get("conv_groups", 1)
     g = torch.Generator().manual_seed(6)
     x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
-    gcol = torch.randn(B, H, W, K * K, C, generator=g).to(dev, torch.bfloat16)
-    kw = dict(num_groups=G, kernel_size=K, dilation=d)
+    # gcol in the forward's layout: group-major over ResNeXt's conv groups
+    gcol = torch.randn(deform.col_shape(x.shape, K, CG), generator=g).to(
+        dev, torch.bfloat16)
+    kw = dict(num_groups=G, kernel_size=K, dilation=d, conv_groups=CG)
     ok, worst, parts, offs = True, 0.0, [], []
     for label, scale in (("zero offsets", 0.0), ("offsets +-0.5 px", 0.5),
                          ("offsets +-6 px", 6.0)):
@@ -748,7 +765,8 @@ def check_im2col_bwd(dev, sh):
                                                               **kw), 2)
     xg, grid = im2col_as_grid_sample(x, off, G, K, d)
     KK = K * K
-    gg = (gcol.float().reshape(B, H, W, KK, G, C // G)
+    gg = (gcol.float().reshape(CG, B, H, W, KK, C // CG)
+          .permute(1, 2, 3, 4, 0, 5).reshape(B, H, W, KK, G, C // G)
           .permute(0, 4, 5, 1, 2, 3).reshape(B * G, C // G, H, W * KK)
           .contiguous())
     lib_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
@@ -759,7 +777,8 @@ def check_im2col_bwd(dev, sh):
     nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * off.numel() * 4
     r = result(ok, worst, ms, plain_ms, nbytes, 20.0 * gcol.numel(), lib_ms)
     print(f"deform_im2col_bwd [{sh['label']}]: x [{B},{H},{W},{C}] bf16, G={G}, "
-          f"dilation {d}; {'; '.join(parts)}; kernel {ms:.4f} ms at +-6 px "
+          f"dilation {d}, gcol group-major over {CG} conv group(s); "
+          f"{'; '.join(parts)}; kernel {ms:.4f} ms at +-6 px "
           f"({nbytes / ms / 1e6:.0f} GB/s effective), {ms_small:.4f} ms at "
           f"+-0.5 px, {ms_zero:.4f} ms at zero offsets, plain "
           f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "

@@ -23,11 +23,15 @@ the work removed by a text edit, and times them:
   window-start sums, the feature reads, the gather loads of g, and for the
   current design each of its two channel phases whole;
 - the im2col backward at chip_smoke.py:check_im2col_bwd's training shapes
-  (x [16,32,32,512] bf16, G 4, dilation 2), at zero offsets, at +-0.5 px
-  (a trained model's small offsets: all four corners of a sample weigh)
-  and at +-6 px.
-  Parts: the gx atomics, the goff reductions, the x corner reads, the
-  per-channel geometry.
+  at R101's C5 width (x [16,32,32,512] bf16, G 4, dilation 2) and at
+  ResNeXt-101's (C 2048, 64 conv groups: gcol group-major for a source
+  that takes conv_groups), at zero offsets, at +-0.5 px (a trained model's
+  small offsets: all four corners of a sample weigh) and at +-6 px.
+  Parts: the gx atomics, the goff reductions (shuffles, the shared-memory
+  atomics of the route for groups wider than a warp, the per-warp partial
+  sums), the x corner reads, the gcol reads, the per-channel geometry.
+  The wrapper's zeroing of the fp32 gx scratch and its cast to bf16 are
+  timed once per width.
 
 A part's share is the full kernel's time less the variant's ("with a
 second" variants add the part once more: their excess over the full kernel
@@ -49,16 +53,17 @@ input. The full kernel's keep lists are held against nms_plain.
 
 Each ``--im2col SRC`` is a version of csrc/deform_im2col.cu, timed as it is
 at the shapes chip_smoke.py checks it at (x bf16 with C 512 on the C5 maps
-of the three test scales and of training, offsets of +-6 px), with its
-effective write rate.
+of the three test scales and of training, and C 2048 with 64 conv groups at
+scale 0 and in training; offsets of +-6 px), with its effective rate.
 
 Times are CUDA events over REPS launches after one warm-up, on one card,
-all versions in one process. With no source named, the repository's five
-sources are timed.
+all versions in one process; ``--rounds 2`` times them all twice, the
+second time in reverse order (old, new, new, old). With no source named,
+the repository's five sources are timed.
 
     python3 scripts/profile_torch_kernel_split.py [--pool SRC ...] \
         [--pool-bwd SRC ...] [--im2col SRC ...] [--im2col-bwd SRC ...] \
-        [--nms SRC ...] [--reps 10]
+        [--nms SRC ...] [--reps 10] [--rounds 1]
 """
 
 from __future__ import annotations
@@ -84,8 +89,11 @@ CSRC = os.path.join(ROOT, "sniper_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 POOL_SIG = [_P] * 4 + [_I] * 9 + [_P]
 POOL_BWD_SIG = [_P] * 6 + [_I] * 8 + [_P]
+# the im2col entries before and after they took conv_groups (one more int)
 IM2COL_SIG = [_P, _P, _P] + [_I] * 8 + [_P]
 IM2COL_BWD_SIG = [_P] * 5 + [_I] * 8 + [_P]
+IM2COL_CG_SIG = [_P, _P, _P] + [_I] * 9 + [_P]
+IM2COL_BWD_CG_SIG = [_P] * 5 + [_I] * 9 + [_P]
 NMS_SIG = [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P] * 4
 
 # Per kernel: {a line only that version of the source has: [(part removed,
@@ -195,6 +203,25 @@ VARIANTS = {
                 "kx, dilation,\n                                 half, H, W);",
                 "      const Sample s = s0;")]),
         ],
+        # per-group blocks at L >= 32, group-major gcol, the warp route
+        "route == kWarp": [
+            ("gx atomics", [(
+                "if (w[q] != 0.0f) add_corner<V>(gb + corner[q], w[q], g);",
+                "if (g[0] == 1e-30f) gb[q] = w[q];")]),
+            ("goff shuffles (seg and warp routes)", [(
+                "dy += __shfl_xor_sync(0xffffffffu, dy, m);\n"
+                "          dx += __shfl_xor_sync(0xffffffffu, dx, m);",
+                "")]),
+            ("per-group blocks (one block across all groups)", [(
+                "const int slices = L >= 32 ? G : 1;",
+                "const int slices = 1;")]),
+            ("x corner reads", [(
+                "Io<T, V>::load(base + corner[q], xv[q]);",
+                "for (int k = 0; k < V; ++k) xv[q][k] = (float)(q + k);")]),
+            ("gcol reads", [(
+                "Io<T, V>::load_stream(gsrc + (int64_t)pt * cg_in, gv);",
+                "for (int k = 0; k < V; ++k) gv[k] = (float)(c + k);")]),
+        ],
         # a 16-pixel row tile per block, 16-byte vectors and vector atomics
         "scatter<V>(": [
             ("gx atomics", [(
@@ -204,6 +231,10 @@ VARIANTS = {
                 "dy += __shfl_xor_sync(0xffffffffu, dy, m);\n"
                 "          dx += __shfl_xor_sync(0xffffffffu, dx, m);",
                 "")]),
+            ("goff shared atomics (the sums route, L > 32)", [(
+                "        atomicAdd(&sums[2 * si], dy);\n"
+                "        atomicAdd(&sums[2 * si + 1], dx);",
+                "        if (dy == 1e-30f && dx == 1e-30f) sums[2 * si] = dy;")]),
             ("x corner reads", [(
                 "Io<T, V>::load(base + corner[q], xv[q]);",
                 "for (int k = 0; k < V; ++k) xv[q][k] = (float)(q + k);")]),
@@ -421,35 +452,68 @@ def run_pool_bwd(lib, inputs, reps):
             f"{b_ms + a_ms:.4f} ms"]
 
 
+# (label, C, conv groups) of the C5 deformable conv: R101's and
+# ResNeXt-101's (4 deformable groups each)
+C5_WIDTHS = (("r101", 512, 1), ("x101", 2048, 64))
+
+
 def im2col_bwd_inputs(dev):
-    """chip_smoke.py:check_im2col_bwd's training inputs: zero offsets and
-    offsets of +-6 px."""
-    B, H, W, C, G, K = 16, 32, 32, 512, 4, 3
-    g = torch.Generator().manual_seed(6)
-    x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
-    gcol = torch.randn(B, H, W, K * K, C, generator=g).to(dev, torch.bfloat16)
-    offs = []
-    for label, scale in (("zero offsets", 0.0), ("offsets +-0.5 px", 0.5),
-                         ("offsets +-6 px", 6.0)):
-        offs.append((label, ((torch.rand(B, H, W, G * K * K * 2, generator=g)
-                              * 2 - 1) * scale).to(dev)))
-    return x, gcol, offs, dict(B=B, H=H, W=W, C=C, G=G, K=K, d=2)
+    """chip_smoke.py:check_im2col_bwd's training inputs at both C5 widths:
+    zero offsets, offsets of +-0.5 px and of +-6 px."""
+    out = []
+    for width, C, CG in C5_WIDTHS:
+        B, H, W, G, K = 16, 32, 32, 4, 3
+        g = torch.Generator().manual_seed(6)
+        x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
+        gcol = torch.randn(B, H, W, K * K, C, generator=g).to(
+            dev, torch.bfloat16)
+        offs = []
+        for label, scale in (("zero offsets", 0.0), ("offsets +-0.5 px", 0.5),
+                             ("offsets +-6 px", 6.0)):
+            offs.append((label, ((torch.rand(B, H, W, G * K * K * 2,
+                                              generator=g) * 2 - 1)
+                                  * scale).to(dev)))
+        out.append((width, x, gcol, offs,
+                    dict(B=B, H=H, W=W, C=C, G=G, K=K, d=2, CG=CG)))
+    return out
 
 
-def run_im2col_bwd(lib, inputs, reps):
-    call = _entry(lib, "sniper_deform_im2col_bwd", IM2COL_BWD_SIG)
-    x, gcol, offs, d = inputs
-    gx = torch.zeros(x.shape, device=x.device)
-    goff = torch.empty(offs[0][1].shape, device=x.device)
-    nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * goff.numel() * 4
+def takes_conv_groups(text: str) -> bool:
+    """Whether a version of an im2col source takes conv_groups (and
+    reads or writes the col group-major)."""
+    return "int conv_groups" in text
+
+
+def wrapper_lines(inputs, reps):
+    """The im2col backward wrapper's work around the kernel: zeroing the
+    fp32 gx scratch and rounding it to bf16."""
     lines = []
-    for label, off in offs:
-        ms = time_ms(lambda: call(
-            x.data_ptr(), off.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
-            goff.data_ptr(), 1, d["B"], d["H"], d["W"], d["C"], d["G"],
-            d["K"], d["d"], stream()), reps)
-        lines.append(f"[training, {label}]: {ms:.4f} ms, "
-                     f"{nbytes / ms / 1e6:.1f} GB/s effective")
+    for width, x, _, _, _ in inputs:
+        zero_ms = time_ms(lambda: torch.zeros(x.shape, device=x.device), reps)
+        gx = torch.zeros(x.shape, device=x.device)
+        cast_ms = time_ms(lambda: gx.to(torch.bfloat16), reps)
+        lines.append(f"[{width} training]: zeroing the fp32 gx scratch "
+                     f"{zero_ms:.4f} ms, its cast to bf16 {cast_ms:.4f} ms "
+                     f"({gx.numel() * 4 / 1e6:.0f} MB)")
+    return lines
+
+
+def run_im2col_bwd(lib, inputs, reps, grouped):
+    call = _entry(lib, "sniper_deform_im2col_bwd",
+                  IM2COL_BWD_CG_SIG if grouped else IM2COL_BWD_SIG)
+    lines = []
+    for width, x, gcol, offs, d in inputs:
+        gx = torch.zeros(x.shape, device=x.device)
+        goff = torch.empty(offs[0][1].shape, device=x.device)
+        nbytes = 2 * x.numel() * 2 + gcol.numel() * 2 + 2 * goff.numel() * 4
+        cg = (d["CG"],) if grouped else ()
+        for label, off in offs:
+            ms = time_ms(lambda: call(
+                x.data_ptr(), off.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
+                goff.data_ptr(), 1, d["B"], d["H"], d["W"], d["C"], d["G"],
+                d["K"], d["d"], *cg, stream()), reps)
+            lines.append(f"[{width} training, {label}]: {ms:.4f} ms, "
+                         f"{nbytes / ms / 1e6:.1f} GB/s effective")
     return lines
 
 
@@ -521,22 +585,29 @@ def run_nms(lib, inputs, reps, full):
     return lines
 
 
-def run_im2col(lib, dev, reps):
-    call = _entry(lib, "sniper_deform_im2col", IM2COL_SIG)
+def run_im2col(lib, dev, reps, grouped):
+    call = _entry(lib, "sniper_deform_im2col",
+                  IM2COL_CG_SIG if grouped else IM2COL_SIG)
     lines = []
-    for label, B, H, W, _ in SHAPES:
-        C, G, K, d = 512, 4, 3, 2
+    shapes = [(f"r101 {label}", B, H, W, 512, 1)
+              for label, B, H, W, _ in SHAPES]
+    shapes += [(f"x101 {label}", B, H, W, 2048, 64)
+               for label, B, H, W, _ in (SHAPES[0], SHAPES[3])]
+    for label, B, H, W, C, CG in shapes:
+        G, K, d = 4, 3, 2
         g = torch.Generator().manual_seed(2)
         x = torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
         off = ((torch.rand(B, H, W, G * K * K * 2, generator=g) * 2 - 1)
                * 6.0).to(dev)
         col = torch.empty(B, H, W, K * K, C, device=dev, dtype=torch.bfloat16)
+        cg = (CG,) if grouped else ()
         ms = time_ms(lambda: call(x.data_ptr(), off.data_ptr(),
                                   col.data_ptr(), 1, B, H, W, C, G, K, d,
-                                  stream()), reps)
+                                  *cg, stream()), reps)
         nbytes = x.numel() * 2 + off.numel() * 4 + col.numel() * 2
         lines.append(f"[{label}]: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s "
                      "effective")
+        del x, col
     return lines
 
 
@@ -548,6 +619,9 @@ def main() -> int:
     ap.add_argument("--im2col-bwd", action="append", default=[])
     ap.add_argument("--nms", action="append", default=[])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="time every version this many times, in turns: "
+                         "the second round in reverse order")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernel_split: needs a CUDA device")
@@ -570,6 +644,7 @@ def main() -> int:
     for src in a.im2col:
         with open(src) as f:
             jobs.append((("im2col", src, "full"), f.read()))
+    grouped = {key: takes_conv_groups(text) for key, text in jobs}
     inputs = {}
     if a.pool:
         inputs["pool"] = pool_inputs(dev)
@@ -577,6 +652,8 @@ def main() -> int:
         inputs["pool_bwd"] = pool_bwd_inputs(dev)
     if a.im2col_bwd:
         inputs["im2col_bwd"] = im2col_bwd_inputs(dev)
+        for line in wrapper_lines(inputs["im2col_bwd"], a.reps):
+            print(f"deform_im2col_bwd wrapper {line} [{card}]")
     if a.nms:
         inputs["nms"] = nms_inputs(dev, a.reps)
         for d in inputs["nms"]:
@@ -586,20 +663,25 @@ def main() -> int:
              "im2col": "deform_im2col", "im2col_bwd": "deform_im2col_bwd",
              "nms": "nms"}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(jobs, tmp)
-        for (kind, src, label), lib in libs.items():
-            if kind == "pool":
-                lines = run_pool(lib, inputs[kind], a.reps)
-            elif kind == "pool_bwd":
-                lines = run_pool_bwd(lib, inputs[kind], a.reps)
-            elif kind == "im2col_bwd":
-                lines = run_im2col_bwd(lib, inputs[kind], a.reps)
-            elif kind == "nms":
-                lines = run_nms(lib, inputs[kind], a.reps, label == "full")
-            else:
-                lines = run_im2col(lib, dev, a.reps)
-            for line in lines:
-                print(f"{names[kind]} {src} [{label}] {line} [{card}]")
+        libs = list(build_all(jobs, tmp).items())
+        for rnd in range(a.rounds):
+            for (kind, src, label), lib in libs[::-1] if rnd % 2 else libs:
+                key = (kind, src, label)
+                if kind == "pool":
+                    lines = run_pool(lib, inputs[kind], a.reps)
+                elif kind == "pool_bwd":
+                    lines = run_pool_bwd(lib, inputs[kind], a.reps)
+                elif kind == "im2col_bwd":
+                    lines = run_im2col_bwd(lib, inputs[kind], a.reps,
+                                           grouped[key])
+                elif kind == "nms":
+                    lines = run_nms(lib, inputs[kind], a.reps,
+                                    label == "full")
+                else:
+                    lines = run_im2col(lib, dev, a.reps, grouped[key])
+                for line in lines:
+                    print(f"{names[kind]} {src} [{label}] {line} "
+                          f"(round {rnd + 1}) [{card}]")
     return 0
 
 

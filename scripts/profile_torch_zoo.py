@@ -12,16 +12,21 @@ runs them:
   ResNeXt's 64-group 3x3s of stages 1-3, MobileNetV2's depthwise 3x3s),
   replayed one by one at the shapes and memory format the trunk gave
   them; for ResNeXt also its C5's three deformable convs split into the
-  im2col kernel (X1) and ``ops/deform.py:grouped_product`` after it, with
-  that product's group-major copy of the col;
+  im2col kernel (X1, writing the col group-major), the grouped product on
+  that col (``ops/deform.py:grouped_product``: one ``torch.bmm`` and the
+  output's reorder) and the whole conv;
 - training (the yml's BATCH_IMAGES chips of CHIP_SIZE): the same for the
   trunk's forward and backward (the grouped convs replayed forward and
-  backward).
+  backward); for ResNeXt the C5 convs also forward and backward and the
+  im2col backward (X2) alone, and the CUDA kernels of one profiled trunk
+  step next to each X1 and X2 launch in launch order (torch.profiler),
+  which shows what runs between X1 and the grouped GEMM and between the
+  GEMM's input gradient and X2.
 
 Times are CUDA events over ``--reps`` calls after a warm-up. Needs one CUDA
 device:
 
-    python3 scripts/profile_torch_zoo.py [--reps 5]
+    python3 scripts/profile_torch_zoo.py [--reps 5] [--models resnext_mx_101]
 """
 
 from __future__ import annotations
@@ -96,37 +101,83 @@ def replay(calls, reps: int, backward: bool) -> list:
     return out
 
 
-def deform_split(model, x, reps: int) -> str:
-    """ResNeXt's C5 deformable convs, forward: X1, the grouped product after
-    it and that product's group-major copy, each timed alone at its unit's
-    shapes."""
+def deform_split(model, x, reps: int, train: bool) -> str:
+    """ResNeXt's C5 deformable convs, each part timed alone at its unit's
+    shapes: X1 (the col group-major), the grouped product on that col, the
+    whole conv forward; in training also the conv forward and backward and
+    X2 alone."""
     from sniper_tpu_torch.ops import deform
 
     ins = []
     hooks = [getattr(model.trunk, f"stage4_unit{j + 1}").bn1
-             .register_forward_hook(lambda m, a, o: ins.append(o))
+             .register_forward_hook(lambda m, a, o: ins.append(o.detach()))
              for j in range(model.trunk.units[3])]
-    with torch.inference_mode():
+    with torch.no_grad():
         model.trunk(x)
     for h in hooks:
         h.remove()
-    x1 = copy = product = 0.0
-    with torch.inference_mode():
-        for j, h in enumerate(ins):
-            h = torch.relu(h).permute(0, 2, 3, 1).contiguous()
-            B, H, W, C = h.shape
-            off = torch.randn(B, H, W, 72, device="cuda") * 2
-            col = deform.deform_im2col(h, off, num_groups=4, dilation=2)
-            w = getattr(model.trunk,
-                        f"stage4_unit{j + 1}").conv2_weight.to(h.dtype)
-            x1 += time_ms(lambda: deform.deform_im2col(
-                h, off, num_groups=4, dilation=2), reps)
-            copy += time_ms(lambda: deform.group_major(col, 64), reps)
-            product += time_ms(lambda: deform.grouped_product(col, w, 64),
-                               reps)
-    return (f"C5's {len(ins)} deformable convs: X1 {x1:.3f} ms, grouped "
-            f"product {product:.3f} ms, of which the group-major copy "
-            f"{copy:.3f} ms")
+    x1 = product = conv = both = x2 = 0.0
+    for j, h in enumerate(ins):
+        h = torch.relu(h).permute(0, 2, 3, 1).contiguous()
+        B, H, W, C = h.shape
+        unit = getattr(model.trunk, f"stage4_unit{j + 1}")
+        kw = dict(num_groups=4, dilation=2, conv_groups=unit.num_groups)
+        off = torch.randn(B, H, W, 72, device="cuda") * 2
+        w = unit.conv2_weight.detach().to(h.dtype)
+        with torch.inference_mode():
+            col = deform.deform_im2col(h, off, **kw)
+            x1 += time_ms(lambda: deform.deform_im2col(h, off, **kw), reps)
+            product += time_ms(
+                lambda: deform.grouped_product(col, w, (B, H, W)), reps)
+            conv += time_ms(lambda: deform.deformable_conv(h, off, w, **kw),
+                            reps)
+        if train:
+            gcol = torch.randn_like(col)
+            x2 += time_ms(lambda: deform.deform_im2col_bwd(h, off, gcol,
+                                                           **kw), reps)
+            hr, offr, wr = (t.clone().requires_grad_() for t in (h, off, w))
+            gout = torch.randn(B, H, W, w.shape[0], device="cuda",
+                               dtype=h.dtype)
+            both += time_ms(lambda: deform.deformable_conv(
+                hr, offr, wr, **kw).backward(gout), reps)
+            del gcol
+        del col
+    line = (f"C5's {len(ins)} deformable convs (col group-major): X1 "
+            f"{x1:.3f} ms, grouped product {product:.3f} ms, the conv "
+            f"forward {conv:.3f} ms")
+    if train:
+        line += f"; forward and backward {both:.3f} ms, X2 {x2:.3f} ms"
+    return line
+
+
+def c5_kernel_order(trunk_step) -> list[str]:
+    """The CUDA kernels of one profiled trunk step that run right after
+    each X1 launch and right before each X2 launch, in launch order: what
+    separates X1 from the grouped GEMM, and the GEMM's input gradient from
+    X2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trunk_step()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+
+    def show(e):
+        return f"{e.name[:70]} ({e.time_range.elapsed_us():.0f} us)"
+
+    lines = []
+    for i, e in enumerate(kernels):
+        if "deform_im2col_kernel" in e.name:
+            lines.append(f"X1 {show(e)} -> then: "
+                         + " | ".join(show(k) for k in kernels[i + 1:i + 4]))
+        elif "deform_im2col_bwd_kernel" in e.name:
+            lines.append("before: " + " | ".join(
+                show(k) for k in kernels[max(0, i - 3):i])
+                + f" -> X2 {show(e)}")
+    return lines
 
 
 def profile(name, cfg, reps: int):
@@ -174,13 +225,19 @@ def profile(name, cfg, reps: int):
             kinds[key] = (n + 1, ms + t)
         parts = ", ".join(f"{n} x {g} groups of {cpg} channels {ms:.2f} ms"
                           for (cpg, g), (n, ms) in sorted(kinds.items()))
-        extra = ""
-        if model.trunk_type == "resnext" and not train:
-            extra = "; " + deform_split(model, x, reps)
+        extra = order = ""
+        if model.trunk_type == "resnext":
+            extra = "; " + deform_split(model, x, reps, train)
+            if train:
+                order = "\n  ".join(c5_kernel_order(trunk))
+                model.zero_grad(set_to_none=True)
         print(f"{name} {label}: trunk {trunk_ms:.2f} ms; its {len(calls)} "
               f"grouped convs replayed alone {total:.2f} ms "
               f"({100 * total / trunk_ms:.1f}% of the trunk): {parts}{extra}",
               flush=True)
+        if order:
+            print(f"{name} {label}: kernels next to X1 and X2 in one "
+                  f"profiled step:\n  {order}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -188,6 +245,9 @@ def profile(name, cfg, reps: int):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--models", nargs="+",
+                   default=["resnext_mx_101", "mobilenetv2_e2e"],
+                   choices=["resnext_mx_101", "mobilenetv2_e2e"])
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_zoo: needs a CUDA device")
@@ -202,8 +262,9 @@ def main():
                        ["symbol", "resnext_mx_101"])
     mnv2 = load_config(os.path.join(ROOT,
                                     "configs/sniper_mobilenetv2_e2e.yml"))
-    profile("resnext_mx_101", x101, args.reps)
-    profile("mobilenetv2_e2e", mnv2, args.reps)
+    for name, cfg in (("resnext_mx_101", x101), ("mobilenetv2_e2e", mnv2)):
+        if name in args.models:
+            profile(name, cfg, args.reps)
 
 
 if __name__ == "__main__":

@@ -45,14 +45,17 @@ _SIGNATURES = {
     # boxes, scores, order, B, N, max_out, thresh, live_above, scratch,
     # keep, valid, stream
     "sniper_nms": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
-    # x, offsets, col, dtype, B, H, W, C, G, K, dilation, stream
-    "sniper_deform_im2col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, offsets, col, dtype, B, H, W, C, G, K, dilation, conv_groups,
+    # stream
+    "sniper_deform_im2col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
     # feat, geom, pypx, out, R, H, W, C, rpi, P, S, M, stencil, stream
     "sniper_pool_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
-    # x, offsets, gcol, gx, goff, dtype, B, H, W, C, G, K, dilation, stream
+    # x, offsets, gcol, gx, goff, dtype, B, H, W, C, G, K, dilation,
+    # conv_groups, stream
     "sniper_deform_im2col_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P],
+                                 _I, _I, _I, _P],
     # feat, geom, pypx, g, dfeat, dpypx, R, H, W, C, rpi, P, S, M, stream
     "sniper_pool_pass_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],

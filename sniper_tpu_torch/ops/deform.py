@@ -6,7 +6,9 @@ Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
 - ``deformable_conv`` (deform.py:237-286): DCNv1 im2col with the JAX
   package's CLAMP border rule, then one ``torch.matmul`` with the kernel as
   [K*K*Cin, Cout], or with ``conv_groups > 1`` (ResNeXt's C5) one
-  ``torch.bmm`` over the col copied group-major. The im2col is
+  ``torch.bmm`` over the col as the im2col writes it, group-major
+  [CG, B*H*W, K*K*cg_in] (JAX's ``col_g`` with the groups outermost), with
+  no copy before the product nor of its input gradient. The im2col is
   ``DeformIm2col``, the counterpart of ``_make_im2col``'s custom VJP: its
   forward is ``deform_im2col`` (the CUDA kernel in csrc/deform_im2col.cu on
   CUDA tensors, the plain version on the CPU) and its backward
@@ -65,10 +67,44 @@ PATCH_ROI_CHUNK = 64
 # ---------------------------------------------------------------------------
 
 
-def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation):
-    """x [B,H,W,C], offsets [B,H,W,G*K*K*2] -> col [B,H,W,K*K,C] in x's
-    dtype. The sample geometry and the bilinear blend follow
-    _make_im2col.fwd_impl; the blend runs in fp32 and rounds once."""
+def col_shape(x_shape, kernel_size, conv_groups):
+    """The im2col's layout for x [B,H,W,C]: group-major over the conv's
+    groups, [CG, B*H*W, K*K*C/CG] (channel c = g*cg_in + ci of pixel p, tap
+    t at ((g*B*H*W + p)*K*K + t)*cg_in + ci), which for one group is
+    [B,H,W,K*K,C] and is given that shape."""
+    B, H, W, C = x_shape
+    KK = kernel_size * kernel_size
+    if conv_groups == 1:
+        return (B, H, W, KK, C)
+    return (conv_groups, B * H * W, KK * (C // conv_groups))
+
+
+def _group_major(col, conv_groups):
+    """col [B,H,W,K*K,C] copied group-major (``col_shape``; JAX's
+    ``col_g``, deform.py:270-278, with the groups outermost)."""
+    B, H, W, KK, C = col.shape
+    if conv_groups == 1:
+        return col
+    cg_in = C // conv_groups
+    return (col.reshape(B * H * W, KK, conv_groups, cg_in).permute(2, 0, 1, 3)
+            .reshape(conv_groups, B * H * W, KK * cg_in))
+
+
+def _group_minor(col, x_shape, conv_groups):
+    """A group-major col (``col_shape``) back to [B,H,W,K*K,C]."""
+    if conv_groups == 1:
+        return col
+    B, H, W, C = x_shape
+    return (col.reshape(conv_groups, B * H * W, -1, C // conv_groups)
+            .permute(1, 2, 0, 3).reshape(B, H, W, -1, C))
+
+
+def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation,
+                        conv_groups=1):
+    """x [B,H,W,C], offsets [B,H,W,G*K*K*2] -> the col in x's dtype, group-
+    major over ``conv_groups`` (``col_shape``). The sample geometry and the
+    bilinear blend follow _make_im2col.fwd_impl; the blend runs in fp32 and
+    rounds once."""
     B, H, W, C = x.shape
     G, K = num_groups, kernel_size
     KK = K * K
@@ -85,43 +121,49 @@ def deform_im2col_plain(x, offsets, *, num_groups, kernel_size, dilation):
     top = corner(0, 0) * (1 - lx) + corner(0, 1) * lx
     bot = corner(1, 0) * (1 - lx) + corner(1, 1) * lx
     col = top * (1 - ly) + bot * ly
-    return col.permute(0, 1, 2, 4, 3, 5).reshape(B, H, W, KK, C).to(x.dtype)
+    col = col.permute(0, 1, 2, 4, 3, 5).reshape(B, H, W, KK, C).to(x.dtype)
+    return _group_major(col, conv_groups).contiguous()
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _require_im2col(what, x, offsets, G, K):
+def _require_im2col(what, x, offsets, G, K, CG):
     """Raise unless the im2col kernels take x and the offsets."""
     B, H, W, C = x.shape
     if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what} takes float32 or bfloat16, got {x.dtype}")
     cuda.require(x, "x", x.dtype)
     cuda.require(offsets, "offsets", torch.float32, (B, H, W, G * K * K * 2))
-    if C % G or H < 2 or W < 2:
-        raise ValueError(f"{what} needs C % G == 0 and H, W >= 2, got C={C}, "
-                         f"G={G}, H={H}, W={W}")
+    if C % G or C % CG or H < 2 or W < 2:
+        raise ValueError(f"{what} needs C % G == 0, C % conv_groups == 0 and "
+                         f"H, W >= 2, got C={C}, G={G}, conv_groups={CG}, "
+                         f"H={H}, W={W}")
 
 
-def _deform_im2col_kernel(x, offsets, *, num_groups, kernel_size, dilation):
+def _deform_im2col_kernel(x, offsets, *, num_groups, kernel_size, dilation,
+                          conv_groups):
     B, H, W, C = x.shape
-    G, K = num_groups, kernel_size
-    _require_im2col("deform_im2col", x, offsets, G, K)
-    col = torch.empty((B, H, W, K * K, C), dtype=x.dtype, device=x.device)
+    G, K, CG = num_groups, kernel_size, conv_groups
+    _require_im2col("deform_im2col", x, offsets, G, K, CG)
+    col = torch.empty(col_shape(x.shape, K, CG), dtype=x.dtype,
+                      device=x.device)
     lib = cuda.library()
     cuda.DEFORM_IM2COL.launches += 1
     cuda.check(lib.sniper_deform_im2col(
         x.data_ptr(), offsets.data_ptr(), col.data_ptr(),
-        _KERNEL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
+        _KERNEL_DTYPES[x.dtype], B, H, W, C, G, K, dilation, CG,
         cuda.stream(x)), "deform_im2col")
     return col
 
 
-def deform_im2col(x, offsets, *, num_groups=4, kernel_size=3, dilation=2):
+def deform_im2col(x, offsets, *, num_groups=4, kernel_size=3, dilation=2,
+                  conv_groups=1):
     """DCNv1 im2col: x [B,H,W,C], offsets [B,H,W,G*K*K*2] fp32 ((dy, dx)
-    per tap, group-major) -> col [B,H,W,K*K,C] in x's dtype."""
+    per tap, group-major) -> the col in x's dtype, group-major over the
+    conv's ``conv_groups`` (``col_shape``: [B,H,W,K*K,C] for one group)."""
     kw = dict(num_groups=num_groups, kernel_size=kernel_size,
-              dilation=dilation)
+              dilation=dilation, conv_groups=conv_groups)
     if x.is_cuda:
         return _deform_im2col_kernel(x, offsets, **kw)
     return deform_im2col_plain(x, offsets, **kw)
@@ -148,19 +190,21 @@ def _im2col_geometry(offsets, B, H, W, G, K, dilation):
 
 
 def deform_im2col_bwd_plain(x, offsets, gcol, *, num_groups, kernel_size,
-                            dilation):
-    """The im2col's VJP, written out as _make_im2col.im2col_bwd is: gcol
-    [B,H,W,K*K,C] -> (gx [B,H,W,C] in x's dtype, summed in fp32 and rounded
-    once; goff [B,H,W,G*K*K*2] fp32). gx scatters each sample's gradient to
-    its four corners with weights wy*wx; goff reduces gcol * d(sample)/d(sy,
-    sx) over each group's channels, and is zero where the clamped sample
-    sits on the border (strictly inside only, as :220-228)."""
+                            dilation, conv_groups=1):
+    """The im2col's VJP, written out as _make_im2col.im2col_bwd is: gcol in
+    the forward's layout (``col_shape``) -> (gx [B,H,W,C] in x's dtype,
+    summed in fp32 and rounded once; goff [B,H,W,G*K*K*2] fp32). gx
+    scatters each sample's gradient to its four corners with weights wy*wx;
+    goff reduces gcol * d(sample)/d(sy, sx) over each group's channels, and
+    is zero where the clamped sample sits on the border (strictly inside
+    only, as :220-228). ``conv_groups`` names gcol's layout only."""
     B, H, W, C = x.shape
     G, K = num_groups, kernel_size
     KK = K * K
     cg = C // G
     sy, sx, y0, x0, ly, lx = _im2col_geometry(offsets, B, H, W, G, K,
                                               dilation)
+    gcol = _group_minor(gcol, x.shape, conv_groups)
     gq = gcol.float().reshape(B, H, W, KK, G, cg).permute(0, 1, 2, 4, 3, 5)
     ly, lx = ly[..., None], lx[..., None]
     xg = x.float().reshape(B, H * W, G, cg)
@@ -185,11 +229,11 @@ def deform_im2col_bwd_plain(x, offsets, gcol, *, num_groups, kernel_size,
 
 
 def _deform_im2col_bwd_kernel(x, offsets, gcol, *, num_groups, kernel_size,
-                              dilation):
+                              dilation, conv_groups):
     B, H, W, C = x.shape
-    G, K = num_groups, kernel_size
-    _require_im2col("deform_im2col_bwd", x, offsets, G, K)
-    cuda.require(gcol, "gcol", x.dtype, (B, H, W, K * K, C))
+    G, K, CG = num_groups, kernel_size, conv_groups
+    _require_im2col("deform_im2col_bwd", x, offsets, G, K, CG)
+    cuda.require(gcol, "gcol", x.dtype, col_shape(x.shape, K, CG))
     gx = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
     goff = torch.empty((B, H, W, G * K * K * 2), dtype=torch.float32,
                        device=x.device)
@@ -198,16 +242,17 @@ def _deform_im2col_bwd_kernel(x, offsets, gcol, *, num_groups, kernel_size,
     cuda.check(lib.sniper_deform_im2col_bwd(
         x.data_ptr(), offsets.data_ptr(), gcol.data_ptr(), gx.data_ptr(),
         goff.data_ptr(), _KERNEL_DTYPES[x.dtype], B, H, W, C, G, K, dilation,
-        cuda.stream(x)), "deform_im2col_bwd")
+        CG, cuda.stream(x)), "deform_im2col_bwd")
     return gx.to(x.dtype), goff
 
 
 def deform_im2col_bwd(x, offsets, gcol, *, num_groups=4, kernel_size=3,
-                      dilation=2):
-    """The im2col's VJP (see deform_im2col_bwd_plain): the CUDA kernel for
-    CUDA tensors, the plain version on the CPU."""
+                      dilation=2, conv_groups=1):
+    """The im2col's VJP (see deform_im2col_bwd_plain), gcol group-major
+    over ``conv_groups``: the CUDA kernel for CUDA tensors, the plain
+    version on the CPU."""
     kw = dict(num_groups=num_groups, kernel_size=kernel_size,
-              dilation=dilation)
+              dilation=dilation, conv_groups=conv_groups)
     if x.is_cuda:
         return _deform_im2col_bwd_kernel(x, offsets, gcol, **kw)
     return deform_im2col_bwd_plain(x, offsets, gcol, **kw)
@@ -218,9 +263,10 @@ class DeformIm2col(torch.autograd.Function):
     x and the offsets."""
 
     @staticmethod
-    def forward(ctx, x, offsets, num_groups, kernel_size, dilation):
+    def forward(ctx, x, offsets, num_groups, kernel_size, dilation,
+                conv_groups=1):
         ctx.kw = dict(num_groups=num_groups, kernel_size=kernel_size,
-                      dilation=dilation)
+                      dilation=dilation, conv_groups=conv_groups)
         ctx.save_for_backward(x, offsets)
         return deform_im2col(x, offsets, **ctx.kw)
 
@@ -228,31 +274,22 @@ class DeformIm2col(torch.autograd.Function):
     def backward(ctx, gcol):
         x, offsets = ctx.saved_tensors
         gx, goff = deform_im2col_bwd(x, offsets, gcol.contiguous(), **ctx.kw)
-        return gx, goff, None, None, None
+        return gx, goff, None, None, None, None
 
 
-def group_major(col, conv_groups):
-    """The col [B,H,W,K*K,Cin] copied group-major: [CG, B*H*W, K*K*cg_in]
-    (deform.py:270-278)."""
-    B, H, W, KK, Cin = col.shape
-    cg_in = Cin // conv_groups
-    return (col.reshape(B * H * W, KK, conv_groups, cg_in).permute(2, 0, 1, 3)
-            .reshape(conv_groups, B * H * W, KK * cg_in))
-
-
-def grouped_product(col, weight, conv_groups):
+def grouped_product(col, weight, batch_shape):
     """The grouped convolution over the deformed taps (deform.py:262-286):
-    col [B,H,W,K*K,Cin] group-major, times the OIHW weight [Cout,
-    Cin/conv_groups, K, K] as [CG, K*K*cg_in, cg_out] in one torch.bmm.
-    Returns [B,H,W,Cout] in col's dtype."""
-    B, H, W, KK, Cin = col.shape
-    CG = conv_groups
+    the group-major col [CG, B*H*W, K*K*cg_in] as the im2col writes it,
+    times the OIHW weight [Cout, cg_in, K, K] as [CG, K*K*cg_in, cg_out], in
+    one torch.bmm. Returns [*batch_shape, Cout] (batch_shape = (B, H, W))
+    in col's dtype."""
+    CG = col.shape[0]
     cout, cg_in, K = weight.shape[0], weight.shape[1], weight.shape[2]
     cg_out = cout // CG
     w_g = (weight.reshape(CG, cg_out, cg_in, K, K).permute(0, 3, 4, 2, 1)
-           .reshape(CG, KK * cg_in, cg_out).to(col.dtype))
-    out = torch.bmm(group_major(col, CG), w_g)  # [CG, B*H*W, cg_out]
-    return out.permute(1, 0, 2).reshape(B, H, W, cout)
+           .reshape(CG, K * K * cg_in, cg_out).to(col.dtype))
+    out = torch.bmm(col, w_g)  # [CG, B*H*W, cg_out]
+    return out.permute(1, 0, 2).reshape(*batch_shape, cout)
 
 
 def deformable_conv(x, offsets, weight, *, num_groups=4, kernel_size=3,
@@ -262,16 +299,17 @@ def deformable_conv(x, offsets, weight, *, num_groups=4, kernel_size=3,
     Returns [B,H,W,Cout] in x's dtype (the products accumulate in fp32).
 
     ``conv_groups > 1`` is the grouped convolution over the deformed taps
-    (ResNeXt's C5): the im2col stays one over all Cin channels, then
-    ``grouped_product``."""
+    (ResNeXt's C5): the im2col stays one over all Cin channels and writes
+    its col group-major, then ``grouped_product``."""
     B, H, W, Cin = x.shape
     K = kernel_size
     KK = K * K
-    col = DeformIm2col.apply(x, offsets, num_groups, K, dilation)
+    col = DeformIm2col.apply(x, offsets, num_groups, K, dilation,
+                             conv_groups)
     if conv_groups == 1:
         w = weight.permute(2, 3, 1, 0).reshape(KK * Cin, -1).to(x.dtype)
         return torch.matmul(col.reshape(B, H, W, KK * Cin), w)
-    return grouped_product(col, weight, conv_groups)
+    return grouped_product(col, weight, (B, H, W))
 
 
 # ---------------------------------------------------------------------------

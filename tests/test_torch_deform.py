@@ -17,7 +17,13 @@ import torch
 from sniper_tpu.ops import deform as jdeform
 from sniper_tpu.ops.pallas.fused_pool import fused_pool_pallas
 from sniper_tpu_torch.ops import deform as tdeform
-from torch_port import IM2COL_EDGES, cuda_or_skip, im2col_edge, whole_map_rois
+from torch_port import (
+    IM2COL_EDGES,
+    IM2COL_GROUPED,
+    cuda_or_skip,
+    im2col_edge,
+    whole_map_rois,
+)
 
 
 def _random_rois(rng, B, rpi, span=400):
@@ -157,9 +163,11 @@ def test_deform_im2col_edges_match_jax(rng, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(IM2COL_EDGES))
+@pytest.mark.parametrize("case", sorted(IM2COL_EDGES) + sorted(IM2COL_GROUPED))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_im2col_kernel_matches_plain(rng, dtype, case):
+    """Bit-exact, the col [B,H,W,K*K,C] or, for a grouped case, group-major
+    [CG, B*H*W, K*K*C/CG]."""
     dev = cuda_or_skip()
     x, off, kw = im2col_edge(rng, case)
     x = torch.from_numpy(x).to(dev, dtype)

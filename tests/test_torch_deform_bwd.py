@@ -18,7 +18,9 @@ kernels against their plain versions on the card.
   at the same inputs; the kernels sum with fp32 atomics in another order:
   within 1e-4 * max|ref| (gx of a bf16 input: two bf16 steps of the plain
   value plus that 1e-4 * max|ref|, since a sum that cancels to near zero
-  carries the order's error into the rounding).
+  carries the order's error into the rounding); the im2col backward also
+  at each of its goff routes, on [B,H,W,K*K,C] and on group-major gcol,
+  and its warp route's goff the same from run to run.
 """
 
 import jax
@@ -176,11 +178,47 @@ def test_deform_im2col_bwd_edges_match_jax(rng, case):
     _close(goff, want_goff, name="goff")
 
 
+# goff's routes in the im2col backward kernel, by the lanes of a
+# deformable group L = C/G/V (V = 8 bf16 or 4 fp32 channels per lane where
+# the groups hold whole vectors, else 1): seg (a power of two below 32,
+# R101's 16 in bf16), warp (a multiple of 32, ResNeXt-101's 64 in bf16 and
+# 128 in fp32), sums (3 and 6, any other). Each case: (L, G, whether a lane
+# holds a vector, the conv groups' width in the grouped layout).
+IM2COL_BWD_ROUTES = {
+    "seg16": (16, 2, True, 32),
+    "warp32": (32, 2, True, 32),
+    "warp64": (64, 2, True, 32),
+    "warp128": (128, 2, True, 32),
+    "sums3": (3, 2, False, 3),
+    "sums6": (6, 2, False, 3),
+}
+
+
+def _route_case(rng, dtype, case):
+    """x, offsets (+-6 px) and keyword arguments of a route case
+    ``<route>/cg1`` (gcol [B,H,W,K*K,C]) or ``<route>/grouped`` (gcol
+    group-major over conv groups of the case's width)."""
+    name, layout = case.split("/")
+    L, G, vector, cg_in = IM2COL_BWD_ROUTES[name]
+    V = (8 if dtype == torch.bfloat16 else 4) if vector else 1
+    B, H, W, C = 1, 5, 11, G * L * V
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    off = rng.uniform(-6, 6, (B, H, W, G * 18)).astype(np.float32)
+    CG = 1 if layout == "cg1" else C // cg_in
+    return x, off, dict(num_groups=G, dilation=2, conv_groups=CG)
+
+
+ROUTE_CASES = [f"{name}/{layout}" for name in IM2COL_BWD_ROUTES
+               for layout in ("cg1", "grouped")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,regime,case", [
     (torch.float32, "zero", None), (torch.float32, "border", None),
     (torch.bfloat16, "small", None), (torch.bfloat16, "border", None)] + [
     (dtype, None, case) for case in sorted(IM2COL_EDGES)
+    for dtype in (torch.float32, torch.bfloat16)] + [
+    (dtype, None, case) for case in ROUTE_CASES
     for dtype in (torch.float32, torch.bfloat16)])
 def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime, case):
     dev = cuda_or_skip()
@@ -189,11 +227,14 @@ def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime, case):
         x = rng.randn(B, H, W, C).astype(np.float32)
         off = _offsets(rng, regime, (B, H, W, G * 18))
         kw = dict(num_groups=G, kernel_size=3, dilation=2)
-    else:  # the forward's edge cases: ragged tiles, narrow groups, clamps
-        x, off, kw = im2col_edge(rng, case)
+    else:  # the forward's edge cases (ragged tiles, narrow groups, clamps)
+        # and each goff route, on [B,H,W,K*K,C] and group-major gcol
+        x, off, kw = (_route_case(rng, dtype, case) if "/" in case
+                      else im2col_edge(rng, case))
         B, H, W, C = x.shape
         kw["kernel_size"] = 3
-    gcol = torch.from_numpy(rng.randn(B, H, W, 9, C).astype(np.float32))
+    shape = tdeform.col_shape(x.shape, 3, kw.get("conv_groups", 1))
+    gcol = torch.from_numpy(rng.randn(*shape).astype(np.float32))
     x, off = torch.from_numpy(x).to(dev, dtype), torch.from_numpy(off).to(dev)
     gcol = gcol.to(dev, dtype)
     gx, goff = tdeform.deform_im2col_bwd(x, off, gcol, **kw)
@@ -208,6 +249,31 @@ def test_im2col_bwd_kernel_matches_plain(rng, dtype, regime, case):
         err = (gx.float() - px.float()).abs()
         floor = 1e-4 * float(px.float().abs().max())
         assert bool((err <= 2 * 2.0 ** -8 * px.float().abs() + floor).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_im2col_bwd_warp_route_goff_is_the_same_run_to_run(rng, dtype):
+    """At L = 64 (the warp route: per-warp partials summed in a fixed order,
+    no shared atomics) two runs give the same goff bit for bit, on
+    group-major gcol over 32-channel conv groups, as ResNeXt-101's C5."""
+    dev = cuda_or_skip()
+    V = 8 if dtype == torch.bfloat16 else 4
+    B, H, W, G = 2, 13, 17, 4
+    C = G * 64 * V
+    kw = dict(num_groups=G, kernel_size=3, dilation=2, conv_groups=C // 32)
+    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+    off = torch.from_numpy(rng.uniform(-6, 6, (B, H, W, G * 18))
+                           .astype(np.float32)).to(dev)
+    gcol = torch.from_numpy(rng.randn(*tdeform.col_shape(
+        x.shape, 3, kw["conv_groups"])).astype(np.float32)).to(dev, dtype)
+    x = x.to(dev, dtype)
+    _, first = tdeform.deform_im2col_bwd(x, off, gcol, **kw)
+    _, second = tdeform.deform_im2col_bwd(x, off, gcol, **kw)
+    assert torch.equal(first, second)
+    _, plain = tdeform.deform_im2col_bwd_plain(x, off, gcol, **kw)
+    torch.testing.assert_close(first, plain,
+                               atol=1e-4 * float(plain.abs().max()), rtol=0)
 
 
 @pytest.mark.parametrize("fc_scale,C", [(0.0, 5), (0.05, 8)])

@@ -53,10 +53,31 @@ IM2COL_EDGES = {
 }
 
 
+# group-major im2col cases, (an IM2COL_EDGES case or its own shape, conv
+# groups): the col written [CG, B*H*W, K*K*C/CG] for a grouped product
+IM2COL_GROUPED = {
+    # ResNeXt-101's C5: 64 conv groups of 32 channels (4 bf16 vectors)
+    "x101_c5_cg64": ("x101_c5", 64),
+    # 4 conv groups of 16 over 64 channels, on the ragged tile
+    "ragged_cg4": ("ragged", 4),
+    # 8 conv groups of 3 over 24 channels: no whole vector, width 1
+    "c24_cg8": ((1, 6, 11, 24, 2, 2, "random"), 8),
+}
+
+
 def im2col_edge(rng, case):
-    """x [B,H,W,C] and offsets [B,H,W,G*18] fp32 of an IM2COL_EDGES case,
-    and the im2col's keyword arguments."""
-    B, H, W, C, G, d, kind = IM2COL_EDGES[case]
+    """x [B,H,W,C] and offsets [B,H,W,G*18] fp32 of an IM2COL_EDGES or
+    IM2COL_GROUPED case, and the im2col's keyword arguments (with
+    ``conv_groups`` for a grouped case)."""
+    if case in IM2COL_GROUPED:
+        spec, CG = IM2COL_GROUPED[case]
+        x, off, kw = _im2col_inputs(rng, IM2COL_EDGES.get(spec, spec))
+        return x, off, dict(kw, conv_groups=CG)
+    return _im2col_inputs(rng, IM2COL_EDGES[case])
+
+
+def _im2col_inputs(rng, spec):
+    B, H, W, C, G, d, kind = spec
     x = rng.randn(B, H, W, C).astype(np.float32)
     if kind == "clamp":
         # past every border: each sample clamps onto an edge or a corner
