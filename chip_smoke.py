@@ -171,6 +171,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    the same forward's per-class detections. Each path's launches go into
    the JSON line.
 
+10. The bench (sniper_tpu_torch/bench.py) of R101 once, as
+   ``python -m sniper_tpu_torch.bench`` runs it: the three-scale pyramid,
+   the training step on a resident batch, the fed pipeline over 96 JPEGs
+   and the AutoFocus sweep over 32 images, the counters zeroed just before
+   and read just after: its line has every key of bench.py's, each MFU
+   lies in (0, 1], the FLOP counts are the full-width closed form's
+   (BENCH_FLOPS, BENCH_STEP_FLOPS) and every kernel of the main path
+   launched. The line is printed before the card's.
+
 The second-to-last line is a JSON object with one entry per kernel (its
 launches from the mask inference run, or from the recipe's training run
 for the two backward kernels, with every path's counts beside them, the
@@ -194,6 +203,9 @@ import time
 
 import numpy as np
 import torch
+
+# a stand-in dataset that counts and checks the aggregated detections
+from sniper_tpu_torch.bench_autofocus import Detections
 
 CONFIG = "configs/sniper_res101_e2e.yml"
 MASK_CONFIG = "configs/sniper_res101_e2e_mask.yml"
@@ -996,24 +1008,6 @@ def synth_image(name: str) -> np.ndarray:
     return im
 
 
-class CountingDataset:
-    """Stands in for a dataset: evaluate_detections returns counts and
-    checks that every detection is finite [k, 5]."""
-
-    num_classes = 81
-
-    def evaluate_detections(self, all_boxes, roidb):
-        total = 0
-        for cls in all_boxes[1:]:
-            for dets in cls:
-                if dets.ndim != 2 or dets.shape[1] != 5:
-                    raise ValueError(f"bad detection shape {dets.shape}")
-                if not np.isfinite(dets).all():
-                    raise ValueError("non-finite detections")
-                total += len(dets)
-        return {"detections": total, "images": len(roidb)}
-
-
 @contextlib.contextmanager
 def plain_versions():
     """Route the detector through the plain torch versions on the card, to
@@ -1135,7 +1129,7 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         k.launches = 0
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        stats = run_detection(cfg, model, None, roidb, CountingDataset(),
+        stats = run_detection(cfg, model, None, roidb, Detections(81),
                               out_dir, dev, image_loader=synth_image)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1202,12 +1196,13 @@ TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
                     "fused_pool_bwd")
 
 
-class MaskCountingDataset(CountingDataset):
+class MaskCountingDataset(Detections):
     """Also stands in for evaluate_segmentations: checks every aggregated
     mask, then (with ``paste``) pastes and RLE-encodes the masks of image 0
     and decodes the first RLE back."""
 
     def __init__(self, paste: bool = True):
+        super().__init__(81)
         self.paste = paste
 
     def evaluate_segmentations(self, all_boxes_masks, roidb):
@@ -2227,58 +2222,6 @@ AF_REPS = 4  # timed run_detection passes per mode in AutoFocus (c)
 AF_DENSITIES = (0.05, 0.2)
 
 
-def planted_maps(all_maps, density: float):
-    """Each chip's FocusPixel map replaced by a centred binary blob over
-    ``density`` of its cells (scripts/bench_autofocus.py's rule): a random
-    head's maps sit near 0.5, above both thresholds, which would make every
-    pixel a FocusPixel. The maps' shapes are the head's."""
-    out = []
-    for per_im in all_maps:
-        row = []
-        for m in per_im:
-            if m is None:
-                row.append(None)
-                continue
-            fh, fw = m.shape
-            planted = np.zeros((fh, fw), np.float32)
-            side = math.sqrt(density)
-            bh, bw = max(1, round(fh * side)), max(1, round(fw * side))
-            y0, x0 = (fh - bh) // 2, (fw - bw) // 2
-            planted[y0:y0 + bh, x0:x0 + bw] = 1.0
-            row.append(planted)
-        out.append(row)
-    return out
-
-
-@contextlib.contextmanager
-def focus_chips(density=None):
-    """Wrap main_test.add_chips from outside: with ``density``, plant the
-    maps it receives (planted_maps); record each call's scale, percent of
-    pixels, host time of the real add_chips and the FocusChips it made
-    (restored on exit). Yields the list of records."""
-    from sniper_tpu_torch import main_test
-
-    real = main_test.add_chips
-    calls = []
-
-    def add_chips(roidb, maps, s, cfg):
-        if density is not None:
-            maps = planted_maps(maps, density)
-        t0 = time.perf_counter()
-        chip_area, total_area = real(roidb, maps, s, cfg)
-        calls.append(dict(
-            scale=s, host_ms=(time.perf_counter() - t0) * 1e3,
-            pct=100.0 * chip_area / max(total_area, 1e-9),
-            chips=[len(r["inference_crops"]) for r in roidb]))
-        return [chip_area, total_area]
-
-    main_test.add_chips = add_chips
-    try:
-        yield calls
-    finally:
-        main_test.add_chips = real
-
-
 @contextlib.contextmanager
 def scale_clock():
     """Time each scale's Tester.get_detections (it returns after its last
@@ -2324,27 +2267,20 @@ def af_images(n: int) -> tuple[list, callable]:
 
 def af_pipeline(dev, cfg, model, density, card: str, tag: str) -> bool:
     """AutoFocus (c): one warm-up and AF_REPS timed passes of run_detection
-    over N_IMAGES images, with planted maps at ``density`` (None: the full
-    pyramid, TEST.AUTO_FOCUS off). Prints per-scale ms per batch, img/s,
-    percent of pixels, add_chips' host ms per image and peak memory."""
-    import copy
+    over N_IMAGES images (sniper_tpu_torch/bench_autofocus.run_pipeline),
+    with planted maps at ``density`` (None: the full pyramid,
+    TEST.AUTO_FOCUS off). Prints per-scale ms per batch, img/s, percent of
+    pixels, add_chips' host ms per image and peak memory."""
+    from sniper_tpu_torch.bench_autofocus import run_pipeline
 
-    from sniper_tpu_torch.main_test import run_detection
-
-    cfg = copy.deepcopy(cfg)
-    cfg.TEST.AUTO_FOCUS = density is not None
     roidb, loader = af_images(N_IMAGES)
     n_scales = len(cfg.TEST.SCALES)
     walls, per_scale, af, dets = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for rep in range(AF_REPS + 1):
-        with focus_chips(density) as chips, scale_clock() as clock, \
-                tempfile.TemporaryDirectory() as out_dir:
-            t0 = time.perf_counter()
-            stats = run_detection(cfg, model, None, copy.deepcopy(roidb),
-                                  CountingDataset(), out_dir, dev,
-                                  image_loader=loader)
-            wall = time.perf_counter() - t0
+        with scale_clock() as clock:
+            wall, chips, stats = run_pipeline(cfg, model, dev, roidb, loader,
+                                              density)
         if rep == 0:
             continue  # warm-up: cuDNN's first calls at each canvas
         # less the forward-only sweeps that scale_clock adds
@@ -2408,6 +2344,7 @@ def autofocus_inference(dev, acfg, amcfg, card: str) -> tuple[bool, dict]:
     Returns (ok, (b)'s launches)."""
     import copy
 
+    from sniper_tpu_torch.bench_autofocus import focus_chips
     from sniper_tpu_torch.data.test_loader import (
         canvas_for_scale,
         tier_canvases,
@@ -2492,7 +2429,7 @@ def autofocus_inference(dev, acfg, amcfg, card: str) -> tuple[bool, dict]:
         k.launches = 0
     with focus_chips() as chips, tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        stats = run_detection(acfg, model, None, roidb, CountingDataset(),
+        stats = run_detection(acfg, model, None, roidb, Detections(81),
                               out_dir, dev, image_loader=loader)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2554,6 +2491,7 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
     (ok, (t2)'s launches)."""
     import copy
 
+    from sniper_tpu_torch.bench_autofocus import focus_chips
     from sniper_tpu_torch.config import config_name
     from sniper_tpu_torch.data.test_loader import (
         TestChipIterator,
@@ -2656,7 +2594,7 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
                                 tcfg.TEST.VALID_RANGES[0])
     with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh), \
             focus_chips() as chips:
-        stats = run_detection(tcfg, model, None, roidb, CountingDataset(),
+        stats = run_detection(tcfg, model, None, roidb, Detections(81),
                               det_dir, dev, image_loader=loader)
     ok3 = (source == "checkpoint" and stats["detections"] > 0
            and len(chips) == 2 and bool(torch.isfinite(fp).all()))
@@ -2759,7 +2697,7 @@ def zoo_inference(dev, zcfg, tag: str, card: str,
         k.launches = 0
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        stats = run_detection(zcfg, model, None, roidb, CountingDataset(),
+        stats = run_detection(zcfg, model, None, roidb, Detections(81),
                               out_dir, dev, image_loader=synth_image)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2966,7 +2904,7 @@ def zoo_training(dev, zcfg, cfg_file: str, tag: str, tmp: str, card: str,
     thresh = in_range_threshold(out, batch["im_info"],
                                 tcfg.TEST.VALID_RANGES[0])
     with tempfile.TemporaryDirectory() as det_dir, class_threshold(thresh):
-        stats = run_detection(tcfg, model, None, roidb, CountingDataset(),
+        stats = run_detection(tcfg, model, None, roidb, Detections(81),
                               det_dir, dev, image_loader=synth_image)
     ok3 = source == "checkpoint" and stats["detections"] > 0
     print(f"{tag} main_test's restore ({source}) of the checkpoint; "
@@ -3831,6 +3769,58 @@ def options_phase(dev, cfg, amcfg, tmp: str, prefix: str,
         "demo (3 scales at batch 1)": l4}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the bench
+# ---------------------------------------------------------------------------
+
+# the bench's FLOP counts at full width, tests/test_torch_bench.py's closed
+# form: R101 per batch at the three test scales, and per training step
+BENCH_FLOPS = (5663558615040, 3817093398528, 842816651264)
+BENCH_STEP_FLOPS = 6723094642688
+BENCH_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
+                 "fused_pool_bwd")
+
+
+def bench_phase(dev) -> tuple[bool, dict, dict]:
+    """sniper_tpu_torch.bench's r101 run once (``bench.main``: the pyramid,
+    the training step, the fed pipeline, AutoFocus), the counters zeroed
+    just before and read just after. Holds that its line has every key of
+    bench.py's, each MFU lies in (0, 1], the FLOP counts are BENCH_FLOPS
+    and BENCH_STEP_FLOPS, and every kernel of the main path launched (the
+    patch extraction not). Returns (ok, launches, the line)."""
+    from sniper_tpu_torch import bench
+    from sniper_tpu_torch.ops import cuda
+
+    info = bench.card()
+    peak = bench.resolve_peak(info["device"])
+    for k in cuda.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result, detail = bench.main("r101", device=dev, peak=peak)
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    line = {**result, **info}
+    missing = sorted(set(bench.R101_KEYS) - set(result))
+    mfus = {"train_mfu": result["train_mfu"],
+            "pipeline_mfu": detail["pipeline_mfu"],
+            **{f"scale {s} mfu": sc["mfu"]
+               for s, sc in enumerate(detail["per_scale"])}}
+    flops = tuple(sc["flops"] for sc in detail["per_scale"])
+    ok = (not missing and all(0 < m <= 1 for m in mfus.values())
+          and flops == BENCH_FLOPS
+          and result["train_step_tflops"] == BENCH_STEP_FLOPS / 1e12
+          and all(launches[n] > 0 for n in BENCH_KERNELS)
+          and launches[cuda.ROI_PATCH.name] == 0)
+    print(f"bench: python -m sniper_tpu_torch.bench's r101 sections in "
+          f"{seconds:.1f} s; per scale {detail['per_scale']}; round ms "
+          f"{[round(r, 2) for r in detail['round_ms']]}; MFU {mfus} against "
+          f"{peak:.4g} FLOP/s; FLOP counts per batch {flops} (want "
+          f"{BENCH_FLOPS}), per step {result['train_step_tflops']} T (want "
+          f"{BENCH_STEP_FLOPS / 1e12}); missing keys {missing}; launches "
+          f"{launches}: {'PASS' if ok else 'FAIL'}")
+    return ok, launches, line
+
+
 def dir_mib(path: str) -> float:
     """The size of the files under ``path``, in MiB."""
     return sum(os.path.getsize(os.path.join(d, f))
@@ -3918,6 +3908,8 @@ def main() -> int:
         ok_o, launches_opt = options_phase(dev, cfg, amcfg, tmp, prefix,
                                            card)
         torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ok_b, launches_bench, bench_line = bench_phase(dev)
 
     # "launches": the mask-branch inference run for the kernels it runs
     # (the patch extraction's 0: no path runs it); the recipe's phase 3
@@ -3931,7 +3923,8 @@ def main() -> int:
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
                "autofocus inference": launches_af, **launches_train,
-               **launches_zoo, **launches_dp, **launches_opt}
+               **launches_zoo, **launches_dp, **launches_opt,
+               "bench (r101 sections)": launches_bench}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -3944,13 +3937,14 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
     if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z and ok_d
-            and ok_o):
+            and ok_o and ok_b):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
               f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
               f"the recipe and autofocus training {ok_t}, the model zoo "
               f"{ok_z}, data parallelism {ok_d}, the remaining options "
-              f"{ok_o})")
+              f"{ok_o}, the bench {ok_b})")
         return 1
+    print(json.dumps(bench_line))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,8 @@ def make_forward(model, state, devices, pixel_means, post_nms_top_n=None):
     same device). ``state`` (a state_dict, or None when ``model`` already
     holds its weights) is loaded first. Batches arrive as uint8 RGB
     canvases and are mean-subtracted on the device (device_normalize); fp32
-    input passes through. Over N replicas a batch splits along dim 0 into N
+    input passes through; batches already on the card are not copied. Over
+    N replicas a batch splits along dim 0 into N
     equal shards (ValueError when it does not divide), each replica runs
     its shard, and the outputs are joined on the first device, the rois'
     batch-index column made global (each replica numbers its images from
@@ -78,7 +79,7 @@ def make_forward(model, state, devices, pixel_means, post_nms_top_n=None):
         cuda = device.type == "cuda"
         # the kernels launch on the current card's stream
         with torch.cuda.device(device) if cuda else contextlib.nullcontext():
-            if cuda:
+            if cuda and not data.is_cuda:
                 data = data.pin_memory()
             data = data.to(device, non_blocking=True)
             im_info = im_info.to(device)

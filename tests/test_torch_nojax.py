@@ -58,6 +58,8 @@ def test_every_module_imports_without_jax():
     assert "sniper_tpu_torch.parallel.mesh" in mods
     assert "sniper_tpu_torch.demo" in mods
     assert "sniper_tpu_torch.utils.profiler" in mods
+    assert "sniper_tpu_torch.bench" in mods
+    assert "sniper_tpu_torch.bench_autofocus" in mods
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -82,8 +84,9 @@ def test_no_sniper_tpu_import_in_source(path):
 
 def test_every_jax_module_has_a_counterpart():
     """sniper_tpu/<path>.py -> sniper_tpu_torch/<path>.py, but for the
-    Pallas kernels (ops/pallas/), which csrc/ replaces; the top-level demo
-    and CLIs -> sniper_tpu_torch/. bench.py is not ported yet."""
+    Pallas kernels (ops/pallas/), which csrc/ replaces; the top-level demo,
+    CLIs and bench -> sniper_tpu_torch/ (scripts/bench_autofocus.py, which
+    bench.py runs, -> sniper_tpu_torch/bench_autofocus.py)."""
     jax_pkg = os.path.join(ROOT, "sniper_tpu")
     missing = [
         os.path.relpath(os.path.join(d, f), jax_pkg)
@@ -91,6 +94,7 @@ def test_every_jax_module_has_a_counterpart():
         if f.endswith(".py") and "pallas" not in os.path.relpath(d, jax_pkg)
         and not os.path.exists(os.path.join(
             PKG, os.path.relpath(os.path.join(d, f), jax_pkg)))]
-    missing += [f for f in ("demo.py", "main_train.py", "main_test.py")
+    missing += [f for f in ("demo.py", "main_train.py", "main_test.py",
+                            "bench.py", "bench_autofocus.py")
                 if not os.path.exists(os.path.join(PKG, f))]
     assert not missing, missing
