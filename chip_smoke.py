@@ -20,10 +20,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    sample on a kink) and at random offsets, the pool and its backward also
    at P=14 at the mask branch's training shapes (16 chips of 50 rois on
    32x32 maps), the pool at P=14 also at the mask branch's inference shapes
-   and the FocusChip tiers, and the ROI patch extraction at
-   the mask branch's shapes of every test scale of
-   configs/sniper_res101_e2e_mask.yml in fp32 and bf16, with the whole patch
-   route of the 14x14 pool held against the composed-tent pool kernels, and
+   and the FocusChip tiers, and the ROI patch extraction at the box
+   head's shapes (P=7, E=36: phase 11's path) and the mask branch's (P=14,
+   E=64) of every test scale in fp32 and bf16, with the whole patch route
+   of the 7x7 and 14x14 pools held against the composed-tent pool kernels,
+   and
    NMS through both entries (``nms`` sorting unsorted input, ``nms_sorted``,
    the proposal op's, on it sorted) on clustered boxes with distinct scores
    and on saturated ones, tied and repeated as a random RPN emits them: the
@@ -179,12 +180,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    lies in (0, 1], the FLOP counts are the full-width closed form's
    (BENCH_FLOPS, BENCH_STEP_FLOPS) and every kernel of the main path
    launched. The line is printed before the card's.
+11. R101 box inference with ``--set network.POOL_KERNEL pallas``: the
+   R-CNN head's inference pool on the patch route (the ROI patch
+   extraction P5, then torch ops), with phase 3's seeded weights, images
+   and shapes. (a) one batch per scale against the same weights on the
+   fused route: rois bit for bit, cls_prob and bbox_pred within
+   PALLAS_ATOL; (b) run_detection with the counters zeroed just before and
+   read just after; in both, every batch's launches exactly P5
+   ceil(B*rois/PATCH_ROI_CHUNK) (19 / 25 / 13 at scales 0 / 1 / 2), X1 3,
+   NMS 1 and no fused pool; (c) per scale, the whole forward's ms per
+   batch on each route (host clock, in turns), the pool alone on each
+   (CUDA events; scale 0's patch route also by kernel, torch.profiler)
+   and the pallas route's peak memory.
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches from the mask inference run, or from the recipe's training run
-for the two backward kernels, with every path's counts beside them, the
-mask training's, AutoFocus's, the model zoo's and data parallelism's
-among them, and phase 9's); the
+launches from the mask inference run, from phase 11's run for the patch
+extraction, or from the recipe's training run for the two backward
+kernels, with every path's counts beside them, the mask training's,
+AutoFocus's, the model zoo's and data parallelism's among them, and phase
+9's and 11's); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script raises at once.
 """
@@ -823,14 +837,16 @@ def patch_as_grid_sample(feat, geom, rpi, E):
 
 
 def check_roi_patch(dev, sh):
-    """P5 at the mask pool's shapes (P=14, S=4, margin 1 bin: E=64), fp32
-    (the main path's dtype) and bf16, on all of the scale's rois; then the
-    patch route of the whole 14x14 pool against the composed-tent pool
-    kernels on the same inputs."""
+    """P5 at the pool's shapes (``sh["P"]``: 7 for the box head under
+    network.POOL_KERNEL pallas, E=36; 14 for the mask pool, E=64; S=4,
+    margin 1 bin), fp32 (the main path's dtype) and bf16, on all of the
+    scale's rois in one call, and in fp32 as the patch route calls it
+    (PATCH_ROI_CHUNK rois per launch); then the patch route of the whole
+    pool against the composed-tent pool kernels on the same inputs."""
     from sniper_tpu_torch.ops import deform
 
     B, rpi, C, H, W = sh["B"], sh["rois"], 256, sh["H"], sh["W"]
-    P, S, M = 14, 4, 4
+    P, S, M = sh["P"], 4, 4
     E = P * S + 2 * M
     R = B * rpi
     g = torch.Generator().manual_seed(10)
@@ -882,10 +898,19 @@ def check_roi_patch(dev, sh):
     timed["fp32"]["library_ms"] = lib_ms
     del fmap, grid, inb
     torch.cuda.empty_cache()
+    step = deform.PATCH_ROI_CHUNK
 
-    # the patch route (P5, then torch ops) against the P1/P2 kernels at
-    # P=14, with an offset FC that moves the windows by ~0.5 to 2 cells
-    off_w = (torch.randn(2 * P * P, P * P * C, generator=g) * 0.003).to(dev)
+    def chunked():
+        for r0 in range(0, R, step):
+            deform.extract_patches(feat32, geom, r0=r0, r1=min(R, r0 + step),
+                                   **kw)
+
+    chunked_ms = time_ms(chunked, 3)
+
+    # the patch route (P5, then torch ops) against the P1/P2 kernels, with
+    # an offset FC that moves the windows by ~0.5 to 2 cells
+    off_w = (torch.randn(2 * P * P, P * P * C, generator=g)
+             * (0.003 * 14 / P)).to(dev)
     off_b = (torch.randn(2 * P * P, generator=g) * 0.3).to(dev)
     with torch.inference_mode():
         a = deform.patch_offset_pool(feat32, rois, off_w, off_b,
@@ -904,9 +929,11 @@ def check_roi_patch(dev, sh):
           f"E={E}; {'; '.join(parts)}; library F.grid_sample (bilinear, "
           f"border, align_corners) times the in-bounds mask, fp32, "
           f"{lib_ms:.4f} ms (max abs diff from the kernel {lib_err:.3e}, "
-          f"its own coordinate rounding; not a check)")
-    print(f"mask pool route [{sh['label']}]: patch_offset_pool (roi_patch + "
-          f"torch ops) vs fused_offset_pool (fused_pool kernels) at P=14, "
+          f"its own coordinate rounding; not a check); fp32 as the patch "
+          f"route calls it, {math.ceil(R / step)} launches of {step} rois: "
+          f"{chunked_ms:.4f} ms")
+    print(f"patch route [{sh['label']}]: patch_offset_pool (roi_patch + "
+          f"torch ops) vs fused_offset_pool (fused_pool kernels) at P={P}, "
           f"offset FC nonzero: max abs err {route_err:.3e} (tolerance "
           f"atol={POOL_ATOL} rtol={POOL_RTOL}) "
           f"{'PASS' if route_ok else 'FAIL'}; {route_ms:.3f} ms vs "
@@ -938,7 +965,8 @@ TOLERANCES = {
                  "blended in fp32; the plain version's dense products sum "
                  "in another order); bf16 within one rounding step of the "
                  "result (2^-7 relative) plus 1e-6; the patch route of the "
-                 f"14x14 pool within atol={POOL_ATOL} rtol={POOL_RTOL} of "
+                 f"7x7 and 14x14 pools within atol={POOL_ATOL} "
+                 f"rtol={POOL_RTOL} of "
                  "the composed-tent kernels (fp32 sums of the same tents in "
                  "another order)",
 }
@@ -951,7 +979,8 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
     line), the pool also at the mask branch's training and inference
     shapes and at the FocusChip tiers (P=14), the backward kernels at the
     training shapes (the pool's also at P=14), the patch extraction at the
-    mask branch's shapes of every test scale. The model zoo (phase 7): the
+    box head's shapes (P=7) and the mask branch's (P=14) of every test
+    scale. The model zoo (phase 7): the
     im2col and its backward at ResNeXt-101's C5 width (2048 channels, 512
     per deformable group; inference scale 0 and training), NMS, the pool
     and its backward at MobileNetV2's stride-32 maps (``zcfg``: every test
@@ -971,6 +1000,13 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
             for sh in (main_path_shapes(cfg)[0], train_shapes(cfg))]
     mnv2 = [dict(sh, label=f"mobilenetv2 {sh['label']}")
             for sh in main_path_shapes(zcfg) + [train_shapes(zcfg)]]
+    # the patch extraction: the box head's 7x7 pool under POOL_KERNEL
+    # pallas (phase 11, scale 0 first: its times go into the JSON line),
+    # then the mask pool's 14x14 shapes
+    box_head = [dict(s, P=7, label=f"box head {s['label']}")
+                for s in main_path_shapes(cfg)]
+    mask_patch = [dict(s, P=14, label=f"mask pool {s['label']}")
+                  for s in main_path_shapes(mcfg)]
     results: list = []
     ok = True
     for kernel, check, at in (
@@ -980,7 +1016,7 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
              both + mask_train + mask_infer + mnv2),
             (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train + x101[1:]),
             (cuda.POOL_BWD, check_pool_bwd, train + mask_train + mnv2[-1:]),
-            (cuda.ROI_PATCH, check_roi_patch, main_path_shapes(mcfg))):
+            (cuda.ROI_PATCH, check_roi_patch, box_head + mask_patch)):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
         runs = [check(dev, sh) for sh in at]
         torch.cuda.synchronize()
@@ -1190,7 +1226,7 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
 # ---------------------------------------------------------------------------
 
 # the mask branch pools through the fused pool kernels too: the patch
-# extraction (P5) runs on no path, only against its plain version in phase 2
+# extraction (P5) runs only on the box head's pallas route (phase 11)
 INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool")
 TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
                     "fused_pool_bwd")
@@ -3821,6 +3857,240 @@ def bench_phase(dev) -> tuple[bool, dict, dict]:
     return ok, launches, line
 
 
+# ---------------------------------------------------------------------------
+# phase 11: box inference under network.POOL_KERNEL pallas
+# ---------------------------------------------------------------------------
+
+PALLAS_ATOL = 1e-3  # cls_prob and bbox_pred, pallas route vs fused route
+PALLAS_REPS = 3  # timed passes of each scale's batches per route in (c)
+
+
+class LaunchesPerCall:
+    """The kernels' launches in each forward of ``model``, read from the
+    counters before and after the call (forward hooks): ``calls`` holds
+    ((B, rois per image), {kernel name: launches}) per call."""
+
+    def __init__(self, model):
+        from sniper_tpu_torch.ops import cuda
+
+        self.kernels = cuda.KERNELS
+        self.calls: list = []
+        self.before: dict = {}
+        self.hooks = (model.register_forward_pre_hook(self.pre),
+                      model.register_forward_hook(self.post))
+
+    def counts(self) -> dict:
+        return {k.name: k.launches for k in self.kernels}
+
+    def pre(self, module, args):
+        self.before = self.counts()
+
+    def post(self, module, args, out):
+        now = self.counts()
+        self.calls.append((tuple(out["rois"].shape[:2]),
+                           {n: now[n] - self.before[n] for n in now}))
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def pallas_launches(B: int, rpi: int) -> dict:
+    """One box-inference batch's launches under POOL_KERNEL pallas: the
+    patch extraction once per PATCH_ROI_CHUNK rois, the im2col of C5's three
+    deformable convs, NMS once, no fused pool and no backward."""
+    from sniper_tpu_torch.ops import deform
+
+    return {"roi_patch": math.ceil(B * rpi / deform.PATCH_ROI_CHUNK),
+            "deform_im2col": 3, "nms": 1, "fused_pool": 0,
+            "deform_im2col_bwd": 0, "fused_pool_bwd": 0}
+
+
+def patch_route_kernels(fn) -> dict:
+    """Device ms by kernel name of one call of ``fn`` (torch.profiler)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.elapsed_us() / 1e3
+    return by_kernel
+
+
+def pallas_phase(dev, card: str) -> tuple[bool, dict]:
+    """R101 box inference of configs/sniper_res101_e2e.yml with ``--set
+    network.POOL_KERNEL pallas``: the R-CNN head's pool on the patch route
+    (P5, then torch ops). Phase 3's seeded weights, images and shapes. (a)
+    one batch per scale against the same weights on the fused route (P1/P2)
+    through make_forward: rois bit for bit, cls_prob and bbox_pred within
+    PALLAS_ATOL, each batch's launches exactly ``pallas_launches``; (b)
+    run_detection with the counters zeroed just before and read just
+    after, every batch's launches exact; (c) per scale, ms per batch of
+    the whole forward on each route (host clock, median of PALLAS_REPS
+    passes, in turns) and of the pool alone on batch 0's roi map and rois
+    (CUDA events), with scale 0's pool by kernel (torch.profiler), and the
+    pallas route's peak memory. Returns (ok, (b)'s launches)."""
+    from sniper_tpu_torch.config import load_config
+    from sniper_tpu_torch.data.test_loader import (
+        TestChipIterator,
+        init_inference_crops,
+    )
+    from sniper_tpu_torch.infer.tester import device_normalize
+    from sniper_tpu_torch.main_test import (
+        _scale_post_nms,
+        make_forward,
+        run_detection,
+    )
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda, deform
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, CONFIG))
+    pcfg = load_config(os.path.join(root, CONFIG),
+                       overrides=["network.POOL_KERNEL", "pallas"])
+    model = init_detector(get_model(pcfg), seed=0, offset_std=1e-3)
+    fused = get_model(cfg)
+    fused.load_state_dict(model.state_dict())
+    model.to(dev).eval()
+    fused.to(dev).eval()
+    means = pcfg.network.PIXEL_MEANS
+    print(f"pallas: {CONFIG} --set network.POOL_KERNEL pallas: the head's "
+          f"inference pool on route {model.pool_kernel!r} against "
+          f"{fused.pool_kernel!r} on the same weights (phase 3's: seed 0, "
+          f"offsets normal(1e-3)); PATCH_ROI_CHUNK "
+          f"{deform.PATCH_ROI_CHUNK}, patch and pool in fp32 on both routes "
+          f"(the JAX pallas branch extracts in bf16 on an accelerator); "
+          f"tolerance {PALLAS_ATOL} absolute on cls_prob and bbox_pred, "
+          f"rois bit for bit (the pool comes after the RPN and NMS)")
+    rec = LaunchesPerCall(model)
+    ok = True
+
+    def exact(calls) -> bool:
+        return bool(calls) and all(c == pallas_launches(*shape)
+                                   for shape, c in calls)
+
+    # (a) one batch per scale, pallas route against fused route
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(N_IMAGES)]
+    init_inference_crops(roidb)
+    scales = []
+    for s in range(len(pcfg.TEST.SCALES)):
+        bs = pcfg.TEST.BATCH_IMAGES[s]
+        n = _scale_post_nms(pcfg, s, model)
+        batches = list(TestChipIterator(roidb, pcfg, s, bs,
+                                        image_loader=synth_image))
+        fwd_p = make_forward(model, None, dev, means, n)
+        fwd_f = make_forward(fused, None, dev, means, n)
+        b0 = batches[0]
+        rec.calls = []
+        torch.backends.cudnn.deterministic = True
+        out_f = fwd_f(b0["data"], b0["im_info"])
+        out_p = fwd_p(b0["data"], b0["im_info"])
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        same = torch.equal(out_p["rois"], out_f["rois"])
+        err = float((out_p["cls_prob"] - out_f["cls_prob"]).abs().max())
+        berr = float((out_p["bbox_pred"] - out_f["bbox_pred"]).abs().max())
+        finite = all(bool(torch.isfinite(out_p[k]).all())
+                     for k in ("rois", "cls_prob", "bbox_pred"))
+        good = (same and err <= PALLAS_ATOL and berr <= PALLAS_ATOL
+                and finite and exact(rec.calls)
+                and tuple(out_p["cls_prob"].shape) == (bs, n, 81))
+        print(f"pallas (a) scale {s}: batch {bs}, {n} rois/img: rois "
+              f"identical {same}, cls_prob max abs err {err:.3e}, bbox_pred "
+              f"max abs err {berr:.3e} (tolerance {PALLAS_ATOL}), finite "
+              f"{finite}; launches {rec.calls[-1][1] if rec.calls else None}"
+              f" (want {pallas_launches(bs, n)}): "
+              f"{'PASS' if good else 'FAIL'}")
+        ok &= good
+        scales.append((s, bs, n, batches, fwd_p, fwd_f, out_p))
+
+    # (b) the main path: run_detection under POOL_KERNEL pallas
+    roidb = [{"image": f"im{i}", "width": IM_W, "height": IM_H,
+              "flipped": False} for i in range(N_IMAGES)]
+    for k in cuda.KERNELS:
+        k.launches = 0
+    rec.calls = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        stats = run_detection(pcfg, model, None, roidb, Detections(81),
+                              out_dir, dev, image_loader=synth_image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    per_batch = [(shape, c["roi_patch"]) for shape, c in rec.calls]
+    good = stats["detections"] > 0 and exact(rec.calls)
+    print(f"pallas (b) run_detection over {N_IMAGES} synthetic {IM_W}x{IM_H} "
+          f"images: {stats}, launches {launches}; per batch ((B, rois/img), "
+          f"roi_patch launches) {per_batch}, every batch exactly "
+          f"pallas_launches: {exact(rec.calls)}; {wall:.2f} s wall "
+          f"including first-call set-up: {'PASS' if good else 'FAIL'}")
+    ok &= good
+    rec.remove()
+
+    # (c) per-scale times of the two routes, in turns
+    head = model.rcnn
+    for s, bs, n, batches, fwd_p, fwd_f, out_p in scales:
+        reps = {"fused": [], "pallas": []}
+        for r in range(PALLAS_REPS):
+            order = (("fused", fwd_f), ("pallas", fwd_p))
+            for name, fwd in order if r % 2 == 0 else order[::-1]:
+                t0 = time.perf_counter()
+                for b in batches:
+                    fwd(b["data"], b["im_info"])
+                torch.cuda.synchronize()
+                reps[name].append((time.perf_counter() - t0) * 1e3
+                                  / len(batches))
+        med = {k: sorted(v)[len(v) // 2] for k, v in reps.items()}
+        b0 = batches[0]
+        info0 = torch.as_tensor(b0["im_info"], dtype=torch.float32).to(dev)
+        x0 = device_normalize(torch.as_tensor(b0["data"]).to(dev), info0,
+                              means)
+        kw = dict(rois_per_image=n, pooled_size=head.pooled_size,
+                  spatial_scale=head.spatial_scale, trans_std=head.trans_std,
+                  margin_bins=head.margin_bins)
+        with torch.inference_mode():
+            fmap = model._roi_feat_map(model._shared(x0)[0])
+            rois = out_p["rois"].reshape(-1, 5)
+            pool_ms = {name: time_ms(lambda pool=pool: pool(
+                fmap, rois, head.offset.weight, head.offset.bias, **kw), 3)
+                for name, pool in (("pallas", deform.patch_offset_pool),
+                                   ("fused", deform.fused_offset_pool))}
+            torch.cuda.reset_peak_memory_stats()
+            fwd_p(b0["data"], b0["im_info"])
+            torch.cuda.synchronize()
+            if s == 0:
+                by_kernel = patch_route_kernels(
+                    lambda: deform.patch_offset_pool(
+                        fmap, rois, head.offset.weight, head.offset.bias,
+                        **kw))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"pallas (c) scale {s}: batch {bs}, {n} rois/img, map "
+              f"{tuple(fmap.shape[1:3])}: forward median {med['pallas']:.2f}"
+              f" ms/batch on the pallas route vs {med['fused']:.2f} on the "
+              f"fused route ({PALLAS_REPS} passes of {len(batches)} batches "
+              f"each, in turns; host clock); the pool alone "
+              f"{pool_ms['pallas']:.3f} ms vs {pool_ms['fused']:.3f} ms "
+              f"(CUDA events, batch 0's roi map and rois); pallas forward "
+              f"peak memory {peak:.2f} GiB [{card}]")
+        if s == 0:
+            busy = sum(by_kernel.values())
+            print(f"pallas (c) scale 0: the patch-route pool's device time "
+                  f"by kernel (torch.profiler, one call): busy {busy:.3f} ms;"
+                  + "".join(f" {ms:.3f} ms ({ms / busy:.0%}) {name[:70]};"
+                            for name, ms in by_kernel.most_common(6)))
+        del fmap, rois, x0
+    del model, fused, scales
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
 def dir_mib(path: str) -> float:
     """The size of the files under ``path``, in MiB."""
     return sum(os.path.getsize(os.path.join(d, f))
@@ -3910,21 +4180,26 @@ def main() -> int:
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ok_b, launches_bench, bench_line = bench_phase(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ok_p, launches_pallas = pallas_phase(dev, card)
 
-    # "launches": the mask-branch inference run for the kernels it runs
-    # (the patch extraction's 0: no path runs it); the recipe's phase 3
-    # (thread loader) for the two backward kernels, which only training
-    # runs. Every path's counts stand beside, the mask training's among
-    # them.
+    # "launches": the mask-branch inference run for the kernels it runs;
+    # phase 11's box inference under POOL_KERNEL pallas for the patch
+    # extraction, the one path that runs it; the recipe's phase 3 (thread
+    # loader) for the two backward kernels, which only training runs. Every
+    # path's counts stand beside, the mask training's among them.
     def main_path(name):
-        return ("mask inference"
-                if name in INFERENCE_KERNELS + ("roi_patch",)
+        if name == "roi_patch":
+            return "inference (pallas)"
+        return ("mask inference" if name in INFERENCE_KERNELS
                 else "training (recipe)")
 
     by_path = {"inference": launches_infer, "mask inference": launches_mask,
                "autofocus inference": launches_af, **launches_train,
                **launches_zoo, **launches_dp, **launches_opt,
-               "bench (r101 sections)": launches_bench}
+               "bench (r101 sections)": launches_bench,
+               "inference (pallas)": launches_pallas}
     kernels = [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": r["kernel"].replaces,
@@ -3937,12 +4212,12 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in results]
     if not (ok_k and ok_e and ok_m and ok_a and ok_t and ok_z and ok_d
-            and ok_o and ok_b):
+            and ok_o and ok_b and ok_p):
         print(f"chip_smoke: FAILED (kernels {ok_k}, inference {ok_e}, "
               f"mask inference {ok_m}, autofocus inference {ok_a}, training, "
               f"the recipe and autofocus training {ok_t}, the model zoo "
               f"{ok_z}, data parallelism {ok_d}, the remaining options "
-              f"{ok_o}, the bench {ok_b})")
+              f"{ok_o}, the bench {ok_b}, the pallas route {ok_p})")
         return 1
     print(json.dumps(bench_line))
     print(card_line())

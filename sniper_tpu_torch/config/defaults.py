@@ -93,11 +93,12 @@ def default_config() -> AttrDict:
     # 25-35% faster); trained offsets measured 4.4x below the clamp
     # (scripts/profile_margin.py). Set 2 for the conservative halo.
     n.HEAD_MARGIN_BINS = 1
-    # pool backend for the 7x7 R-CNN head: "auto" resolves to the fused
-    # Pallas kernel (ops/pallas/fused_pool.py, hand-written backward so
-    # training pools through it too) on a single TPU device and to the
-    # chunked einsum path otherwise; "einsum" / "fused" force a
-    # backend ("pallas" is the forward-only per-roi parity oracle).
+    # inference pool route of the 7x7 R-CNN head (models/registry.py:
+    # _pool_kernel): "auto", "fused" and "einsum" run the fused pool
+    # kernels (csrc/fused_pool.cu), "pallas" the patch route (the ROI
+    # patch kernel csrc/roi_patch.cu, then torch ops; forward only, the
+    # JAX package's per-roi parity oracle). Training always pools through
+    # the fused kernels.
     n.POOL_KERNEL = "auto"
     # BatchNorm statistics mode for multi-device training: "sync"
     # (default — XLA computes statistics over the GLOBAL batch under

@@ -136,8 +136,12 @@ class COCODataset:
         roidb = [self._entry(i) for i in self.image_ids]
         if use_cache:
             os.makedirs(os.path.dirname(cache), exist_ok=True)
-            with open(cache, "wb") as f:
+            # written whole, then renamed: a data-parallel rank that finds
+            # the cache never reads another rank's half-written file
+            tmp = f"{cache}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
                 pickle.dump(roidb, f)
+            os.replace(tmp, cache)
         return roidb
 
     def detections_to_results(self, all_boxes, roidb):

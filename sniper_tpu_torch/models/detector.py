@@ -4,7 +4,9 @@ Port of sniper_tpu/models/detector.py:114-223,294-354: trunk -> its
 detection map -> RPN -> softmax over the {bg, fg} axis -> ``conv_new_1`` +
 ReLU cast to fp32, then
 
-- inference: ``multi_proposal`` -> the fused deformable R-CNN head ->
+- inference: ``multi_proposal`` -> the deformable R-CNN head, its pool
+  on the route of ``pool_kernel`` (network.POOL_KERNEL: "fused", or
+  "pallas", the patch route of the JAX detector's ``pallas`` backend) ->
   class softmax and ``bbox_pred * stds + means``; with ``with_mask``, the
   mask branch on every kept roi: the 14x14 two-pass pool
   (``fused_offset_pool`` with the ``mask_offset`` FC, the kernels of the
@@ -61,7 +63,7 @@ from sniper_tpu_torch.models.norm import BN_MODES, TrainBatchNorm
 from sniper_tpu_torch.models.resnet import ResNetTrunk, conv
 from sniper_tpu_torch.models.resnext import ResNeXtTrunk
 from sniper_tpu_torch.ops.anchors import make_anchors_ahw
-from sniper_tpu_torch.ops.deform import fused_offset_pool
+from sniper_tpu_torch.ops.deform import POOL_ROUTES, fused_offset_pool
 from sniper_tpu_torch.ops.mask_target import mask_targets_from_dense
 from sniper_tpu_torch.ops.proposals import (
     multi_proposal,
@@ -103,6 +105,7 @@ class SNIPERDetector(nn.Module):
         with_mask: bool = False,
         rpn_only: bool = False,
         bn_mode: str = "sync",
+        pool_kernel: str = "fused",
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -144,6 +147,16 @@ class SNIPERDetector(nn.Module):
         self.mask_size = 28  # the mask head's deconv doubles the 14x14 pool
         self.num_mask_rois = NUM_MASK_ROIS
         self.head_margin_bins = head_margin_bins
+        # the R-CNN head's inference pool route (network.POOL_KERNEL,
+        # resolved by the registry): "fused" (the fused pool kernels) or
+        # "pallas" (the patch route: the ROI patch kernel, then torch ops;
+        # forward only). Training pools through "fused" whatever it says,
+        # as the JAX detector trains "pallas" on its differentiable route,
+        # and the mask pool always does, as the JAX mask pool ignores the key
+        if pool_kernel not in POOL_ROUTES:
+            raise ValueError(f"pool_kernel must be {'|'.join(POOL_ROUTES)}, "
+                             f"got {pool_kernel!r}")
+        self.pool_kernel = pool_kernel
         if not rpn_only:
             self.conv_new_1 = nn.Conv2d(feat_ch, 256, 1)
             self.rcnn = RCNNHead(num_classes, spatial_scale=1.0 / feat_stride,
@@ -233,7 +246,8 @@ class SNIPERDetector(nn.Module):
         if self.rpn_only:
             return {"rois": rois, "roi_scores": scores, "roi_valid": valid}
         roi_feat_map = self._roi_feat_map(feat)
-        cls_score, bbox_pred = self.rcnn(roi_feat_map, rois.reshape(-1, 5))
+        cls_score, bbox_pred = self.rcnn(roi_feat_map, rois.reshape(-1, 5),
+                                         extract=self.pool_kernel)
         cls_prob = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
         out = {
             "rois": rois,
@@ -303,8 +317,10 @@ class SNIPERDetector(nn.Module):
             self.anchors(fh, fw, feat.device), generator=generator,
             priorities=priorities, bbox_stds=self.bbox_stds,
             bbox_means=self.bbox_means, **self.train_kw)
+        # the fused route whatever pool_kernel says: it has the backward
         cls_score, bbox_pred, off = self.rcnn(
-            roi_feat_map, tgt.rois.reshape(-1, 5), return_offset=True)
+            roi_feat_map, tgt.rois.reshape(-1, 5), extract="fused",
+            return_offset=True)
         stats = self.rcnn.offset_stats(off)
         if dcn:
             stats["dcn_offset_max"] = torch.stack(dcn).amax()

@@ -60,12 +60,16 @@ class RCNNHead(nn.Module):
         self.bbox_pred = nn.Linear(fc_dim, 4)
 
     def forward(self, roi_feat_map: torch.Tensor, rois: torch.Tensor, *,
-                return_offset: bool = False):
+                extract: str = "fused", return_offset: bool = False):
         """roi_feat_map [B,H,W,C] fp32, image-contiguous rois [R,5] (roi i
         belongs to image i // (R/B), as multi_proposal emits them).
-        Returns (cls_score [R, num_classes], bbox_pred [R, 4]) fp32, and
-        with ``return_offset`` the raw offset-FC output [R, 2*P*P]
-        (detached), which offset_stats reads."""
+        ``extract`` is the pool's route (rcnn_head_fused): "fused" (the
+        fused pool kernels, with the backward) or "pallas" (the patch
+        route, forward only: the detector's inference under
+        network.POOL_KERNEL pallas). Returns (cls_score [R, num_classes],
+        bbox_pred [R, 4]) fp32, and with ``return_offset`` the raw
+        offset-FC output [R, 2*P*P] (detached), which offset_stats
+        reads."""
         B = roi_feat_map.shape[0]
         if rois.shape[0] % B:
             raise NotImplementedError(
@@ -79,7 +83,7 @@ class RCNNHead(nn.Module):
             roi_feat_map, rois, params, rois_per_image=rois.shape[0] // B,
             pooled_size=self.pooled_size, spatial_scale=self.spatial_scale,
             trans_std=self.trans_std, margin_bins=self.margin_bins,
-            return_offset=return_offset)
+            extract=extract, return_offset=return_offset)
 
     def offset_stats(self, off: torch.Tensor) -> dict:
         """Margin-clamp telemetry of the raw offset-FC output (heads.py:

@@ -10,11 +10,15 @@ trunk's compute dtype, as in the JAX package. The TEST.* RPN keys drive the
 inference branch and the TRAIN.* keys the training sampler, whose roi count
 per image is TRAIN.RPN_POST_NMS_TOP_N (the reference op emits exactly that
 many). ``network.BN_MODE`` is checked as the JAX registry checks it
-(``_bn_mode``). ``network.POOL_KERNEL`` and
-``network.RESNEXT_SUPERGROUPS`` are not read: the einsum/pallas/fused choice
-and the supergroups of ResNeXt's block-diagonal 3x3 exist only for the TPU.
-Here the device of the tensors decides between a kernel and its plain
-version, and ResNeXt's grouped 3x3 is one grouped convolution.
+(``_bn_mode``), and ``network.POOL_KERNEL`` is read as it reads it
+(``_pool_kernel``): "pallas" sends the R-CNN head's inference pool through
+the patch route (the ROI patch kernel, then torch ops), every other value
+through the fused pool kernels; the device of the tensors still decides
+between a kernel and its plain version. The JAX registry's multi-device
+fallbacks of that key are not ported: a CUDA kernel has no sharding rule to
+lack. ``network.RESNEXT_SUPERGROUPS`` is not read: the supergroups of
+ResNeXt's block-diagonal 3x3 exist only for the TPU, and here ResNeXt's
+grouped 3x3 is one grouped convolution.
 """
 
 from __future__ import annotations
@@ -37,6 +41,28 @@ def _bn_mode(cfg) -> str:
     if mode not in BN_MODES:
         raise ValueError(f"network.BN_MODE must be sync|local, got {mode!r}")
     return mode
+
+
+# network.POOL_KERNEL -> the head's inference pool route. "einsum" and
+# "fused" compute the same function in the JAX package
+# (tests/test_pallas_fused_pool.py); here both run the fused pool kernels on
+# the card and their plain versions on the CPU
+_POOL_KERNELS = {"auto": "fused", "fused": "fused", "einsum": "fused",
+                 "pallas": "pallas"}
+
+
+def _pool_kernel(cfg) -> str:
+    """network.POOL_KERNEL (sniper_tpu/models/registry.py:15-33) -> the
+    R-CNN head's inference pool route: "pallas" is the
+    patch route (ops/deform.py:patch_offset_pool, forward only), "auto",
+    "fused" and "einsum" the fused route. Any other value raises
+    ValueError. Training and the mask pool take the fused route whatever
+    the key says (models/detector.py)."""
+    pool = str(getattr(cfg.network, "POOL_KERNEL", "auto"))
+    if pool not in _POOL_KERNELS:
+        raise ValueError(f"network.POOL_KERNEL must be "
+                         f"{'|'.join(_POOL_KERNELS)}, got {pool!r}")
+    return _POOL_KERNELS[pool]
 
 
 def _detector(cfg, overrides, **trunk):
@@ -67,6 +93,7 @@ def _detector(cfg, overrides, **trunk):
         bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
         head_margin_bins=int(getattr(cfg.network, "HEAD_MARGIN_BINS", 1)),
         bn_mode=_bn_mode(cfg),
+        pool_kernel=_pool_kernel(cfg),
         **trunk,
     )
     kw.update(overrides)

@@ -25,16 +25,23 @@ Port of sniper_tpu/ops/deform.py and sniper_tpu/ops/pallas/fused_pool.py:
   ``OFFSET_GRAD_MULT`` -> transposed pass A; each transposed pass is
   ``pool_pass_bwd`` (csrc/fused_pool_bwd.cu, or the plain version). The
   box head pools at P=7 and the mask branch at P=14, both ways.
-- ``rcnn_head_fused`` (deform.py:797-841): the pool plus the FC stack.
-- ``patch_offset_pool`` (deform.py:743-794, ``fused_offset_pool`` with
-  ``extract="einsum"``): the patch route of the same two-pass pool, the JAX
-  mask branch's route, kept as a second reference for the 14x14 pool (no
-  caller on the detector's paths). Each roi's (T+2M)^2 patch is extracted
-  once by ``extract_patches`` (csrc/roi_patch.cu, the counterpart of
-  pallas/roi_patch.py, or the plain version), then ``tiled_bin_avg``
-  (pass 1 on the central T x T cells) -> offset FC -> ``stencil_pool``
-  (the offset-shifted tent stack as one dense product per roi). Forward
-  only.
+- ``rcnn_head_fused`` (deform.py:797-841): the pool plus the FC stack, the
+  pool on the route that ``extract`` names (POOL_ROUTES): "fused"
+  (``fused_offset_pool``) or "pallas" (``patch_offset_pool``, the JAX
+  ``extract="pallas"`` branch, deform.py:720-741).
+- ``patch_offset_pool`` (deform.py:720-794, ``fused_offset_pool`` with
+  ``extract="pallas"`` or ``"einsum"``): the patch route of the same
+  two-pass pool, the R-CNN head's inference route under
+  network.POOL_KERNEL pallas (the JAX package's per-roi parity oracle for
+  the fused pool) and a second reference for the 14x14 pool. Each roi's
+  (T+2M)^2 patch is extracted once by ``extract_patches``
+  (csrc/roi_patch.cu, the counterpart of pallas/roi_patch.py, or the plain
+  version), then ``tiled_bin_avg`` (pass 1 on the central T x T cells) ->
+  offset FC -> ``stencil_pool`` (the offset-shifted tent stack as one dense
+  product per roi), PATCH_ROI_CHUNK rois at a time. Forward only. The JAX
+  ``pallas`` branch casts the map to bf16 on an accelerator
+  (deform.py:31-39); this route extracts in fp32 on both devices, as the
+  fused route pools, so that the two routes compute the same function.
 
 The plain backwards are written out as the JAX backward is, not derived by
 autograd: the zeros-initialized offset FC and C5 offset convs put every
@@ -59,8 +66,11 @@ from sniper_tpu_torch.ops import cuda
 OFFSET_GRAD_MULT = 0.01
 # rois per chunk of the patch route: at P=14 a roi's fp32 patch is
 # E*E*C*4 B (4.2 MB at E=64, C=256) and its stencil weights P*P*E*E*4 B
-# (3.2 MB), so a chunk holds about 470 MB
+# (3.2 MB), so a chunk holds about 470 MB; at the box head's P=7 (E=36)
+# about 100 MB
 PATCH_ROI_CHUNK = 64
+# the R-CNN head's pool routes (rcnn_head_fused's ``extract``)
+POOL_ROUTES = ("fused", "pallas")
 
 # ---------------------------------------------------------------------------
 # deformable convolution
@@ -704,14 +714,20 @@ def fused_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
 
 def rcnn_head_fused(feat, rois, head_params, *, rois_per_image,
                     pooled_size=7, sample_per_part=4, spatial_scale=0.0625,
-                    trans_std=0.1, margin_bins=1, return_offset=False):
-    """fused_offset_pool + the R-CNN FC stack. ``head_params`` is
+                    trans_std=0.1, margin_bins=1, extract="fused",
+                    return_offset=False):
+    """The two-pass pool + the R-CNN FC stack. ``head_params`` is
     ((off_w, off_b), (fc1_w, fc1_b), (fc2_w, fc2_b), (cls_w, cls_b),
-    (bbox_w, bbox_b)), weights [out, in]. Returns (cls_score [R, classes],
-    bbox_pred [R, 4]) fp32, and the raw offset-FC output with
-    ``return_offset``."""
+    (bbox_w, bbox_b)), weights [out, in]. ``extract`` is the pool's route:
+    "fused" (fused_offset_pool) or "pallas" (patch_offset_pool, forward
+    only). Returns (cls_score [R, classes], bbox_pred [R, 4]) fp32, and the
+    raw offset-FC output with ``return_offset``."""
+    if extract not in POOL_ROUTES:
+        raise ValueError(f"extract must be {'|'.join(POOL_ROUTES)}, got "
+                         f"{extract!r}")
     (off_w, off_b), fc1, fc2, cls, bbox = head_params
-    pooled, off = fused_offset_pool(
+    pool = fused_offset_pool if extract == "fused" else patch_offset_pool
+    pooled, off = pool(
         feat, rois, off_w, off_b, rois_per_image=rois_per_image,
         pooled_size=pooled_size, sample_per_part=sample_per_part,
         spatial_scale=spatial_scale, trans_std=trans_std,
@@ -836,20 +852,21 @@ def stencil_pool(patch, cnt, roi_h, roi_w, sub_h, sub_w, ctrans, *, P, S, M,
 
 def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
                       pooled_size=14, sample_per_part=4, spatial_scale=0.0625,
-                      trans_std=0.1, margin_bins=1):
+                      trans_std=0.1, margin_bins=1, return_offset=False):
     """Two-pass deformable ROI pooling through one patch extraction per roi
-    (fused_offset_pool(extract="einsum"), deform.py:743-794): extract ->
+    (fused_offset_pool(extract="pallas"), deform.py:720-741): extract ->
     pass-1 average of the central T x T cells -> offset FC (weight
     [2*P*P, P*P*C], bias [2*P*P]; the first P*P outputs are dy, the next
     dx) -> stencil. feat [B,H,W,C] (pooled in fp32), image-contiguous rois
-    [B*rpi, 5]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major. Rois run
-    PATCH_ROI_CHUNK at a time. Forward only: the mask branch trains
-    through fused_offset_pool."""
+    [B*rpi, 5]. Returns pooled [B*rpi, P*P*C] fp32, bins p-major, and with
+    ``return_offset`` also the raw offset-FC output [B*rpi, 2*P*P] (the
+    JAX branch's ``return_offset_stats``). Rois run PATCH_ROI_CHUNK at a
+    time. Forward only: training pools through fused_offset_pool."""
     if torch.is_grad_enabled() and (feat.requires_grad or off_w.requires_grad
                                     or off_b.requires_grad):
         raise NotImplementedError(
-            "patch_offset_pool is forward only; the mask branch trains "
-            "through fused_offset_pool")
+            "patch_offset_pool is forward only; training pools through "
+            "fused_offset_pool")
     P, S = pooled_size, sample_per_part
     T = P * S
     M = margin_bins * S
@@ -860,6 +877,7 @@ def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
     geom, roi_h, roi_w, sub_h, sub_w = pool_geometry(
         rois, P=P, S=S, M=M, spatial_scale=spatial_scale)
     out = torch.empty((R, P * P * C), device=feat.device)
+    offs = torch.empty((R, 2 * P * P), device=feat.device)
     for r0 in range(0, R, PATCH_ROI_CHUNK):
         r1 = min(R, r0 + PATCH_ROI_CHUNK)
         sl = slice(r0, r1)
@@ -869,8 +887,9 @@ def patch_offset_pool(feat, rois, off_w, off_b, *, rois_per_image,
         pass1 = tiled_bin_avg(patch[:, M:M + T, M:M + T],
                               cnt[:, M:M + T, M:M + T], P, S)
         off = pass1.reshape(r1 - r0, -1) @ off_w.t() + off_b
+        offs[sl] = off
         ctrans = off.reshape(r1 - r0, 2, P, P).permute(0, 2, 3, 1)
         out[sl] = stencil_pool(
             patch, cnt, roi_h[sl], roi_w[sl], sub_h[sl], sub_w[sl], ctrans,
             P=P, S=S, M=M, trans_std=trans_std).reshape(r1 - r0, -1)
-    return out
+    return (out, offs) if return_offset else out

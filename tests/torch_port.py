@@ -157,13 +157,16 @@ def tiny_torch_detector(variables=None, **overrides):
 # symbol (X101: full widths and 64 groups at units (1,1,1,1); MobileNetV2:
 # full width, stride 32)
 ZOO = {
+    # TINY itself (R101's trunk at units (1,1,1,1))
+    "resnet": {},
     "resnext": dict(trunk_type="resnext"),
     "mobilenetv2": dict(trunk_type="mobilenetv2", head_fc_dim=512,
                         feat_stride=32),
 }
 # the JAX detector's ResNeXt takes its group count (default 1) from the
 # registry; the port's ResNeXtTrunk has 64
-ZOO_JAX = {"resnext": dict(num_trunk_groups=64), "mobilenetv2": {}}
+ZOO_JAX = {"resnet": {}, "resnext": dict(num_trunk_groups=64),
+           "mobilenetv2": {}}
 
 
 def flax_shapes(module, *args, **kwargs):
