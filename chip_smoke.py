@@ -836,6 +836,123 @@ def patch_as_grid_sample(feat, geom, rpi, E):
     return feat.float().permute(0, 3, 1, 2).contiguous(), grid, mask
 
 
+def edge_rois(kind, B, rpi, H, W, g, stride=16):
+    """Image-contiguous rois [B*rpi, 5] over a map of H x W cells for one
+    of P5's edge cases at full size: "off map" (centres within 400 px of
+    the map's border on either side, sides 16 to 800 px: wholly off,
+    straddling an edge or a corner), "last row and column" (bottom-right
+    corners within 2 cells of the map's last row and column: the i0 = n-2
+    clamp), "tiny" (sides of 0.1 to 16 px: sub_w << 1, one x0 for many s),
+    "whole map" (60 to 110% of the map on each axis: a column window wider
+    than one shared-memory stage at E 64)."""
+    R = B * rpi
+    hi = torch.tensor([W * stride, H * stride], dtype=torch.float32)
+    rois = torch.zeros(R, 5)
+    rois[:, 0] = torch.arange(B).repeat_interleave(rpi).float()
+
+    def u():
+        return torch.rand(R, 2, generator=g)
+
+    if kind == "off map":
+        side = torch.where(u() < 0.5, 0.0, 1.0) * hi
+        wh = torch.exp(u() * math.log(50.0)) * 16.0
+        xy = side + (u() * 2 - 1) * 400.0 - wh / 2
+    elif kind == "last row and column":
+        wh = torch.exp(u() * math.log(100.0)) * 8.0
+        xy = hi + (u() * 4 - 2) * stride - wh
+    elif kind == "tiny":
+        wh = torch.exp(u() * math.log(160.0)) * 0.1
+        xy = u() * (hi - 16.0)
+    elif kind == "whole map":
+        wh = (0.6 + 0.5 * u()) * hi
+        xy = (hi - wh) * u()
+    else:
+        raise ValueError(kind)
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + wh
+    return rois
+
+
+def patch_source_bytes(geom, E, H, W, C, es):
+    """The map bytes P5's taps of ``geom``'s rois need: per roi the rows
+    and columns some in-bounds tap reads (y0 and y0+1, x0 and x0+1), their
+    product, summed over the rois."""
+    o = torch.arange(E, device=geom.device, dtype=torch.float32)
+
+    def used(start, step, n):
+        pos = start[:, None] + o * step[:, None]
+        inb = ((pos > -0.5) & (pos < n - 0.5)).int()
+        i0 = pos.clamp(0, n - 1).floor().clamp(max=n - 2).long()
+        hit = torch.zeros(len(start), n, dtype=torch.int32,
+                          device=geom.device)
+        hit.scatter_add_(1, i0, inb).scatter_add_(1, i0 + 1, inb)
+        return (hit > 0).sum(1).double()
+
+    cells = used(geom[:, 0], geom[:, 2], H) * used(geom[:, 1], geom[:, 3], W)
+    return float(cells.sum()) * C * es
+
+
+def check_roi_patch_edges(dev, sh):
+    """P5's edge cases at the box head's full size (the scale's map, C 256,
+    its rois per image, fp32 and bf16 against the plain version, fp32
+    timed): the four kinds of ``edge_rois`` on all rois in one launch (the
+    whole-map rois at E 64, the others at E 36), then random rois in a
+    64-roi launch [rpi-32, rpi+32) that starts mid-image and crosses into
+    the next, and a launch of one roi. Bound: the output and the geometry,
+    and the map bytes the taps read (``patch_source_bytes``, at most the
+    launch's images' maps), over the memory rate. Returns (ok, worst
+    error)."""
+    from sniper_tpu_torch.ops import deform
+
+    B, rpi, C, H, W = sh["B"], sh["rois"], 256, sh["H"], sh["W"]
+    S, M = 4, 4
+    g = torch.Generator().manual_seed(11)
+    feat32 = torch.randn(B, H, W, C, generator=g).to(dev)
+    cases = [(kind, 7 if kind != "whole map" else 14,
+              edge_rois(kind, B, rpi, H, W, g), 0, B * rpi)
+             for kind in ("off map", "last row and column", "tiny",
+                          "whole map")]
+    rand = random_rois(B, rpi, H, W, g)
+    cases += [("chunk across images", 7, rand, rpi - 32, rpi + 32),
+              ("single roi", 7, rand, rpi + 7, rpi + 8)]
+    ok, worst, parts = True, 0.0, []
+    for kind, P, rois, r0, r1 in cases:
+        E = P * S + 2 * M
+        geom, *_ = deform.pool_geometry(rois.to(dev), P=P, S=S, M=M,
+                                        spatial_scale=1 / 16)
+        kw = dict(rois_per_image=rpi, patch_cells=E, r0=r0, r1=r1)
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = feat32.to(dtype)
+            a = deform.extract_patches(feat, geom, **kw)
+            b = deform.extract_patches_plain(feat, geom, **kw)
+            torch.cuda.synchronize()
+            err = (a.float() - b.float()).abs()
+            if dtype == torch.float32:
+                good = bool(err.max() <= ROI_PATCH_ATOL)
+            else:
+                good = bool((err <= 2.0 ** -7 * b.float().abs() + 1e-6).all())
+            ok &= good
+            errs.append(f"{float(err.max()):.3e} "
+                        f"{'PASS' if good else 'FAIL'}")
+            worst = max(worst, float(err.max()))
+            del a, b, err
+        ms = time_ms(lambda: deform.extract_patches(feat32, geom, **kw), 5)
+        n = r1 - r0
+        images = (r1 - 1) // rpi - r0 // rpi + 1
+        src = min(patch_source_bytes(geom[r0:r1], E, H, W, C, 4),
+                  images * H * W * C * 4)
+        b_ms, _ = bound(n * E * E * C * 4 + n * 16 + src, 9.0 * n * E * E * C)
+        parts.append(f"{kind} ({n} rois, E {E}): fp32 / bf16 max abs err "
+                     f"{' / '.join(errs)}; {ms:.4f} ms fp32, bound "
+                     f"{b_ms:.4f} ms ({b_ms / ms:.0%} of it; "
+                     f"{src / 1e6:.1f} MB of the map)")
+    print(f"roi_patch edges [{sh['label']}]: map {H}x{W}, C {C}; "
+          + "; ".join(parts))
+    del feat32
+    torch.cuda.empty_cache()
+    return ok, worst
+
+
 def check_roi_patch(dev, sh):
     """P5 at the pool's shapes (``sh["P"]``: 7 for the box head under
     network.POOL_KERNEL pallas, E=36; 14 for the mask pool, E=64; S=4,
@@ -882,8 +999,8 @@ def check_roi_patch(dev, sh):
         parts.append(f"{name}: max abs err {r['err']:.3e} "
                      f"{'PASS' if good else 'FAIL'}, kernel {ms:.4f} ms, "
                      f"plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                     f"({r['bound_by']}, {R * E * E * C * es / 1e9:.2f} GB "
-                     "written)")
+                     f"({r['bound_ms'] / ms:.0%} of it; {r['bound_by']}, "
+                     f"{R * E * E * C * es / 1e9:.2f} GB written)")
     fmap, grid, inb = patch_as_grid_sample(feat32, geom, rpi, E)
 
     def library():
@@ -940,6 +1057,10 @@ def check_roi_patch(dev, sh):
           f"{fused_ms:.3f} ms for the whole pool")
     del a, b
     torch.cuda.empty_cache()
+    if sh.get("edges"):
+        good, err = check_roi_patch_edges(dev, sh)
+        ok &= good
+        worst = max(worst, err)
     out = dict(timed["fp32"])
     out.update(ok=ok, err=worst)
     return out
@@ -1003,8 +1124,8 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
     # the patch extraction: the box head's 7x7 pool under POOL_KERNEL
     # pallas (phase 11, scale 0 first: its times go into the JSON line),
     # then the mask pool's 14x14 shapes
-    box_head = [dict(s, P=7, label=f"box head {s['label']}")
-                for s in main_path_shapes(cfg)]
+    box_head = [dict(s, P=7, label=f"box head {s['label']}", edges=not i)
+                for i, s in enumerate(main_path_shapes(cfg))]
     mask_patch = [dict(s, P=14, label=f"mask pool {s['label']}")
                   for s in main_path_shapes(mcfg)]
     results: list = []
@@ -3933,8 +4054,9 @@ def pallas_phase(dev, card: str) -> tuple[bool, dict]:
     after, every batch's launches exact; (c) per scale, ms per batch of
     the whole forward on each route (host clock, median of PALLAS_REPS
     passes, in turns) and of the pool alone on batch 0's roi map and rois
-    (CUDA events), with scale 0's pool by kernel (torch.profiler), and the
-    pallas route's peak memory. Returns (ok, (b)'s launches)."""
+    (CUDA events) beside the pallas pool's device busy time and P5's share
+    of it (torch.profiler), with scale 0's pool by kernel, and the pallas
+    route's peak memory. Returns (ok, (b)'s launches)."""
     from sniper_tpu_torch.config import load_config
     from sniper_tpu_torch.data.test_loader import (
         TestChipIterator,
@@ -4065,22 +4187,24 @@ def pallas_phase(dev, card: str) -> tuple[bool, dict]:
             torch.cuda.reset_peak_memory_stats()
             fwd_p(b0["data"], b0["im_info"])
             torch.cuda.synchronize()
-            if s == 0:
-                by_kernel = patch_route_kernels(
-                    lambda: deform.patch_offset_pool(
-                        fmap, rois, head.offset.weight, head.offset.bias,
-                        **kw))
+            by_kernel = patch_route_kernels(
+                lambda: deform.patch_offset_pool(
+                    fmap, rois, head.offset.weight, head.offset.bias, **kw))
         peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = sum(by_kernel.values())
+        p5 = sum(ms for name, ms in by_kernel.items()
+                 if "roi_patch" in name)
         print(f"pallas (c) scale {s}: batch {bs}, {n} rois/img, map "
               f"{tuple(fmap.shape[1:3])}: forward median {med['pallas']:.2f}"
               f" ms/batch on the pallas route vs {med['fused']:.2f} on the "
               f"fused route ({PALLAS_REPS} passes of {len(batches)} batches "
               f"each, in turns; host clock); the pool alone "
               f"{pool_ms['pallas']:.3f} ms vs {pool_ms['fused']:.3f} ms "
-              f"(CUDA events, batch 0's roi map and rois); pallas forward "
-              f"peak memory {peak:.2f} GiB [{card}]")
+              f"(CUDA events, batch 0's roi map and rois), the pallas pool's "
+              f"device busy {busy:.3f} ms of it, P5 {p5:.3f} ms "
+              f"(torch.profiler, one call); pallas forward peak memory "
+              f"{peak:.2f} GiB [{card}]")
         if s == 0:
-            busy = sum(by_kernel.values())
             print(f"pallas (c) scale 0: the patch-route pool's device time "
                   f"by kernel (torch.profiler, one call): busy {busy:.3f} ms;"
                   + "".join(f" {ms:.3f} ms ({ms / busy:.0%}) {name[:70]};"

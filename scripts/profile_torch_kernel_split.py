@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of five of the port's kernels goes, by building variants
+"""Where the time of six of the port's kernels goes, by building variants
 of their sources: the pool forward (P1/P2), the pool backward (P3), the DCN
-im2col (X1) and its backward (X2), and greedy NMS (P4).
+im2col (X1) and its backward (X2), greedy NMS (P4) and the ROI patch
+extraction (P5).
 
 Each ``--pool SRC`` is a version of csrc/fused_pool.cu (pass your own copy
 of an older one beside the repository's to compare the two in one run),
@@ -56,14 +57,26 @@ at the shapes chip_smoke.py checks it at (x bf16 with C 512 on the C5 maps
 of the three test scales and of training, and C 2048 with 64 conv groups at
 scale 0 and in training; offsets of +-6 px), with its effective rate.
 
+Each ``--roi-patch SRC`` is a version of csrc/roi_patch.cu, timed at
+chip_smoke.py:check_roi_patch's shapes (C 256, random rois: the box head's
+E 36 at the three test scales in fp32, at scale 0 in bf16 and in the patch
+route's launches of 64 rois; the mask pool's E 64 at scale 0 in fp32 and
+bf16), each time beside its bound (the map, the geometry and the output
+over 3.35 TB/s) and the full kernel held against extract_patches_plain.
+Parts of the staged design: the source-row loads (cp.async), the corner
+reads from shared memory, the row reuse (without it every t loads its own
+pair), the output stores, and "stores only" (no loads and no corner
+reads); of the first design: the corner reads from L2 (its stores
+only) and the output stores.
+
 Times are CUDA events over REPS launches after one warm-up, on one card,
 all versions in one process; ``--rounds 2`` times them all twice, the
 second time in reverse order (old, new, new, old). With no source named,
-the repository's five sources are timed.
+the repository's six sources are timed.
 
     python3 scripts/profile_torch_kernel_split.py [--pool SRC ...] \
         [--pool-bwd SRC ...] [--im2col SRC ...] [--im2col-bwd SRC ...] \
-        [--nms SRC ...] [--reps 10] [--rounds 1]
+        [--nms SRC ...] [--roi-patch SRC ...] [--reps 10] [--rounds 1]
 """
 
 from __future__ import annotations
@@ -95,6 +108,7 @@ IM2COL_BWD_SIG = [_P] * 5 + [_I] * 8 + [_P]
 IM2COL_CG_SIG = [_P, _P, _P] + [_I] * 9 + [_P]
 IM2COL_BWD_CG_SIG = [_P] * 5 + [_I] * 9 + [_P]
 NMS_SIG = [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P] * 4
+ROI_PATCH_SIG = [_P] * 3 + [_I] * 8 + [_P]
 
 # Per kernel: {a line only that version of the source has: [(part removed,
 # [(text, replacement), ...]), ...]}. Each edit keeps the values it no
@@ -243,6 +257,51 @@ VARIANTS = {
                 "for (int k = 0; k < V; ++k) gv[k] = (float)(c + k);")]),
         ],
     },
+    "roi_patch": {
+        # the first design: one block per (roi, patch row), scalar
+        # channels, four corner reads from L2 per output element
+        "const int xa = x0[s] * C + c;": [
+            ("corner reads (stores only)", [
+                ("to_float(row0[xa])", "(float)xa"),
+                ("to_float(row1[xa])", "(float)(xa + 1)"),
+                ("to_float(row0[xa + C])", "(float)(xa + 2)"),
+                ("to_float(row1[xa + C])", "(float)(xa + 3)")]),
+            ("output stores", [(
+                "      orow[(int64_t)s * C + c] = from_float<T>(\n"
+                "          __fadd_rn(__fmul_rn(wx0[s], ta), "
+                "__fmul_rn(wx1[s], tb)));",
+                "      const float o_ = __fadd_rn(__fmul_rn(wx0[s], ta), "
+                "__fmul_rn(wx1[s], tb));\n"
+                "      if (o_ == 1e-30f) orow[(int64_t)s * C + c] = "
+                "from_float<T>(o_);")]),
+        ],
+        # source rows staged in shared memory per (roi, channel tile, band)
+        "plan_stages(": [
+            ("source-row loads", [(
+                "        if (cc < C)\n          cp_async16(",
+                "        if (cc < C && ncols < 0)\n          cp_async16(")]),
+            ("corner reads", [(
+                "              Vec<T>::unpack(qs[0], a0);",
+                "              for (int v = 0; v < V; ++v) {\n"
+                "                a0[v] = (float)(slot + v);\n"
+                "                a1[v] = (float)(s + v);\n"
+                "                b0[v] = (float)(t + v);\n"
+                "                b1[v] = (float)v;\n"
+                "              }\n"
+                "              if (qs == nullptr) Vec<T>::unpack(qs[0], a0);"), (
+                "              Vec<T>::unpack(qs[kLanes], a1);", ""), (
+                "              Vec<T>::unpack(qs[kCols * kLanes], b0);", ""), (
+                "              Vec<T>::unpack(qs[kCols * kLanes + kLanes], b1);",
+                "")]),
+            ("row reuse (every t loads its own pair)", [(
+                "int need = y > last ? 2 : (y == last ? 1 : 0);",
+                "int need = 2;")]),
+            ("output stores", [(
+                "            __stcs(dst, Vec<T>::pack(o));",
+                "            const uint4 w_ = Vec<T>::pack(o);\n"
+                "            if (w_.x == 1u && w_.y == 2u) __stcs(dst, w_);")]),
+        ],
+    },
     "nms": {
         # both designs launch the two kernels from sniper_nms (the second
         # once per range of tiles)
@@ -264,6 +323,12 @@ POOL_BWD_PHASES = {
         ("phase 2 (dfeat gather)", [(
             "if (box[1] >= box[0] && box[3] >= box[2]) {", "if (false) {")]),
     ],
+}
+
+
+# variants that remove several parts at once, by the parts' names
+COMBOS = {
+    "roi_patch": [("stores only", ("source-row loads", "corner reads"))],
 }
 
 
@@ -303,6 +368,12 @@ def variants(kind: str, text: str) -> list[tuple[str, str]]:
              f"{name}", edit(text, e)) for name, e in parts]
     every = [x for _, e in parts for x in e]
     out.append(("without all of these", edit(text, every)))
+    have = dict(parts)
+    for label, names in COMBOS.get(kind, []):
+        # the first combination whose parts this source has
+        if all(n in have for n in names) and label not in dict(out):
+            out.append((label, edit(text, [x for n in names
+                                           for x in have[n]])))
     phases = POOL_BWD_PHASES.get(marker, []) if kind == "pool_bwd" else []
     out += [(f"without {name}", edit(text, e)) for name, e in phases]
     if phases:
@@ -585,6 +656,70 @@ def run_nms(lib, inputs, reps, full):
     return lines
 
 
+def roi_patch_inputs(dev):
+    """chip_smoke.py:check_roi_patch's inputs: the box head's patches (P 7,
+    E 36) at the three test scales in fp32, at scale 0 in bf16 and as the
+    patch route calls it (64 rois per launch), and the mask pool's (P 14,
+    E 64) at scale 0 in fp32 and bf16; C 256, all of a scale's rois in one
+    launch, the plain version's output to hold the full kernel against."""
+    C, S, M = 256, 4, 4
+    runs = [("scale 0", 7, torch.float32, False),
+            ("scale 0", 7, torch.float32, True),
+            ("scale 0", 7, torch.bfloat16, False),
+            ("scale 1", 7, torch.float32, False),
+            ("scale 2", 7, torch.float32, False),
+            ("scale 0", 14, torch.float32, False),
+            ("scale 0", 14, torch.bfloat16, False)]
+    shapes = {label: (B, H, W, rpi) for label, B, H, W, rpi in SHAPES}
+    out = []
+    for label, P, dtype, chunked in runs:
+        B, H, W, rpi = shapes[label]
+        g = torch.Generator().manual_seed(10)
+        feat = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+        rois = random_rois(B, rpi, H, W, g).to(dev)
+        geom, *_ = deform.pool_geometry(rois, P=P, S=S, M=M,
+                                        spatial_scale=1 / 16)
+        E, R = P * S + 2 * M, B * rpi
+        want = deform.extract_patches_plain(feat, geom, rois_per_image=rpi,
+                                            patch_cells=E)
+        es = feat.element_size()
+        nbytes = feat.numel() * es + R * 16 + R * E * E * C * es
+        name = (f"{label}, E {E}, {str(dtype).removeprefix('torch.')}"
+                + (", 64 rois per launch" if chunked else ""))
+        out.append(dict(label=name, feat=feat, geom=geom, want=want,
+                        chunk=deform.PATCH_ROI_CHUNK if chunked else R,
+                        dtype=0 if dtype == torch.float32 else 1, H=H, W=W,
+                        C=C, rpi=rpi, R=R, E=E, bound_ms=nbytes / 3.35e9))
+    return out
+
+
+def run_roi_patch(lib, inputs, reps, full):
+    call = _entry(lib, "sniper_roi_patch", ROI_PATCH_SIG)
+    lines = []
+    for d in inputs:
+        out = torch.empty_like(d["want"])
+
+        def run(d=d, out=out):
+            for r0 in range(0, d["R"], d["chunk"]):
+                r1 = min(d["R"], r0 + d["chunk"])
+                call(d["feat"].data_ptr(), d["geom"].data_ptr(),
+                     out[r0:].data_ptr(), d["dtype"], d["H"], d["W"],
+                     d["C"], d["rpi"], r0, r1, d["E"], stream())
+
+        ms = time_ms(run, reps)
+        check = ""
+        if full:
+            run()
+            torch.cuda.synchronize()
+            err = float((out.float() - d["want"].float()).abs().max())
+            check = f", max abs err {err:.3e} against the plain version"
+        lines.append(f"[{d['label']}]: {ms:.4f} ms, bound "
+                     f"{d['bound_ms']:.4f} ms ({d['bound_ms'] / ms:.1%} of "
+                     f"it){check}")
+        del out
+    return lines
+
+
 def run_im2col(lib, dev, reps, grouped):
     call = _entry(lib, "sniper_deform_im2col",
                   IM2COL_CG_SIG if grouped else IM2COL_SIG)
@@ -618,6 +753,7 @@ def main() -> int:
     ap.add_argument("--im2col", action="append", default=[])
     ap.add_argument("--im2col-bwd", action="append", default=[])
     ap.add_argument("--nms", action="append", default=[])
+    ap.add_argument("--roi-patch", action="append", default=[])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=1,
                     help="time every version this many times, in turns: "
@@ -625,18 +761,21 @@ def main() -> int:
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernel_split: needs a CUDA device")
-    if not (a.pool or a.pool_bwd or a.im2col or a.im2col_bwd or a.nms):
+    if not (a.pool or a.pool_bwd or a.im2col or a.im2col_bwd or a.nms
+            or a.roi_patch):
         a.pool = [os.path.join(CSRC, "fused_pool.cu")]
         a.pool_bwd = [os.path.join(CSRC, "fused_pool_bwd.cu")]
         a.im2col = [os.path.join(CSRC, "deform_im2col.cu")]
         a.im2col_bwd = [os.path.join(CSRC, "deform_im2col_bwd.cu")]
         a.nms = [os.path.join(CSRC, "nms.cu")]
+        a.roi_patch = [os.path.join(CSRC, "roi_patch.cu")]
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
     jobs = []
     for kind, srcs in (("pool", a.pool), ("pool_bwd", a.pool_bwd),
-                       ("im2col_bwd", a.im2col_bwd), ("nms", a.nms)):
+                       ("im2col_bwd", a.im2col_bwd), ("nms", a.nms),
+                       ("roi_patch", a.roi_patch)):
         for src in srcs:
             with open(src) as f:
                 jobs += [((kind, src, label), text)
@@ -659,9 +798,11 @@ def main() -> int:
         for d in inputs["nms"]:
             print(f"nms sort and gather [{d['label']}]: {d['sort_ms']:.4f} "
                   f"ms [{card}]")
+    if a.roi_patch:
+        inputs["roi_patch"] = roi_patch_inputs(dev)
     names = {"pool": "fused_pool", "pool_bwd": "fused_pool_bwd",
              "im2col": "deform_im2col", "im2col_bwd": "deform_im2col_bwd",
-             "nms": "nms"}
+             "nms": "nms", "roi_patch": "roi_patch"}
     with tempfile.TemporaryDirectory() as tmp:
         libs = list(build_all(jobs, tmp).items())
         for rnd in range(a.rounds):
@@ -677,6 +818,9 @@ def main() -> int:
                 elif kind == "nms":
                     lines = run_nms(lib, inputs[kind], a.reps,
                                     label == "full")
+                elif kind == "roi_patch":
+                    lines = run_roi_patch(lib, inputs[kind], a.reps,
+                                          label == "full")
                 else:
                     lines = run_im2col(lib, dev, a.reps, grouped[key])
                 for line in lines:

@@ -24,6 +24,17 @@ CLASSES = [
 ]
 
 
+def _write_cache(cache, roidb):
+    """Pickle roidb to cache whole, then rename it into place: a
+    data-parallel rank that finds the cache never reads another rank's
+    half-written file (coco.py's gt_roidb does the same)."""
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    tmp = f"{cache}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(roidb, f)
+    os.replace(tmp, cache)
+
+
 def parse_voc_xml(path):
     tree = ET.parse(path)
     size = tree.find("size")
@@ -111,9 +122,7 @@ class PascalVOC:
                 return pickle.load(f)
         roidb = [self._entry(i) for i in self.image_index]
         if use_cache:
-            os.makedirs(os.path.dirname(cache), exist_ok=True)
-            with open(cache, "wb") as f:
-                pickle.dump(roidb, f)
+            _write_cache(cache, roidb)
         return roidb
 
     def load_selective_search_roidb(self, gt_roidb):
@@ -167,9 +176,7 @@ class PascalVOC:
                 for g, s in zip(gt_roidb, ss_roidb)
             ]
         if use_cache:
-            os.makedirs(os.path.dirname(cache), exist_ok=True)
-            with open(cache, "wb") as f:
-                pickle.dump(ss_roidb, f)
+            _write_cache(cache, ss_roidb)
         return ss_roidb
 
     def segmentation_class_path(self, index):

@@ -780,6 +780,11 @@ def _extract_patches_kernel(feat, geom, *, rois_per_image, patch_cells, r0,
     if H < 2 or W < 2 or not 0 <= r0 <= r1 <= R:
         raise ValueError(f"extract_patches needs H, W >= 2 and 0 <= r0 <= r1 "
                          f"<= {R}, got H={H}, W={W}, r0={r0}, r1={r1}")
+    # the kernel moves channels in 16-byte vectors
+    vec = 16 // feat.element_size()
+    if C % vec or feat.data_ptr() % 16:
+        raise ValueError(f"extract_patches takes C a multiple of {vec} in "
+                         f"{feat.dtype} and a 16-byte aligned map, got C={C}")
     E = patch_cells
     out = torch.empty((r1 - r0, E, E, C), dtype=feat.dtype,
                       device=feat.device)

@@ -132,15 +132,32 @@ def test_multi_proposal_matches_jax(rng, min_size):
     pre_nms, post_nms, thresh = 600, 50, 0.7
 
     # decode: to fp32 rounding
-    jprops, jscores = jax.vmap(partial(
-        jprop._decode_single, anchors=jnp.asarray(anchors),
-        min_size=min_size))(jnp.asarray(fg), jnp.asarray(deltas),
-                            jnp.asarray(im_info))
-    tprops, tscores = tprop._decode(
-        torch.from_numpy(fg), torch.from_numpy(deltas),
-        torch.from_numpy(im_info), torch.from_numpy(anchors), min_size)
+    def jdecode():
+        return jax.vmap(partial(
+            jprop._decode_single, anchors=jnp.asarray(anchors),
+            min_size=min_size))(jnp.asarray(fg), jnp.asarray(deltas),
+                                jnp.asarray(im_info))
+
+    def tdecode(dtype=torch.float32):
+        return tprop._decode(*(torch.from_numpy(a).to(dtype) for a in (
+            fg, deltas, im_info, anchors)), min_size)
+
+    jprops, jscores = jdecode()
+    tprops, tscores = tdecode()
+    report = ""
+    if not np.allclose(tprops.numpy(), np.asarray(jprops), atol=1e-3,
+                       rtol=1e-5):
+        # which side moved: each decode again, and each against a float64
+        # decode of the same inputs
+        ref = tdecode(torch.float64)[0].numpy()
+        gap = {"jax - f64": np.asarray(jprops) - ref,
+               "torch - f64": tprops.numpy() - ref,
+               "jax again - jax": np.asarray(jdecode()[0]) - np.asarray(jprops),
+               "torch again - torch": tdecode()[0].numpy() - tprops.numpy()}
+        report = "; ".join(f"max |{k}| {np.abs(v).max():.3g}"
+                           for k, v in gap.items())
     np.testing.assert_allclose(tprops.numpy(), np.asarray(jprops), atol=1e-3,
-                               rtol=1e-5)
+                               rtol=1e-5, err_msg=report)
     np.testing.assert_array_equal(tscores.numpy(), np.asarray(jscores))
 
     # top-k + NMS (_proposal_single after the decode): exact on the same

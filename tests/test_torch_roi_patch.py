@@ -132,18 +132,56 @@ def test_patch_offset_pool_is_forward_only(rng):
                                   pooled_size=7)
 
 
-def _card_case(rng, dev, dtype, B=2, H=24, W=33, C=160, rpi=37):
-    feat = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
-    geom = _geom(_rois(rng, B, rpi, span=500), 14, 4, 4)
-    return feat.to(dev, dtype), geom.to(dev)
+def _card_rois(rng, case):
+    """(B, H, W, C, rpi, E, r0, r1, rois) of one card case of the kernel:
+    the map, the patch size, the chunk [r0, r1) and image-contiguous rois
+    in image pixels (stride 16)."""
+    if case == "mixed":
+        B, H, W, C, rpi, E, r0, r1 = 2, 24, 33, 160, 37, 64, 5, 70
+        return B, H, W, C, rpi, E, r0, r1, _rois(rng, B, rpi, span=500)
+    if case == "chunk_crosses_image":
+        B, H, W, C, rpi, E, r0, r1 = 3, 20, 26, 64, 10, 36, 7, 24
+        return B, H, W, C, rpi, E, r0, r1, _rois(rng, B, rpi, span=400)
+    if case == "single_roi":
+        B, H, W, C, rpi, E, r0, r1 = 2, 20, 26, 96, 10, 36, 13, 14
+        rois = _rois(rng, B, rpi, span=400)
+        rois[13, 1:] = [60, 40, 300, 250]  # image 1, on the map
+        return B, H, W, C, rpi, E, r0, r1, rois
+    B, H, W, C, rpi = 1, 22, 30, 64, 12
+    E, r0, r1 = 36, 0, 12
+    hi_y, hi_x = H * 16.0, W * 16.0
+    if case == "off_map":
+        # wholly off each side, then straddling each edge and both corners
+        boxes = [(-900, 40, -300, 200), (40, -900, 200, -300),
+                 (hi_x + 100, 40, hi_x + 600, 200),
+                 (40, hi_y + 100, 200, hi_y + 600),
+                 (-150, 30, 120, 200), (30, -150, 200, 120),
+                 (hi_x - 120, 30, hi_x + 150, 200),
+                 (30, hi_y - 120, 200, hi_y + 150),
+                 (-200, -200, 100, 100), (hi_x - 90, hi_y - 90,
+                                          hi_x + 300, hi_y + 300),
+                 (-400, -400, hi_x + 400, hi_y + 400), (50, 50, 300, 250)]
+    elif case == "last_row_col":
+        # samples on and around the last row and column (i0 = n-2, w0 = 0)
+        boxes = [(hi_x - 40, hi_y - 40, hi_x - 8, hi_y - 8),
+                 (hi_x - 200, hi_y - 200, hi_x - 16, hi_y - 16),
+                 (hi_x - 16, hi_y - 16, hi_x, hi_y),
+                 (hi_x - 300, 10, hi_x + 7, 150),
+                 (10, hi_y - 300, 150, hi_y + 7),
+                 (hi_x - 24, hi_y - 24, hi_x + 8, hi_y + 8)] * 2
+    elif case == "tiny":
+        # sub-cell rois: sub_w << 1, the same x0 for many s
+        boxes = [(100 + 7 * i, 60 + 5 * i, 100 + 7 * i + w, 60 + 5 * i + w)
+                 for i, w in enumerate((0.2, 0.5, 1, 1.5, 2, 3, 4, 6, 8,
+                                        12, 16, 24))]
+    else:
+        raise ValueError(case)
+    rois = np.zeros((B * rpi, 5), np.float32)
+    rois[:, 1:] = np.asarray(boxes, np.float32)
+    return B, H, W, C, rpi, E, r0, r1, rois
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_roi_patch_kernel_matches_plain(rng, dtype):
-    dev = cuda_or_skip()
-    feat, geom = _card_case(rng, dev, dtype)
-    kw = dict(rois_per_image=37, patch_cells=64, r0=5, r1=70)
+def _check_against_plain(feat, geom, dtype, **kw):
     got = tdeform.extract_patches(feat, geom, **kw)
     want = tdeform.extract_patches_plain(feat, geom, **kw)
     torch.cuda.synchronize()
@@ -156,6 +194,47 @@ def test_roi_patch_kernel_matches_plain(rng, dtype):
         assert float(err.max()) <= 1e-5
     else:
         assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+    return got
+
+
+CARD_CASES = ["mixed", "off_map", "last_row_col", "tiny",
+              "chunk_crosses_image", "single_roi"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_roi_patch_kernel_matches_plain(rng, case, dtype):
+    dev = cuda_or_skip()
+    B, H, W, C, rpi, E, r0, r1, rois = _card_rois(rng, case)
+    feat = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+    S, M = 4, 4
+    geom = _geom(rois, (E - 2 * M) // S, S, M)
+    got = _check_against_plain(feat.to(dev, dtype), geom.to(dev), dtype,
+                               rois_per_image=rpi, patch_cells=E, r0=r0,
+                               r1=r1)
+    if case == "off_map":  # the four rois wholly off the map are zero
+        assert float(got[:4].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_patch_kernel_whole_map_roi(rng, dtype):
+    """E 64 and C 256 with rois over most of a 120-column map: the column
+    window (~120 columns) is wider than one shared-memory stage, so the
+    kernel cuts it into column tiles."""
+    dev = cuda_or_skip()
+    B, H, W, C, rpi = 1, 40, 120, 256, 4
+    hi_y, hi_x = H * 16.0, W * 16.0
+    rois = np.array([[0, 0, 0, hi_x, hi_y],
+                     [0, -100, -60, hi_x + 100, hi_y + 60],
+                     [0, 30, 20, hi_x - 50, hi_y - 10],
+                     [0, 0, 0, 900, hi_y]], np.float32)
+    feat = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+    geom = _geom(rois, 14, 4, 4)
+    assert float(geom[0, 3]) * 63 > 48  # wider than one stage
+    _check_against_plain(feat.to(dev, dtype), geom.to(dev), dtype,
+                         rois_per_image=rpi, patch_cells=64)
 
 
 @pytest.mark.cuda
@@ -188,4 +267,18 @@ def test_roi_patch_kernel_rejects_what_it_does_not_take():
                                 rois_per_image=2, patch_cells=8)
     with pytest.raises(ValueError):
         tdeform.extract_patches(torch.zeros(1, 1, 5, 8, device=dev), geom,
+                                rois_per_image=2, patch_cells=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 6),
+                                     (torch.bfloat16, 12)])
+def test_roi_patch_kernel_rejects_unsupported_channels(dtype, C):
+    """The kernel moves 16-byte channel vectors (4 fp32 or 8 bf16): other
+    channel counts raise, and never reach the plain version."""
+    dev = cuda_or_skip()
+    geom = torch.zeros(2, 4, device=dev)
+    with pytest.raises(ValueError, match="multiple of"):
+        tdeform.extract_patches(torch.zeros(1, 5, 5, C, device=dev,
+                                            dtype=dtype), geom,
                                 rois_per_image=2, patch_cells=8)
