@@ -376,11 +376,13 @@ def launch_training(cfg, cfg_file: str, device):
         distributed.maybe_init_distributed(cfg, device)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
+        ok = False
         try:
             check_devices(cfg, device)
             train(cfg, cfg_file, device)
+            ok = True
         finally:
-            torch.distributed.destroy_process_group()
+            distributed.leave_group(ok)
         return
     check_devices(cfg, device)
     n = num_devices(cfg, device)

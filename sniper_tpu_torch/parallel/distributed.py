@@ -83,13 +83,18 @@ def backend_for(devices) -> str:
 def init_group(init_method: str, world: int, rank_: int, device,
                backend: str, timeout_s: float = TIMEOUT_S):
     """Join the process group as ``rank_`` of ``world``; a CUDA ``device``
-    becomes this process's current card."""
+    becomes this process's current card. The group's store counts the
+    ranks that have joined (``leave_group``)."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
         backend, init_method=init_method, world_size=world, rank=rank_,
         timeout=datetime.timedelta(seconds=timeout_s))
+    if world > 1:
+        store = dist.distributed_c10d._get_default_store()
+        if store.add("leave/joined", 1) == world:
+            store.set("leave/all_joined", "")
 
 
 def maybe_init_distributed(cfg, device="cuda"):
@@ -174,13 +179,54 @@ def global_count(count: torch.Tensor) -> torch.Tensor:
     return t[0]
 
 
+def leave_group(ok: bool, timeout_s: float = TIMEOUT_S):
+    """Leave a group joined by ``init_group`` once this rank's part is over
+    (``ok``: it returned; else it raised). Leaving closes the rank's
+    connections, and a slower rank still joining the group or in its last
+    collective would then fail with the closed connection's error instead
+    of its own. So, through the group's store, a rank that returned waits
+    until every rank has returned or one has failed, and a rank that failed
+    waits until every rank has joined. Rank 0, which serves a ``tcp://``
+    group's store, leaves last. Raises when the others do not return
+    within ``timeout_s``."""
+    try:
+        if dist.get_world_size() > 1:
+            _meet_to_leave(ok, timeout_s)
+    except RuntimeError:  # the store's errors, its timeout included
+        if ok:
+            raise
+        # a failed rank's own error is the one to report
+    finally:
+        dist.destroy_process_group()
+
+
+def _meet_to_leave(ok: bool, timeout_s: float):
+    store = dist.distributed_c10d._get_default_store()
+    world, timeout = dist.get_world_size(), datetime.timedelta(
+        seconds=timeout_s)
+    if not ok:
+        store.wait(["leave/all_joined"], timeout)
+        store.set("leave/all_returned", "a rank failed")
+    elif store.add("leave/returned", 1) == world:
+        store.set("leave/all_returned", "")
+    else:
+        store.wait(["leave/all_returned"], timeout)
+    if dist.get_rank() > 0:
+        if store.add("leave/left", 1) == world - 1:
+            store.set("leave/all_left", "")
+    elif ok:
+        store.wait(["leave/all_left"], timeout)
+
+
 def _rank_main(index, fn, devices, init_method, backend, timeout_s, args):
     init_group(init_method, len(devices), index, devices[index],
                backend=backend, timeout_s=timeout_s)
+    ok = False
     try:
         fn(index, devices[index], *args)
+        ok = True
     finally:
-        dist.destroy_process_group()
+        leave_group(ok, timeout_s)
 
 
 def launch(fn, devices, init_method: str, args=(), *,
@@ -189,8 +235,9 @@ def launch(fn, devices, init_method: str, args=(), *,
     ``devices``, each the rank of that index in a group (``backend_for``'s
     backend) that meets at ``init_method`` (a ``file://`` path that does not
     exist yet, or ``tcp://host:port``). Returns when every rank has
-    returned; raises when one fails (the others are terminated) or when
-    ``timeout_s`` passes first (all are killed). ``fn`` and ``args`` are
+    returned; raises the failing rank's own error when one fails (the
+    others are terminated) or when ``timeout_s`` passes first (all are
+    killed). ``fn`` and ``args`` are
     pickled: ``fn`` must be a module-level function."""
     devices = [torch.device(d) for d in devices]
     backend = backend_for(devices)

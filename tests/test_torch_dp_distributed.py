@@ -2,7 +2,9 @@
 the one-process no-ops, shard_roidb's stride, global_min_steps over 2
 gloo ranks of unequal length, the missing coordinator, the configuration
 read from the config or the environment (the SNIPER_* variables and
-torchrun's), and ``launch``: a failing or hung rank fails the launch.
+torchrun's), and ``launch``: a failing or hung rank fails the launch, with
+the failing rank's own error, and a rank that returned stays in the group
+until every rank has returned or one has failed.
 """
 
 import os
@@ -103,6 +105,24 @@ def test_backend(devices, backend):
 def test_a_failing_rank_fails_the_launch(tmp_path):
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         torch_dp.launch(torch_dp.failing_rank, 2, tmp_path)
+
+
+@pytest.mark.parametrize("fail", [True, False], ids=["fails", "returns"])
+def test_a_rank_stays_until_every_rank_returns(tmp_path, fail):
+    """Rank 0 returns while rank 1 still runs: rank 0 stays in the group
+    (leaving would close the connections of a rank still joining or in a
+    collective, which then fails with that error instead of its own), and
+    the launch raises rank 1's own error or returns."""
+    if fail:
+        with pytest.raises(Exception, match="fails on purpose after rank 0"):
+            torch_dp.launch(torch_dp.left_early_rank, 2, tmp_path,
+                            str(tmp_path), True)
+    else:
+        torch_dp.launch(torch_dp.left_early_rank, 2, tmp_path,
+                        str(tmp_path), False)
+        assert (tmp_path / "rank0_left").exists()
+    assert (tmp_path / "rank1.txt").read_text() == \
+        "rank 0 left early: False"
 
 
 def test_a_hung_rank_fails_the_launch(tmp_path):

@@ -17,6 +17,8 @@ import torch
 from sniper_tpu_torch.parallel import distributed
 
 LAUNCH_TIMEOUT_S = 300.0
+# how long left_early_rank's rank 1 gives rank 0 to leave the group
+LEAVE_GRACE_S = 1.0
 
 # the tiny detector of __graft_entry__.py:62-73 (dryrun_multichip's): full
 # width, units (1,1,1,1), 81 classes, 21 anchors, fp32; its training branch
@@ -191,6 +193,44 @@ def min_steps_rank(rank, device, counts, out_dir):
 def failing_rank(rank, device):
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
+
+
+def left_early_rank(rank, device, out_dir, fail):
+    """Rank 0 returns at once. Rank 1 waits until it has, gives it
+    LEAVE_GRACE_S to leave the group, writes to <out_dir>/rank1.txt whether
+    it did, then raises (``fail``) or returns. A rank must stay in the group
+    until every rank has returned or one has failed."""
+    import time
+
+    import torch.distributed as dist
+
+    store = dist.distributed_c10d._get_default_store()
+    left = os.path.join(out_dir, "rank0_left")
+    if rank == 0:
+        destroy = dist.destroy_process_group
+
+        def spy(*args, **kwargs):
+            open(left, "w").close()
+            destroy(*args, **kwargs)
+
+        dist.destroy_process_group = spy
+        store.set("rank0_returns", "")
+        return
+    store.wait(["rank0_returns"])
+    time.sleep(LEAVE_GRACE_S)
+    with open(os.path.join(out_dir, "rank1.txt"), "w") as f:
+        f.write(f"rank 0 left early: {os.path.exists(left)}")
+    if fail:
+        raise RuntimeError("rank 1 fails on purpose after rank 0 returned")
+
+
+def threads_rank(rank, device, out_dir):
+    """Writes this rank's OMP_NUM_THREADS, MKL_NUM_THREADS and torch thread
+    count to <out_dir>/threads_rank<rank>.txt."""
+    with open(os.path.join(out_dir, f"threads_rank{rank}.txt"), "w") as f:
+        f.write(f"{os.environ.get('OMP_NUM_THREADS')} "
+                f"{os.environ.get('MKL_NUM_THREADS')} "
+                f"{torch.get_num_threads()}")
 
 
 def hanging_rank(rank, device):

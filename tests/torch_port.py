@@ -3,13 +3,57 @@
 Whether a card is present is decided inside the tests (``cuda_or_skip``),
 never while a module is imported, so that every pytest-xdist worker
 collects the same tests.
+
+Under pytest-xdist, importing this module gives torch the worker's share of
+the cores (``worker_threads``), and the processes the tests start inherit
+it through OMP_NUM_THREADS and MKL_NUM_THREADS unless those are set. Every
+worker collects every test module, so the cap holds before a worker's first
+test. Without it each worker keeps torch's pool of one thread per core, and
+the workers' threads crowd the cores: the port's many small eager ops then
+wait in contended thread barriers.
 """
+
+import contextlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+
+def worker_threads(environ=os.environ, cores=None):
+    """This pytest-xdist worker's share of the cores (at least 1), or None
+    outside xdist."""
+    workers = environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        return None
+    if cores is None:
+        cores = len(os.sched_getaffinity(0))
+    return max(1, cores // int(workers))
+
+
+# torch's own thread count in this process, before the cap
+TORCH_DEFAULT_THREADS = torch.get_num_threads()
+_SHARE = worker_threads()
+if _SHARE is not None:
+    torch.set_num_threads(_SHARE)
+    for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ.setdefault(_var, str(_SHARE))
+
+
+@contextlib.contextmanager
+def torch_default_threads():
+    """torch at TORCH_DEFAULT_THREADS inside the block, as outside xdist: for
+    a parity check whose fp32 drift from JAX depends on the thread count
+    (torch's CPU reductions split by thread)."""
+    capped = torch.get_num_threads()
+    torch.set_num_threads(TORCH_DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(capped)
 
 
 def cuda_or_skip() -> torch.device:
