@@ -1,0 +1,8 @@
+"""The fused_pool_bwd kernel's share of its roofline in the traced slice of
+training steps: its least time at the steps' shapes over its device time."""
+
+from benchmark.core import readers
+
+
+def read(rec):
+    return readers.roofline_pct(rec, "fused_pool_bwd")
