@@ -3860,7 +3860,8 @@ def demo_phase(dev, cfg, tmp: str, card: str) -> tuple[bool, dict]:
     files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
     text = open(files[0]).read() if len(files) == 1 else ""
     named = {k: k in text for k in TRACE_KERNELS}
-    device_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if not getattr(e, "is_user_annotation", False)) / 1e3
     trace_ok = len(files) == 1 and all(named.values())
     print(f"options (o4) detect under utils/profiler.device_trace: "
           f"{files[0] if files else None}, {len(text) / 2**20:.2f} MiB, the "

@@ -7,11 +7,12 @@ canvases at each TEST.SCALES entry with the shipped batch size and
 post-NMS roi count, under torch.profiler, and prints per scale: the
 host-clock time per batch, the device-busy time (sum of kernel times) and
 its share, and the device time by kernel group (the hand-written kernels,
-convolutions, GEMMs, the rest), then the top kernels by device time. A
-second, unprofiled pass times the detector's stages on the device with
-CUDA events around them (trunk, R-CNN head, and with the mask branch its
-14x14 pool, the fused_pool kernels' two passes and the offset FC, and its
-head). TF32 is off, as in chip_smoke.py. Needs one CUDA device.
+convolutions, GEMMs, the rest), then the top kernels by device time, then
+per layer of the program (its spans, utils/profiler.span: trunk, rpn,
+head, the mask branch inside head) the host time, the device time of the
+work launched inside it, its launches and the device's idle time while the
+host was inside it (benchmark/core/spans.py). TF32 is off, as in
+chip_smoke.py. Needs one CUDA device.
 
     python3 scripts/profile_torch_infer.py [--reps 3] [--cfg configs/sniper_res101_e2e_mask.yml]
 """
@@ -20,10 +21,11 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
+import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -50,39 +52,6 @@ def group_of(name: str) -> str:
     return "other (elementwise, BN, copies)"
 
 
-@contextlib.contextmanager
-def stage_timers(model, spans):
-    """Wrap the detector's stages so that each call records CUDA events
-    around itself into ``spans[name]`` (restored on exit)."""
-    def timed(name, fn):
-        def run(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **kw)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return run
-
-    patched = [(model.trunk, "forward", "trunk"),
-               (model.rcnn, "forward", "R-CNN head (pool + FCs)")]
-    if model.with_mask:
-        patched += [(model, "_mask_pool", "mask pool (14x14)"),
-                    (model.mask, "forward", "mask head")]
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
-    for obj, attr, name in patched:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
-    try:
-        yield
-    finally:
-        for obj, attr, fn in saved:
-            if isinstance(obj, torch.nn.Module):
-                del obj.__dict__[attr]  # back to the class's forward
-            else:
-                setattr(obj, attr, fn)
-
-
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--reps", type=int, default=3)
@@ -93,6 +62,7 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.core import spans
     from sniper_tpu_torch.config import load_config
     from sniper_tpu_torch.data.test_loader import canvas_for_scale
     from sniper_tpu_torch.infer.tester import device_normalize
@@ -137,7 +107,9 @@ def main():
         per_kernel = collections.Counter()
         launches = collections.Counter()  # per batch, by group
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a user range (a program span) spans kernels: not one itself
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
                 per_kernel[e.name] += (e.time_range.elapsed_us() / 1e3
                                        / args.reps)
                 launches[group_of(e.name)] += 1 / args.reps
@@ -154,16 +126,22 @@ def main():
                   f"{launches[g]:5.0f} launches")
         for name, ms in per_kernel.most_common(8):
             print(f"    {ms:9.3f} ms  {name[:100]}")
-        spans = collections.defaultdict(list)
-        with stage_timers(model, spans):
-            for _ in range(args.reps):
-                fwd()
-            torch.cuda.synchronize()
-        print("  device time by stage (CUDA events around each call, per "
-              "batch):")
-        for name, evs in spans.items():
-            ms = sum(a.elapsed_time(b) for a, b in evs) / args.reps
-            print(f"  {name:34s} {ms:9.3f} ms")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        t = spans.table(events, float("-inf"), float("inf"), group_of)
+        print("  by layer, per batch: host ms, device ms, launches, idle ms")
+        for name, row in t["spans"].items():
+            print(f"  {name:34s} {row['host_s'] * 1e3 / args.reps:9.3f} "
+                  f"{row['device_s'] * 1e3 / args.reps:9.3f} "
+                  f"{row['launches'] / args.reps:7.0f} "
+                  f"{row['idle_s'] * 1e3 / args.reps:9.3f}")
+            for g, sec in sorted(row["by_group"].items(),
+                                 key=lambda kv: -kv[1]):
+                print(f"    {g:32s} {sec * 1e3 / args.reps:9.3f} ms")
+        print(f"  launches per batch: {t['launches'] / args.reps:.0f}")
 
 
 if __name__ == "__main__":

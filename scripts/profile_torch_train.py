@@ -157,7 +157,9 @@ def main():
     per_kernel = collections.Counter()
     launches = collections.Counter()  # per step, by group
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user range (a program span) spans kernels: not one itself
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             per_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / args.steps
             launches[group_of(e.name)] += 1 / args.steps
     busy = sum(per_kernel.values())

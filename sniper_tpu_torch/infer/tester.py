@@ -32,6 +32,7 @@ import torch
 from sniper_tpu_torch.data.test_loader import Prefetcher
 from sniper_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from sniper_tpu_torch.ops.nms import NMSWrapper
+from sniper_tpu_torch.utils.profiler import span
 
 
 def _host(x):
@@ -112,30 +113,33 @@ class Tester:
         Splitting dispatch from decode lets get_detections run one batch
         ahead — the device computes batch N+1 while the host
         post-processes batch N (the reference gets the same overlap from
-        CONCURRENT_JOBS process pools, inference.py:452-491)."""
-        rois = _host(out["rois"])
-        cls_prob = _host(out["cls_prob"])
-        deltas = _host(out["bbox_pred"])
-        valid = _host(out["roi_valid"])
-        mask_prob = _host(out["mask_prob"]) if "mask_prob" in out else None
-        maps = _host(out["focus_prob"]) if "focus_prob" in out else None
+        CONCURRENT_JOBS process pools, inference.py:452-491). Under a
+        profiler the decode is the span ``decode`` (utils/profiler.span)."""
+        with span("decode"):
+            rois = _host(out["rois"])
+            cls_prob = _host(out["cls_prob"])
+            deltas = _host(out["bbox_pred"])
+            valid = _host(out["roi_valid"])
+            mask_prob = (_host(out["mask_prob"]) if "mask_prob" in out
+                         else None)
+            maps = _host(out["focus_prob"]) if "focus_prob" in out else None
 
-        scores_list, boxes_list, maps_list, masks_list = [], [], [], []
-        for i in range(rois.shape[0]):
-            boxes = bbox_pred(rois[i, :, 1:], deltas[i])
-            boxes = clip_boxes(boxes, im_info[i][:2])
-            boxes = boxes / im_scales[i]
-            scores = np.where(valid[i][:, None], cls_prob[i], 0.0)
-            scores_list.append(scores)
-            boxes_list.append(boxes)
-            if mask_prob is not None:
-                masks_list.append(mask_prob[i])
-            if maps is not None:
-                # the map over the chip's content extent at stride 16
-                fh = int(np.ceil(im_info[i][0] / 16.0))
-                fw = int(np.ceil(im_info[i][1] / 16.0))
-                maps_list.append(maps[i][:fh, :fw])
-        return scores_list, boxes_list, maps_list, masks_list
+            scores_list, boxes_list, maps_list, masks_list = [], [], [], []
+            for i in range(rois.shape[0]):
+                boxes = bbox_pred(rois[i, :, 1:], deltas[i])
+                boxes = clip_boxes(boxes, im_info[i][:2])
+                boxes = boxes / im_scales[i]
+                scores = np.where(valid[i][:, None], cls_prob[i], 0.0)
+                scores_list.append(scores)
+                boxes_list.append(boxes)
+                if mask_prob is not None:
+                    masks_list.append(mask_prob[i])
+                if maps is not None:
+                    # the map over the chip's content extent at stride 16
+                    fh = int(np.ceil(im_info[i][0] / 16.0))
+                    fw = int(np.ceil(im_info[i][1] / 16.0))
+                    maps_list.append(maps[i][:fh, :fw])
+            return scores_list, boxes_list, maps_list, masks_list
 
     def extract_proposals(self, batches, roidb):
         """The proposal-extraction mode (tester.py:429-449): per valid

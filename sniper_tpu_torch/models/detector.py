@@ -43,6 +43,11 @@ dtype.
 trunk's training-mode BatchNorms use across the ranks of a process group:
 the global batch's ("sync") or each rank's own ("local"); see
 models/norm.py.
+
+Under a profiler, the forward's layers are the flat spans (utils/profiler.
+span) ``trunk``; ``rpn``: the RPN convs and softmax, then the proposals
+(and the training sample); ``head``: ``conv_new_1``, the R-CNN head, its
+softmax and denormalisation, and the FocusPixel and mask branches.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from sniper_tpu_torch.ops.proposals import (
     multi_proposal,
     multi_proposal_target,
 )
+from sniper_tpu_torch.utils.profiler import span
 
 NUM_MASK_ROIS = 50  # sampled rois per image that train the mask branch
 
@@ -191,10 +197,12 @@ class SNIPERDetector(nn.Module):
         """Trunk and RPN: (feat, rpn cls logits [B,H,W,2,A], rpn bbox
         [B,4A,H,W], fg probs [B,A,H,W])."""
         x = data.permute(0, 3, 1, 2)  # channels_last NCHW view of NHWC data
-        feat = self.trunk.feature(x, stats)
-        rpn_cls_logits, rpn_bbox = self.rpn(feat)
-        rpn_fg = torch.softmax(rpn_cls_logits, dim=3)[..., 1, :]
-        rpn_fg = rpn_fg.permute(0, 3, 1, 2).contiguous()  # [B,A,H,W]
+        with span("trunk"):
+            feat = self.trunk.feature(x, stats)
+        with span("rpn"):
+            rpn_cls_logits, rpn_bbox = self.rpn(feat)
+            rpn_fg = torch.softmax(rpn_cls_logits, dim=3)[..., 1, :]
+            rpn_fg = rpn_fg.permute(0, 3, 1, 2).contiguous()  # [B,A,H,W]
         return feat, rpn_cls_logits, rpn_bbox, rpn_fg
 
     def _roi_feat_map(self, feat):
@@ -238,30 +246,33 @@ class SNIPERDetector(nn.Module):
         n = post_nms_top_n or self.post_nms_top_n
         feat, _, rpn_bbox, rpn_fg = self._shared(data)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
-        rois, scores, valid = multi_proposal(
-            rpn_fg, rpn_bbox, im_info, self.anchors(fh, fw, feat.device),
-            pre_nms=self.pre_nms_top_n, post_nms=n,
-            thresh=self.nms_thresh, min_size=self.rpn_min_size,
-        )
+        with span("rpn"):
+            rois, scores, valid = multi_proposal(
+                rpn_fg, rpn_bbox, im_info, self.anchors(fh, fw, feat.device),
+                pre_nms=self.pre_nms_top_n, post_nms=n,
+                thresh=self.nms_thresh, min_size=self.rpn_min_size,
+            )
         if self.rpn_only:
             return {"rois": rois, "roi_scores": scores, "roi_valid": valid}
-        roi_feat_map = self._roi_feat_map(feat)
-        cls_score, bbox_pred = self.rcnn(roi_feat_map, rois.reshape(-1, 5),
-                                         extract=self.pool_kernel)
-        cls_prob = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
-        out = {
-            "rois": rois,
-            "roi_scores": scores,
-            "roi_valid": valid,
-            "cls_prob": cls_prob,
-            "bbox_pred": (bbox_pred * self.bbox_stds
-                          + self.bbox_means).reshape(b, n, 4),
-        }
-        if self.with_autofocus:
-            out["focus_prob"] = torch.softmax(self.autofocus(feat),
-                                              dim=-1)[..., 1]
-        if self.with_mask:
-            out["mask_prob"] = self._mask_prob(roi_feat_map, rois, cls_prob)
+        with span("head"):
+            roi_feat_map = self._roi_feat_map(feat)
+            cls_score, bbox_pred = self.rcnn(
+                roi_feat_map, rois.reshape(-1, 5), extract=self.pool_kernel)
+            cls_prob = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
+            out = {
+                "rois": rois,
+                "roi_scores": scores,
+                "roi_valid": valid,
+                "cls_prob": cls_prob,
+                "bbox_pred": (bbox_pred * self.bbox_stds
+                              + self.bbox_means).reshape(b, n, 4),
+            }
+            if self.with_autofocus:
+                out["focus_prob"] = torch.softmax(self.autofocus(feat),
+                                                  dim=-1)[..., 1]
+            if self.with_mask:
+                out["mask_prob"] = self._mask_prob(roi_feat_map, rois,
+                                                   cls_prob)
         return out
 
     def _mask_prob(self, roi_feat_map, rois, cls_prob):
@@ -310,46 +321,50 @@ class SNIPERDetector(nn.Module):
                      else {})
             return {"rpn_cls_logits": rpn_cls_logits,
                     "rpn_bbox_pred": rpn_bbox, "stats": stats}
-        roi_feat_map = self._roi_feat_map(feat)
+        with span("head"):
+            roi_feat_map = self._roi_feat_map(feat)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
-        tgt = multi_proposal_target(
-            rpn_fg, rpn_bbox, im_info, gt_boxes, valid_ranges,
-            self.anchors(fh, fw, feat.device), generator=generator,
-            priorities=priorities, bbox_stds=self.bbox_stds,
-            bbox_means=self.bbox_means, **self.train_kw)
-        # the fused route whatever pool_kernel says: it has the backward
-        cls_score, bbox_pred, off = self.rcnn(
-            roi_feat_map, tgt.rois.reshape(-1, 5), extract="fused",
-            return_offset=True)
-        stats = self.rcnn.offset_stats(off)
-        if dcn:
-            stats["dcn_offset_max"] = torch.stack(dcn).amax()
-        out = {
-            "rpn_cls_logits": rpn_cls_logits,  # [B,H,W,2,A]
-            "rpn_bbox_pred": rpn_bbox,         # [B,4A,H,W]
-            "rois": tgt.rois,
-            "rcnn_labels": tgt.labels,         # [B,R]
-            "rcnn_bbox_targets": tgt.bbox_targets,
-            "rcnn_bbox_weights": tgt.bbox_weights,
-            "cls_score": cls_score.reshape(b, self.num_rois, -1),
-            "bbox_pred": bbox_pred.reshape(b, self.num_rois, 4),
-            "stats": stats,
-        }
-        if self.with_autofocus:
-            out["focus_logits"] = self.autofocus(feat)
-        if self.with_mask:
-            # the first m sampled rois of each image: the sampler puts its
-            # fg rois first
-            m = min(self.num_mask_rois, self.num_rois)
-            mask_rois = tgt.rois[:, :m].detach()
-            logits = self.mask(self._mask_pool(roi_feat_map, mask_rois, m))
-            if not gt_masks.is_floating_point():
-                gt_masks = gt_masks.float()  # the loader ships uint8
-            targets, cls_ids = mask_targets_from_dense(
-                mask_rois, tgt.matched_gt[:, :m], gt_boxes, gt_masks,
-                mask_size=self.mask_size)
-            cid = (cls_ids.reshape(-1).long() - 1).clamp_min(0)
-            S = self.mask_size
-            out["mask_logits"] = self._class_planes(logits, cid)
-            out["mask_targets"] = targets.reshape(b * m, S, S)
+        with span("rpn"):
+            tgt = multi_proposal_target(
+                rpn_fg, rpn_bbox, im_info, gt_boxes, valid_ranges,
+                self.anchors(fh, fw, feat.device), generator=generator,
+                priorities=priorities, bbox_stds=self.bbox_stds,
+                bbox_means=self.bbox_means, **self.train_kw)
+        with span("head"):
+            # the fused route whatever pool_kernel says: it has the backward
+            cls_score, bbox_pred, off = self.rcnn(
+                roi_feat_map, tgt.rois.reshape(-1, 5), extract="fused",
+                return_offset=True)
+            stats = self.rcnn.offset_stats(off)
+            if dcn:
+                stats["dcn_offset_max"] = torch.stack(dcn).amax()
+            out = {
+                "rpn_cls_logits": rpn_cls_logits,  # [B,H,W,2,A]
+                "rpn_bbox_pred": rpn_bbox,         # [B,4A,H,W]
+                "rois": tgt.rois,
+                "rcnn_labels": tgt.labels,         # [B,R]
+                "rcnn_bbox_targets": tgt.bbox_targets,
+                "rcnn_bbox_weights": tgt.bbox_weights,
+                "cls_score": cls_score.reshape(b, self.num_rois, -1),
+                "bbox_pred": bbox_pred.reshape(b, self.num_rois, 4),
+                "stats": stats,
+            }
+            if self.with_autofocus:
+                out["focus_logits"] = self.autofocus(feat)
+            if self.with_mask:
+                # the first m sampled rois of each image: the sampler puts
+                # its fg rois first
+                m = min(self.num_mask_rois, self.num_rois)
+                mask_rois = tgt.rois[:, :m].detach()
+                logits = self.mask(self._mask_pool(roi_feat_map, mask_rois,
+                                                   m))
+                if not gt_masks.is_floating_point():
+                    gt_masks = gt_masks.float()  # the loader ships uint8
+                targets, cls_ids = mask_targets_from_dense(
+                    mask_rois, tgt.matched_gt[:, :m], gt_boxes, gt_masks,
+                    mask_size=self.mask_size)
+                cid = (cls_ids.reshape(-1).long() - 1).clamp_min(0)
+                S = self.mask_size
+                out["mask_logits"] = self._class_planes(logits, cid)
+                out["mask_targets"] = targets.reshape(b * m, S, S)
         return out

@@ -28,6 +28,11 @@ own shard of the global batch, and ``batch_images`` is the global batch
 roi count) add up over the ranks, the ``*_max`` telemetry takes the ranks'
 maximum and the rest their mean. ``reduce_metrics`` does that at a log
 boundary, so the step itself never waits for the other ranks' metrics.
+
+Under a profiler the step's layers are spans (utils/profiler.span): the
+detector's own, then ``loss`` (the losses and the accuracy metrics),
+``backward`` and ``optimizer`` (zero_grad, then the SGD and scheduler
+steps after the backward).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from sniper_tpu_torch.parallel.distributed import (
     is_distributed,
     world_size,
 )
+from sniper_tpu_torch.utils.profiler import span
 
 
 def make_train_step(model, optimizer, scheduler, batch_images: int, *,
@@ -73,20 +79,26 @@ def make_train_step(model, optimizer, scheduler, batch_images: int, *,
         out = model(data, batch["im_info"], batch["gt_boxes"],
                     batch["valid_ranges"], gt_masks=batch.get("gt_masks"),
                     train=True, generator=generator, priorities=priorities)
-        loss, metrics = total_loss(out, batch, batch_images, rpn_batch_size,
-                                   rpn_only=rpn_only, ohem_rois=ohem_rois)
-        if not rpn_only:
-            labels = out["rcnn_labels"]
-            pred = out["cls_score"].detach().argmax(-1)
-            valid = labels >= 0
-            n_valid = global_count(valid.sum()).clamp_min(1)
-            metrics["rcnn_acc"] = ((pred == labels) & valid).sum() / n_valid
-            metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
-        metrics.update(out["stats"])
-        optimizer.zero_grad(set_to_none=True)
-        (loss * world).backward()
-        optimizer.step()
-        scheduler.step()
+        with span("loss"):
+            loss, metrics = total_loss(out, batch, batch_images,
+                                       rpn_batch_size, rpn_only=rpn_only,
+                                       ohem_rois=ohem_rois)
+            if not rpn_only:
+                labels = out["rcnn_labels"]
+                pred = out["cls_score"].detach().argmax(-1)
+                valid = labels >= 0
+                n_valid = global_count(valid.sum()).clamp_min(1)
+                metrics["rcnn_acc"] = (((pred == labels) & valid).sum()
+                                       / n_valid)
+                metrics["rcnn_fg_frac"] = (labels > 0).sum() / n_valid
+            metrics.update(out["stats"])
+        with span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("backward"):
+            (loss * world).backward()
+        with span("optimizer"):
+            optimizer.step()
+            scheduler.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

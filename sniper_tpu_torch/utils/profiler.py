@@ -1,11 +1,14 @@
-"""Profiling helpers: device traces and host stage timers.
+"""Profiling helpers: device traces, layer spans and host stage timers.
 
 Port of sniper_tpu/utils/profiler.py. ``device_trace`` wraps a block in
 ``torch.profiler`` (the host's operators, and with a CUDA card its kernels
 and copies) and writes a Chrome trace into a directory (open it in
-Perfetto or chrome://tracing); ``StageTimer`` accumulates named host-side
-stage durations, synchronizing the devices of a stage's tensors before it
-reads the clock, since CUDA launches return before the card is done.
+Perfetto or chrome://tracing); ``span`` marks a layer of the program
+(``sniper/trunk``, ``sniper/rpn``, ...) in such a trace, and costs one
+flag check when no profiler records; ``StageTimer`` accumulates named
+host-side stage durations, synchronizing the devices of a stage's tensors
+before it reads the clock, since CUDA launches return before the card is
+done.
 """
 
 from __future__ import annotations
@@ -16,6 +19,22 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The program's layer ``name`` as the host annotation
+    ``sniper/<name>`` while a torch.profiler records (a ``record_function``
+    on the profiler's clock, in the same trace as the kernels: the kernels
+    the host launches inside it, and the device's idle gaps while the host
+    is inside it, fall under its name); otherwise one shared null context,
+    behind a single flag check. The program opens spans flat, never one
+    inside another: a layer met twice in a forward opens its span twice."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(f"sniper/{name}")
+    return _OFF
 
 
 @contextlib.contextmanager
