@@ -24,7 +24,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    head's shapes (P=7, E=36: phase 11's path) and the mask branch's (P=14,
    E=64) of every test scale in fp32 and bf16, with the whole patch route
    of the 7x7 and 14x14 pools held against the composed-tent pool kernels,
-   and
+   the trunk's unit epilogue (its forms at R101's and X101's stage 1 and 3
+   shapes of scale 0 and at a FocusChip tier, in bf16 ulps), and
    NMS through both entries (``nms`` sorting unsorted input, ``nms_sorted``,
    the proposal op's, on it sorted) on clustered boxes with distinct scores
    and on saturated ones, tied and repeated as a random RPN emits them: the
@@ -37,7 +38,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. Inference end to end at full R101 width with seeded random weights:
    (a) the kernel path against the plain path on a small input, (b) the
    port's run_detection over a few synthetic 640x480 images, with the
-   kernels' launch counters zeroed just before and read just after, (c)
+   kernels' launch counters zeroed just before and read just after (every
+   unit epilogue fused, EPILOGUES_FORWARD a batch), (c)
    per-scale forward times on the host clock: a smoke reading (median and
    spread over E2E_REPS passes), not a benchmark.
 4. Mask-branch inference of configs/sniper_res101_e2e_mask.yml at full
@@ -1068,6 +1070,7 @@ def check_roi_patch(dev, sh):
 
 POOL_ATOL, POOL_RTOL = 1e-4, 1e-4
 ROI_PATCH_ATOL = 1e-5
+EPILOGUE_ULPS = 1
 POOL_BWD_REL = IM2COL_BWD_REL = 1e-4
 TOLERANCES = {
     "nms": "identical keep lists (the IoU is computed in nms_jax's fp32 "
@@ -1090,7 +1093,118 @@ TOLERANCES = {
                  f"rtol={POOL_RTOL} of "
                  "the composed-tent kernels (fp32 sums of the same tents in "
                  "another order)",
+    "unit_epilogue": f"within {EPILOGUE_ULPS} bf16 ulp (expected 0: the "
+                     "kernel computes torch's channels-last BatchNorm "
+                     "formula, rsqrtf and one fused multiply-add, and rounds "
+                     "where the unfused chain rounds)",
 }
+
+
+def epilogue_shapes(cfg, acfg) -> list[dict]:
+    """The unit epilogue's shapes: R101's and X101's stage 1 (stride 4,
+    256 channels) and stage 3 (stride 16, 1024) at scale 0's canvas and
+    batch, and R101's stage 3 at AutoFocus's smallest FocusChip tier. R101
+    runs its boundary (the sum and bn1) at the stage's width and its inner
+    BatchNorms at a quarter of it; X101 its inner BatchNorms and its tail
+    at the stage's width."""
+    s0 = main_path_shapes(cfg)[0]
+    tier = focus_tier_shapes(acfg)[0]
+    shapes = []
+    for trunk in ("r101", "x101"):
+        for stage, C, f, units in ((1, 256, 4, 3), (3, 1024, 1, 23)):
+            shapes.append(dict(
+                label=f"{trunk} {s0['label']} stage {stage}", trunk=trunk,
+                B=s0["B"], C=C, H=s0["H"] * f, W=s0["W"] * f, units=units))
+    shapes.append(dict(label=f"r101 {tier['label']} stage 3", trunk="r101",
+                       B=tier["B"], C=1024, H=tier["H"], W=tier["W"],
+                       units=23))
+    return shapes
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap in bf16 ulps of want's magnitude."""
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(w.abs().clamp_min(2.0 ** -126))[1] - 8)
+    return float(((g - w).abs() / ulp).max())
+
+
+def seeded_bn(C: int, seed: int, dev):
+    """A FrozenBatchNorm of C channels with statistics and affine
+    parameters away from the identity."""
+    from sniper_tpu_torch.models.norm import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    bn = FrozenBatchNorm(C, dtype=torch.bfloat16)
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(C, generator=g) * 0.3)
+        bn.running_var.copy_(torch.rand(C, generator=g) * 1.7 + 0.3)
+        bn.weight.copy_(torch.rand(C, generator=g) + 0.5)
+        bn.bias.copy_(torch.randn(C, generator=g) * 0.2)
+    return bn.to(dev).eval()
+
+
+def check_unit_epilogue(dev, sh):
+    """The unit epilogue's forms against their plain versions at one
+    stage's shapes: the largest gap in bf16 ulps, the kernel's and the plain
+    version's ms (CUDA events) and the bytes bound, per form; the result
+    sums one unit's epilogues (R101: the boundary and two inner BatchNorms;
+    X101: two inner BatchNorms and the identity tail)."""
+    from sniper_tpu_torch.ops import epilogue as ep
+
+    B, C, H, W = sh["B"], sh["C"], sh["H"], sh["W"]
+    g = torch.Generator(device=dev).manual_seed(B * C + H * W)
+
+    def act(c):
+        return (torch.randn(B, c, H, W, generator=g, device=dev)
+                .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+
+    cm = C // 4 if sh["trunk"] == "r101" else C
+    bn, bn_sc, bn_mid = seeded_bn(C, 1, dev), seeded_bn(C, 2, dev), \
+        seeded_bn(cm, 3, dev)
+    h, s, m = act(C), act(C), act(cm)
+    n, nm = h.numel(), m.numel()
+    if sh["trunk"] == "r101":
+        forms = (("sum_bn_relu", lambda: ep.sum_bn_relu(h, s, bn, True),
+                  lambda: ep.sum_bn_relu_plain(h, s, bn, True), 8 * n, 1),
+                 ("bn_relu (C/4)", lambda: ep.bn_relu(m, bn_mid),
+                  lambda: ep.bn_relu_plain(m, bn_mid), 4 * nm, 2))
+    else:
+        forms = (("bn_relu", lambda: ep.bn_relu(h, bn),
+                  lambda: ep.bn_relu_plain(h, bn), 4 * n, 2),
+                 ("bn_add_relu", lambda: ep.bn_add_relu(h, bn, s),
+                  lambda: ep.bn_add_relu_plain(h, bn, s), 6 * n, 1),
+                 ("bn_add_relu (projection)",
+                  lambda: ep.bn_add_relu(h, bn, s, bn_sc),
+                  lambda: ep.bn_add_relu_plain(h, bn, s, bn_sc), 6 * n, 0))
+    worst_ulps, worst_abs = 0.0, 0.0
+    ms = plain_ms = nbytes = 0.0
+    parts = []
+    with torch.inference_mode():
+        for name, kern, plain, nb, per_unit in forms:
+            got, want = kern(), plain()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            u = max(ulps(a, b) for a, b in zip(got, want))
+            e = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want))
+            k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 10)
+            b_ms = nb / HBM_BYTES_PER_S * 1e3
+            worst_ulps, worst_abs = max(worst_ulps, u), max(worst_abs, e)
+            ms += per_unit * k_ms
+            plain_ms += per_unit * p_ms
+            nbytes += per_unit * nb
+            parts.append(f"{name} {u:g} ulp, {k_ms:.4f} ms (plain "
+                         f"{p_ms:.4f}), bound {b_ms:.4f} ms "
+                         f"({100 * b_ms / k_ms:.1f}%)")
+    ok = worst_ulps <= EPILOGUE_ULPS
+    print(f"  unit_epilogue {sh['label']} [{B},{C},{H},{W}]: "
+          + "; ".join(parts)
+          + f"; one unit's {ms:.4f} ms against {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" bound, {3 * sh['units']} launches per batch in the stage "
+          f"({sh['units']} units): {'PASS' if ok else 'FAIL'}")
+    return result(ok, worst_abs, ms, plain_ms, nbytes, 0.0)
 
 
 def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
@@ -1101,7 +1215,8 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
     shapes and at the FocusChip tiers (P=14), the backward kernels at the
     training shapes (the pool's also at P=14), the patch extraction at the
     box head's shapes (P=7) and the mask branch's (P=14) of every test
-    scale. The model zoo (phase 7): the
+    scale, and the trunk's unit epilogue at R101's and X101's stage 1 and
+    3 shapes of scale 0 and a FocusChip tier. The model zoo (phase 7): the
     im2col and its backward at ResNeXt-101's C5 width (2048 channels, 512
     per deformable group; inference scale 0 and training), NMS, the pool
     and its backward at MobileNetV2's stride-32 maps (``zcfg``: every test
@@ -1137,7 +1252,9 @@ def kernel_phase(dev, cfg, mcfg, acfg, zcfg) -> tuple[bool, list]:
              both + mask_train + mask_infer + mnv2),
             (cuda.DEFORM_IM2COL_BWD, check_im2col_bwd, train + x101[1:]),
             (cuda.POOL_BWD, check_pool_bwd, train + mask_train + mnv2[-1:]),
-            (cuda.ROI_PATCH, check_roi_patch, box_head + mask_patch)):
+            (cuda.ROI_PATCH, check_roi_patch, box_head + mask_patch),
+            (cuda.UNIT_EPILOGUE, check_unit_epilogue,
+             epilogue_shapes(cfg, acfg))):
         print(f"{kernel.name}: tolerance {TOLERANCES[kernel.name]}")
         runs = [check(dev, sh) for sh in at]
         torch.cuda.synchronize()
@@ -1169,11 +1286,15 @@ def synth_image(name: str) -> np.ndarray:
 def plain_versions():
     """Route the detector through the plain torch versions on the card, to
     hold the kernel path against it (restored on exit)."""
-    from sniper_tpu_torch.ops import deform, nms, proposals
+    from sniper_tpu_torch.ops import deform, epilogue, nms, proposals
 
     saved = (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
              deform.pool_pass_bwd, deform.extract_patches,
-             proposals.nms_sorted)
+             proposals.nms_sorted, epilogue.bn_relu, epilogue.sum_bn_relu,
+             epilogue.bn_add_relu)
+    epilogue.bn_relu = epilogue.bn_relu_plain
+    epilogue.sum_bn_relu = epilogue.sum_bn_relu_plain
+    epilogue.bn_add_relu = epilogue.bn_add_relu_plain
     deform.deform_im2col = deform.deform_im2col_plain
     deform.pool_pass = deform.pool_pass_plain
     deform.deform_im2col_bwd = deform.deform_im2col_bwd_plain
@@ -1185,7 +1306,8 @@ def plain_versions():
     finally:
         (deform.deform_im2col, deform.pool_pass, deform.deform_im2col_bwd,
          deform.pool_pass_bwd, deform.extract_patches,
-         proposals.nms_sorted) = saved
+         proposals.nms_sorted, epilogue.bn_relu, epilogue.sum_bn_relu,
+         epilogue.bn_add_relu) = saved
 
 
 def in_range_threshold(out, im_info, valid_range, k: int = 20) -> float:
@@ -1284,6 +1406,7 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
               "flipped": False} for i in range(N_IMAGES)]
     for k in cuda.KERNELS:
         k.launches = 0
+    cuda.UNFUSED_EPILOGUES = 0
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         stats = run_detection(cfg, model, None, roidb, Detections(81),
@@ -1291,12 +1414,19 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.name: k.launches
-                for k in (cuda.NMS, cuda.DEFORM_IM2COL, cuda.FUSED_POOL)}
-    good = stats["detections"] > 0 and all(launches.values())
+                for k in (cuda.NMS, cuda.DEFORM_IM2COL, cuda.FUSED_POOL,
+                          cuda.UNIT_EPILOGUE)}
+    share = engagement()
+    good = (stats["detections"] > 0 and all(launches.values())
+            and share == 1.0
+            and launches[cuda.UNIT_EPILOGUE.name]
+            == EPILOGUES_FORWARD * launches[cuda.NMS.name])
     print(f"e2e (b) run_detection (cv2 canvases, injected image loader, "
           f"counting dataset) over {N_IMAGES} synthetic {IM_W}x{IM_H} "
-          f"images: {stats}, launches {launches}, {wall:.2f} s wall "
-          f"including first-call set-up: {'PASS' if good else 'FAIL'}")
+          f"images: {stats}, launches {launches} (unit epilogues "
+          f"{EPILOGUES_FORWARD} a batch), unit epilogues fused "
+          f"{100 * share:.1f}%, {wall:.2f} s wall including first-call "
+          f"set-up: {'PASS' if good else 'FAIL'}")
     ok &= good
 
     # (c) per-scale forward times at the shipped batch sizes
@@ -1348,7 +1478,22 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
 
 # the mask branch pools through the fused pool kernels too: the patch
 # extraction (P5) runs only on the box head's pallas route (phase 11)
-INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool")
+INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool", "unit_epilogue")
+# the unit epilogue's launches: a test forward of R101 or X101 runs one for
+# the stem and three for each of its 33 units; a training step of R101 only
+# the frozen stem's and stage 1's, which the trunk runs without autograd
+EPILOGUES_FORWARD = 1 + 3 * 33
+EPILOGUES_STEP = 1 + 3 * 3
+
+
+def engagement() -> float:
+    """The share of the trunk's unit epilogues that ran fused since the
+    counters were zeroed (1.0 where none ran at all)."""
+    from sniper_tpu_torch.ops import cuda
+
+    fused = cuda.UNIT_EPILOGUE.launches
+    total = fused + cuda.UNFUSED_EPILOGUES
+    return fused / total if total else 1.0
 TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
                     "fused_pool_bwd")
 
@@ -2291,7 +2436,8 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
     loader = make_loader(run_roidb, mcfg, 0, image_loader=synth_train_image)
     per_step = {cuda.DEFORM_IM2COL.name: 3, cuda.DEFORM_IM2COL_BWD.name: 3,
                 cuda.NMS.name: 1, cuda.FUSED_POOL.name: 4,
-                cuda.POOL_BWD.name: 4, cuda.ROI_PATCH.name: 0}
+                cuda.POOL_BWD.name: 4, cuda.ROI_PATCH.name: 0,
+                cuda.UNIT_EPILOGUE.name: EPILOGUES_STEP}
     try:
         ok2, launches, _ = timed_training(
             dev, mcfg, model, loader, card, "mask (m2)", out_dir=out_dir,
@@ -2700,7 +2846,8 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
     loader = make_loader(run_roidb, acfg, 0, image_loader=synth_train_image)
     per_step = {cuda.DEFORM_IM2COL.name: 3, cuda.DEFORM_IM2COL_BWD.name: 3,
                 cuda.NMS.name: 1, cuda.FUSED_POOL.name: 2,
-                cuda.POOL_BWD.name: 2, cuda.ROI_PATCH.name: 0}
+                cuda.POOL_BWD.name: 2, cuda.ROI_PATCH.name: 0,
+                cuda.UNIT_EPILOGUE.name: EPILOGUES_STEP}
     try:
         ok2, launches, _ = timed_training(
             dev, acfg, model, loader, card, "autofocus (t2)",
@@ -3086,6 +3233,7 @@ def zoo_phase(dev, zcfgs: dict, card: str) -> tuple[bool, dict]:
                   cuda.NMS.name)
     pool, pool_bwd, patch = (cuda.FUSED_POOL.name, cuda.POOL_BWD.name,
                              cuda.ROI_PATCH.name)
+    epi = cuda.UNIT_EPILOGUE.name
     ok, paths = True, {}
     for name, cfg_file, dcn in (("x101", CONFIG, 3),
                                 ("mobilenetv2", ZOO_CONFIG, 0)):
@@ -3093,13 +3241,15 @@ def zoo_phase(dev, zcfgs: dict, card: str) -> tuple[bool, dict]:
         z = "(z1)" if dcn else "(z3)"
         good, paths[f"{name} inference"] = zoo_inference(
             dev, zcfg, f"zoo {z} {name}", card,
-            {x1: dcn, p4: 1, pool: 2, x2: 0, pool_bwd: 0, patch: 0})
+            {x1: dcn, p4: 1, pool: 2, x2: 0, pool_bwd: 0, patch: 0,
+             epi: EPILOGUES_FORWARD if dcn else 0})
         ok &= good
         z = "(z2)" if dcn else "(z4)"
         with tempfile.TemporaryDirectory() as tmp:
             good, paths[f"{name} training"] = zoo_training(
                 dev, zcfg, cfg_file, f"zoo {z} {name}", tmp, card,
-                {x1: dcn, x2: dcn, p4: 1, pool: 2, pool_bwd: 2, patch: 0})
+                {x1: dcn, x2: dcn, p4: 1, pool: 2, pool_bwd: 2, patch: 0,
+                 epi: 0})  # X101 trains its trunk with autograd throughout
         ok &= good
     print(f"zoo: (z1)-(z4) {'PASS' if ok else 'FAIL'} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3117,7 +3267,8 @@ DP_LOSSES = ("loss", "rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
 DP_LEAVES = ("conv_new_1.weight",) + HEAD_LEAVES + RPN_LEAVES + TRUNK_LEAVES
 # one training step's launches of the flagship detector
 STEP_LAUNCHES = {"deform_im2col": 3, "deform_im2col_bwd": 3, "nms": 1,
-                 "fused_pool": 2, "fused_pool_bwd": 2, "roi_patch": 0}
+                 "fused_pool": 2, "fused_pool_bwd": 2, "roi_patch": 0,
+                 "unit_epilogue": EPILOGUES_STEP}
 
 
 @contextlib.contextmanager
@@ -3382,7 +3533,9 @@ def dp_step_check(dev, cfg, tmp: str) -> tuple[bool, dict]:
              for k, (e, spread, tol) in rows.items()]
     same = all(torch.equal(r0[c][k], r1[c][k])
                for c in ("grads", "params", "stats") for k in r0[c])
-    each = all(r["launches"] == STEP_LAUNCHES for r in ranks)
+    # an fp32 trunk: no unit epilogue engages
+    want = dict(STEP_LAUNCHES, unit_epilogue=0)
+    each = all(r["launches"] == want for r in ranks)
     ok &= same and each
     launches = {k: r0["launches"][k] + r1["launches"][k]
                 for k in r0["launches"]}
@@ -3406,7 +3559,7 @@ def dp_step_check(dev, cfg, tmp: str) -> tuple[bool, dict]:
           f"{same}. Peak memory per rank {r0['peak_gib']:.2f} / "
           f"{r1['peak_gib']:.2f} GiB, one process {ref['peak_gib']:.2f} GiB. "
           f"Launches per rank {r0['launches']} / {r1['launches']}, one "
-          f"step's {STEP_LAUNCHES}: {each}: {'PASS' if ok else 'FAIL'}")
+          f"step's {want}: {each}: {'PASS' if ok else 'FAIL'}")
     return ok, launches
 
 
@@ -3504,7 +3657,8 @@ def dp_inference(dev, cfg) -> tuple[bool, dict]:
     one = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
     identical = {k: torch.equal(one[k], two[k]) for k in one}
     want = {"deform_im2col": 6, "nms": 2, "fused_pool": 4,
-            "deform_im2col_bwd": 0, "fused_pool_bwd": 0, "roi_patch": 0}
+            "deform_im2col_bwd": 0, "fused_pool_bwd": 0, "roi_patch": 0,
+            "unit_epilogue": 0}  # an fp32 trunk: no unit epilogue engages
     idx = two["rois"][..., 0]
     global_idx = torch.equal(idx, torch.arange(4.0, device=idx.device)
                              [:, None].expand_as(idx))
@@ -3558,7 +3712,8 @@ OPT_TIMED_STEPS = 5  # after WARMUP_STEPS, in (o1) and (o2)
 VIS_STEPS, VIS_FREQ = 6, 2  # (o3): dumps after steps 2, 4 and 6
 # one box-detector test forward's launches (a prediction dump, a demo scale)
 FORWARD_LAUNCHES = {"deform_im2col": 3, "deform_im2col_bwd": 0, "nms": 1,
-                    "fused_pool": 2, "fused_pool_bwd": 0, "roi_patch": 0}
+                    "fused_pool": 2, "fused_pool_bwd": 0, "roi_patch": 0,
+                    "unit_epilogue": EPILOGUES_FORWARD}
 # the JAX dumper's payload (sniper_tpu/train/vis_dump.py)
 DUMP_KEYS = {"step", "batch_seq", "dets", "rois", "cls_prob", "bbox_pred"}
 # the csrc kernels of a box test forward, by their __global__ names
@@ -3936,7 +4091,7 @@ def options_phase(dev, cfg, amcfg, tmp: str, prefix: str,
 BENCH_FLOPS = (5663558615040, 3817093398528, 842816651264)
 BENCH_STEP_FLOPS = 6723094642688
 BENCH_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
-                 "fused_pool_bwd")
+                 "fused_pool_bwd", "unit_epilogue")
 
 
 def bench_phase(dev) -> tuple[bool, dict, dict]:
@@ -4020,12 +4175,14 @@ class LaunchesPerCall:
 def pallas_launches(B: int, rpi: int) -> dict:
     """One box-inference batch's launches under POOL_KERNEL pallas: the
     patch extraction once per PATCH_ROI_CHUNK rois, the im2col of C5's three
-    deformable convs, NMS once, no fused pool and no backward."""
+    deformable convs, NMS once, the trunk's unit epilogues, no fused pool
+    and no backward."""
     from sniper_tpu_torch.ops import deform
 
     return {"roi_patch": math.ceil(B * rpi / deform.PATCH_ROI_CHUNK),
             "deform_im2col": 3, "nms": 1, "fused_pool": 0,
-            "deform_im2col_bwd": 0, "fused_pool_bwd": 0}
+            "deform_im2col_bwd": 0, "fused_pool_bwd": 0,
+            "unit_epilogue": EPILOGUES_FORWARD}
 
 
 def patch_route_kernels(fn) -> dict:

@@ -11,7 +11,8 @@ convolutions, GEMMs, the rest), then the top kernels by device time, then
 per layer of the program (its spans, utils/profiler.span: trunk, rpn,
 head, the mask branch inside head) the host time, the device time of the
 work launched inside it, its launches and the device's idle time while the
-host was inside it (benchmark/core/spans.py). TF32 is off, as in
+host was inside it (benchmark/core/spans.py), and the share of the trunk's
+unit epilogues that ran fused (ops/epilogue.py). TF32 is off, as in
 chip_smoke.py. Needs one CUDA device.
 
     python3 scripts/profile_torch_infer.py [--reps 3] [--cfg configs/sniper_res101_e2e_mask.yml]
@@ -38,6 +39,7 @@ GROUPS = (
     ("kernel:nms", ("nms_mask_kernel", "nms_scan_kernel")),
     ("kernel:deform_im2col", ("deform_im2col_kernel",)),
     ("kernel:roi_patch", ("roi_patch_kernel",)),
+    ("kernel:unit_epilogue", ("bn_unit_epilogue_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma_fprop", "sm90_xmma",
                       "fprop")),
     ("gemm (cuBLAS)", ("gemm", "cutlass", "sm90_")),
@@ -68,6 +70,7 @@ def main():
     from sniper_tpu_torch.infer.tester import device_normalize
     from sniper_tpu_torch.models.init import init_detector
     from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.ops import cuda
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -97,6 +100,7 @@ def main():
 
         fwd()
         torch.cuda.synchronize()
+        cuda.UNIT_EPILOGUE.launches = cuda.UNFUSED_EPILOGUES = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -142,6 +146,11 @@ def main():
                                  key=lambda kv: -kv[1]):
                 print(f"    {g:32s} {sec * 1e3 / args.reps:9.3f} ms")
         print(f"  launches per batch: {t['launches'] / args.reps:.0f}")
+        fused = cuda.UNIT_EPILOGUE.launches
+        total = fused + cuda.UNFUSED_EPILOGUES
+        print(f"  unit epilogues per batch: {fused / args.reps:.0f} fused, "
+              f"{cuda.UNFUSED_EPILOGUES / args.reps:.0f} unfused "
+              f"({100 * fused / max(total, 1):.1f}% fused)")
 
 
 if __name__ == "__main__":

@@ -36,6 +36,7 @@ import contextlib
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -106,13 +107,16 @@ def deform_split(model, x, reps: int, train: bool) -> str:
     shapes: X1 (the col group-major), the grouped product on that col, the
     whole conv forward; in training also the conv forward and backward and
     X2 alone."""
-    from sniper_tpu_torch.ops import deform
+    from sniper_tpu_torch.ops import deform, epilogue
 
     ins = []
     hooks = [getattr(model.trunk, f"stage4_unit{j + 1}").bn1
              .register_forward_hook(lambda m, a, o: ins.append(o.detach()))
              for j in range(model.trunk.units[3])]
-    with torch.no_grad():
+    # the unfused units, whose bn1 runs as a module (the unit epilogue
+    # fuses it with its ReLU)
+    with torch.no_grad(), mock.patch.object(epilogue, "engages",
+                                            lambda *a: False):
         model.trunk(x)
     for h in hooks:
         h.remove()

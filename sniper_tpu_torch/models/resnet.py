@@ -16,6 +16,10 @@ follow the flax tree (``stage1_unit1.conv1``, ``stage4_unit1.offset``,
   stay frozen, as in the JAX trunk (``fix_bn``). A ``stats`` list, when
   given, collects each deformable unit's max |offset| (the
   ``dcn_offset_max`` telemetry, resnet.py:32-47).
+- At inference on the card, each BatchNorm and its ReLU run as one unit
+  epilogue (ops/epilogue.py), and a unit hands its ``[h, sc]`` to the next,
+  whose epilogue forms the residual sum with its bn1; the sum is rounded
+  where the unfused unit rounds it, and C4 and C5 are still whole tensors.
 
 Tensors are NCHW; the detector feeds them in ``channels_last`` memory
 format, so the NHWC view the deformable conv needs is free.
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sniper_tpu_torch.models.norm import FrozenBatchNorm, TrainBatchNorm
+from sniper_tpu_torch.ops import epilogue
 from sniper_tpu_torch.ops.deform import deformable_conv
 
 
@@ -41,6 +46,15 @@ def conv(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = None if mod.bias is None else mod.bias.to(x.dtype)
     return F.conv2d(x, mod.weight.to(x.dtype), bias, mod.stride, mod.padding,
                     mod.dilation, mod.groups)
+
+
+def stem_bn_relu(h: torch.Tensor, bn0, dtype) -> torch.Tensor:
+    """The stem's ``relu(bn0(h))`` on its fp32 conv output, cast to the
+    compute dtype first; one unit epilogue where it engages."""
+    if epilogue.engages(h, bn0):
+        return epilogue.bn_relu(h, bn0)
+    epilogue.count_unfused(h, 1)
+    return F.relu(bn0(h.to(dtype)), inplace=True)
 
 
 def _conv(cin, cout, k, stride=1, dilation=1, bias=False):
@@ -77,9 +91,37 @@ class PreActBottleneck(nn.Module):
         self.sc = None if dim_match else _conv(in_channels, filters, 1, stride)
 
     def forward(self, x: torch.Tensor, stats: list | None = None):
-        act1 = F.relu(self.bn1(x), inplace=True)
+        h, sc = self.pair(x, stats)
+        return h + sc
+
+    def pair(self, x, stats: list | None = None) -> list:
+        """[h, sc], whose sum is the unit's output. ``x`` is the unit's
+        input or the previous unit's [h, sc], which this unit empties once
+        it holds their sum, so that the two are freed then; where the unit
+        epilogue engages (ops/epilogue.py), that sum is formed in one pass
+        with this unit's bn1 and ReLU, and bn2 and bn3 each run with their
+        ReLU."""
+        parts = x if isinstance(x, list) else None
+        first = parts[0] if parts else x
+        fused = epilogue.engages(first, self.bn1, self.bn2, self.bn3)
+        if not fused:
+            epilogue.count_unfused(first, 3)
+            if parts:
+                x = parts[0] + parts[1]
+            act1 = F.relu(self.bn1(x), inplace=True)
+        elif parts:
+            x, act1 = epilogue.sum_bn_relu(*parts, self.bn1,
+                                           keep_sum=self.sc is None)
+        else:
+            act1 = epilogue.bn_relu(x, self.bn1)
+        del first
+        if parts:
+            parts.clear()
         h = conv(self.conv1, act1)
-        act2 = F.relu(self.bn2(h), inplace=True)
+        if fused:
+            act2 = epilogue.bn_relu(h, self.bn2)
+        else:
+            act2 = F.relu(self.bn2(h), inplace=True)
         if self.deform:
             offsets = conv(self.offset, act2.float())
             if stats is not None:
@@ -91,10 +133,13 @@ class PreActBottleneck(nn.Module):
             ).permute(0, 3, 1, 2).to(self.dtype)
         else:
             h = conv(self.conv2, act2)
-        act3 = F.relu(self.bn3(h), inplace=True)
+        if fused:
+            act3 = epilogue.bn_relu(h, self.bn3)
+        else:
+            act3 = F.relu(self.bn3(h), inplace=True)
         h = conv(self.conv3, act3)
         sc = x.to(self.dtype) if self.sc is None else conv(self.sc, act1)
-        return h + sc
+        return [h, sc]
 
 
 class ResNetTrunk(nn.Module):
@@ -145,17 +190,18 @@ class ResNetTrunk(nn.Module):
                          for p in m.parameters())
         with torch.no_grad() if frozen else contextlib.nullcontext():
             h = conv(self.conv0, self.bn_data(x.float()))
-            h = F.relu(self.bn0(h.to(self.dtype)), inplace=True)
+            h = stem_bn_relu(h, self.bn0, self.dtype)
             h = F.max_pool2d(h, 3, stride=2, padding=1)
+            # each unit hands its [h, sc] to the next, which sums them
             for j in range(self.units[0]):
-                h = getattr(self, f"stage1_unit{j + 1}")(h)
+                h = getattr(self, f"stage1_unit{j + 1}").pair(h)
         c4 = None
         for i in range(1, 4):
             if i == 3:
-                c4 = h
+                c4 = h = h[0] + h[1]
             for j in range(self.units[i]):
-                h = getattr(self, f"stage{i + 1}_unit{j + 1}")(h, stats)
-        return c4, h
+                h = getattr(self, f"stage{i + 1}_unit{j + 1}").pair(h, stats)
+        return c4, h[0] + h[1]
 
     def feature(self, x: torch.Tensor, stats: list | None = None):
         """The detection map C4||C5 in the compute dtype."""

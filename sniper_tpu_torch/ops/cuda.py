@@ -61,6 +61,10 @@ _SIGNATURES = {
                              _I, _I, _P],
     # feat, geom, out, dtype, H, W, C, rpi, r0, r1, E, stream
     "sniper_roi_patch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # form, a, a_f32, b, out, out2, bn1 (mean, var, weight, bias, eps), bn2
+    # (the same), n, C, stream
+    "sniper_unit_epilogue": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                             _P, _P, _P, _F, ctypes.c_longlong, _I, _P],
 }
 
 
@@ -100,8 +104,17 @@ ROI_PATCH = Kernel(
     "roi_patch", "sniper_tpu_torch/csrc/roi_patch.cu",
     "sniper_tpu/ops/pallas/roi_patch.py:101",
 )
+UNIT_EPILOGUE = Kernel(
+    "unit_epilogue", "sniper_tpu_torch/csrc/unit_epilogue.cu",
+    "sniper_tpu/models/resnet.py:84-106, sniper_tpu/models/resnext.py:56,"
+    "142-154 (XLA-fused elementwise, no Pallas kernel)",
+)
 KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD,
-           ROI_PATCH)
+           ROI_PATCH, UNIT_EPILOGUE)
+# the trunk's unit epilogues that ran unfused on a CUDA tensor (training-mode
+# BatchNorms, autograd recording): UNIT_EPILOGUE.launches over the sum of
+# the two is the share that engaged (ops/epilogue.py)
+UNFUSED_EPILOGUES = 0
 
 
 def _nvcc() -> str:
@@ -170,7 +183,9 @@ def library() -> ctypes.CDLL:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as a raw pointer (without
+    building a ``torch.cuda.Stream``: the wrappers call this per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(code: int, what: str) -> None:
@@ -179,15 +194,17 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype (and
-    shape, where given; None entries match any size)."""
+def require(t: torch.Tensor, name: str, dtype, shape=None,
+            memory_format=torch.contiguous_format) -> None:
+    """Raise unless ``t`` is a CUDA tensor of this dtype, contiguous in
+    ``memory_format`` (and of this shape, where given; None entries match
+    any size)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not t.is_contiguous(memory_format=memory_format):
+        raise ValueError(f"{name} must be contiguous ({memory_format})")
     if shape is not None and (
         len(shape) != t.dim()
         or any(s is not None and s != d for s, d in zip(shape, t.shape))
