@@ -50,7 +50,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    synthetic images of phase 3, counters zeroed just before and read just
    after, with the aggregated masks of one image pasted and RLE-encoded, (c)
    per-scale forward times (median and spread over MASK_REPS passes), img/s
-   and peak memory: a smoke reading.
+   and peak memory: a smoke reading; (d) one scale-0 batch under
+   utils/profiler.device_trace: the ``sniper/mask`` span's device and host
+   ms and launches (benchmark/core/spans.table), and the mask branch's roi
+   counter (models/detector.MASK_ROIS), which must read B x N.
 5. Training at full R101 width: (a) one step's losses and named gradients,
    kernel path against plain path, on 2 chips of 256x256 with an fp32
    trunk; then the flagship recipe of configs/sniper_res101_e2e.yml
@@ -1669,9 +1672,43 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
           f"ms/img, {1e3 / ms_per_image:.1f} img/s, peak memory {peak:.2f} "
           f"GiB (forward only, sum of the scales' medians, random weights; "
           f"a smoke reading) [{card}]")
+    ok &= mask_span_reading(model, mcfg, roidb, dev, card)
     del model
     torch.cuda.empty_cache()
     return ok, launches
+
+
+def mask_span_reading(model, mcfg, roidb, dev, card: str) -> bool:
+    """Phase 4 (d): one scale-0 batch traced; the sniper/mask span's device
+    and host ms and launches, and the roi counter against B x N."""
+    from benchmark.core import spans
+    from sniper_tpu_torch.data.test_loader import TestChipIterator
+    from sniper_tpu_torch.main_test import _scale_post_nms, make_forward
+    from sniper_tpu_torch.models import detector
+    from sniper_tpu_torch.utils.profiler import device_trace
+
+    bs = mcfg.TEST.BATCH_IMAGES[0]
+    n = _scale_post_nms(mcfg, 0, model)
+    batch = next(iter(TestChipIterator(roidb, mcfg, 0, bs,
+                                       image_loader=synth_image)))
+    fwd = make_forward(model, None, dev, mcfg.network.PIXEL_MEANS, n)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with device_trace(trace_dir):
+            fwd(batch["data"], batch["im_info"])
+        (name,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+    row = spans.table(events, -math.inf, math.inf,
+                      lambda _: "all")["spans"].get("mask")
+    good = row is not None and detector.MASK_ROIS == bs * n
+    reading = ("no sniper/mask span" if row is None else
+               f"sniper/mask {row['device_s'] * 1e3:.2f} device ms, "
+               f"{row['host_s'] * 1e3:.2f} host ms, {row['launches']} "
+               f"launches")
+    print(f"mask (d) one scale-0 batch of {bs} under the profiler: "
+          f"{reading}; MASK_ROIS {detector.MASK_ROIS} (B x N = {bs * n}) "
+          f"[{card}]: {'PASS' if good else 'FAIL'}")
+    return good
 
 
 # ---------------------------------------------------------------------------

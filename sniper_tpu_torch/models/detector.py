@@ -47,7 +47,10 @@ models/norm.py.
 Under a profiler, the forward's layers are the flat spans (utils/profiler.
 span) ``trunk``; ``rpn``: the RPN convs and softmax, then the proposals
 (and the training sample); ``head``: ``conv_new_1``, the R-CNN head, its
-softmax and denormalisation, and the FocusPixel and mask branches.
+softmax and denormalisation, the FocusPixel branch and the training mask
+branch; ``mask``: the inference mask branch (the 14x14 pool, ``MaskHead``,
+the plane pick and the softmax), after ``head`` closes. ``MASK_ROIS``
+counts the rois the inference mask branch ran on in the last forward.
 """
 
 from __future__ import annotations
@@ -77,6 +80,9 @@ from sniper_tpu_torch.ops.proposals import (
 from sniper_tpu_torch.utils.profiler import span
 
 NUM_MASK_ROIS = 50  # sampled rois per image that train the mask branch
+# the rois the mask branch ran on in the last inference forward: reset at
+# its start, bumped by _mask_prob on the host as it enqueues the branch
+MASK_ROIS = 0
 
 
 class SNIPERDetector(nn.Module):
@@ -243,6 +249,8 @@ class SNIPERDetector(nn.Module):
         if train:
             return self._train_forward(data, im_info, gt_boxes, valid_ranges,
                                        gt_masks, generator, priorities)
+        global MASK_ROIS
+        MASK_ROIS = 0
         n = post_nms_top_n or self.post_nms_top_n
         feat, _, rpn_bbox, rpn_fg = self._shared(data)
         b, fh, fw = feat.shape[0], feat.shape[2], feat.shape[3]
@@ -270,20 +278,25 @@ class SNIPERDetector(nn.Module):
             if self.with_autofocus:
                 out["focus_prob"] = torch.softmax(self.autofocus(feat),
                                                   dim=-1)[..., 1]
-            if self.with_mask:
-                out["mask_prob"] = self._mask_prob(roi_feat_map, rois,
-                                                   cls_prob)
+        if self.with_mask:
+            out["mask_prob"] = self._mask_prob(roi_feat_map, rois, cls_prob)
         return out
 
     def _mask_prob(self, roi_feat_map, rois, cls_prob):
         """Pool every kept roi at 14x14, predict its argmax foreground
         class's neg/pos planes only, softmax over the pair (detector.py:
-        318-353). Returns [B,N,S,S]."""
+        318-353), in the span ``mask``; adds the B*N rois to MASK_ROIS.
+        Returns [B,N,S,S]."""
+        global MASK_ROIS
         b, n = rois.shape[:2]
-        logits = self.mask(self._mask_pool(roi_feat_map, rois, n))
-        pair = self._class_planes(logits, cls_prob[..., 1:].argmax(dim=-1))
-        S = self.mask_size
-        return torch.softmax(pair, dim=-1)[..., 1].reshape(b, n, S, S)
+        with span("mask"):
+            logits = self.mask(self._mask_pool(roi_feat_map, rois, n))
+            pair = self._class_planes(logits,
+                                      cls_prob[..., 1:].argmax(dim=-1))
+            S = self.mask_size
+            prob = torch.softmax(pair, dim=-1)[..., 1].reshape(b, n, S, S)
+        MASK_ROIS += b * n
+        return prob
 
     def _mask_pool(self, roi_feat_map, rois, rois_per_image):
         """The 14x14 two-pass pool of rois [B, rpi, 5] with the

@@ -187,8 +187,12 @@ def leave_group(ok: bool, timeout_s: float = TIMEOUT_S):
     of its own. So, through the group's store, a rank that returned waits
     until every rank has returned or one has failed, and a rank that failed
     waits until every rank has joined. Rank 0, which serves a ``tcp://``
-    group's store, leaves last. Raises when the others do not return
-    within ``timeout_s``."""
+    group's store, leaves last. A failed rank of an NCCL group aborts its
+    communicators rather than destroying them: NCCL's destroy waits for
+    the other ranks, which may be inside a collective that waits for this
+    one, and the launch would then see neither rank's error until the
+    collective timeout. Raises when the others do not return within
+    ``timeout_s``."""
     try:
         if dist.get_world_size() > 1:
             _meet_to_leave(ok, timeout_s)
@@ -197,7 +201,13 @@ def leave_group(ok: bool, timeout_s: float = TIMEOUT_S):
             raise
         # a failed rank's own error is the one to report
     finally:
-        dist.destroy_process_group()
+        if not ok and dist.get_backend() == "nccl":
+            # private and experimental in torch.distributed; on four H100s
+            # a rank failed at set-up ended its launch with its own error
+            # through it, where destroy hung the launch to its time limit
+            dist.distributed_c10d._abort_process_group()
+        else:
+            dist.destroy_process_group()
 
 
 def _meet_to_leave(ok: bool, timeout_s: float):

@@ -4,7 +4,8 @@ gloo ranks of unequal length, the missing coordinator, the configuration
 read from the config or the environment (the SNIPER_* variables and
 torchrun's), and ``launch``: a failing or hung rank fails the launch, with
 the failing rank's own error, and a rank that returned stays in the group
-until every rank has returned or one has failed.
+until every rank has returned or one has failed; ``leave_group`` aborts a
+failed rank's NCCL group instead of destroying it.
 """
 
 import os
@@ -128,3 +129,22 @@ def test_a_rank_stays_until_every_rank_returns(tmp_path, fail):
 def test_a_hung_rank_fails_the_launch(tmp_path):
     with pytest.raises(TimeoutError):
         torch_dp.launch(torch_dp.hanging_rank, 2, tmp_path, timeout_s=10)
+
+
+@pytest.mark.parametrize("backend,ok,want", [
+    ("nccl", False, "abort"), ("nccl", True, "destroy"),
+    ("gloo", False, "destroy"), ("gloo", True, "destroy")])
+def test_leave_group_aborts_a_failed_nccl_rank(monkeypatch, backend, ok,
+                                               want):
+    """NCCL's destroy waits for the other ranks, which may be inside a
+    collective waiting for the failed one; its abort returns at once."""
+    dist = torch.distributed
+    calls = []
+    monkeypatch.setattr(dist, "get_world_size", lambda: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda: backend)
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda: calls.append("destroy"))
+    monkeypatch.setattr(dist.distributed_c10d, "_abort_process_group",
+                        lambda: calls.append("abort"))
+    distributed.leave_group(ok)
+    assert calls == [want]
