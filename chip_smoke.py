@@ -56,7 +56,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    counter (models/detector.MASK_ROIS), which must read B x N.
 5. Training at full R101 width: (a) one step's losses and named gradients,
    kernel path against plain path, on 2 chips of 256x256 with an fp32
-   trunk; then the flagship recipe of configs/sniper_res101_e2e.yml
+   trunk; (g) the step's CUDA graph (train/trainer.py) at 16 chips of
+   512x512: trainer.GRAPH_WARMUP eager steps then GRAPH_STEPS replayed
+   ones, per step eager or replayed, host ms inside the call and device ms
+   around it, and the replay share; then the flagship recipe of
+   configs/sniper_res101_e2e.yml
    (scripts/train_neg_props_and_sniper.sh's phases) over N_TRAIN_IMAGES
    synthetic images at BATCH_IMAGES 16 and 512x512 chips:
    (r1) a synthetic ImageNet-style R101 backbone written as an MXNet
@@ -73,7 +77,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    run_training takes WARMUP_STEPS then TIMED_STEPS steps, with the counters
    zeroed just before and read after every step: every step's losses, the
    step times on the host clock (a smoke reading), chips per second, peak
-   memory, the loader's own time per batch and the kernels' launches.
+   memory, the loader's own time per batch and the kernels' launches:
+   the host's by the kernels' counters, and every step's own in the run's
+   device trace (a replay runs no kernel wrapper); every step after the
+   warm-up's eager ones replays the step's CUDA graph (every run_training
+   of every phase, but for the NCCL group of (d2), which stays eager and
+   says why), and every step's trace holds the first step's launches.
    Then configs/sniper_res101_e2e_mask.yml's training from the same
    pieces: (m1) the one-step check of (a) with the mask branch; (m2)
    run_training from (r1)'s backbone with negative chips from (r3)'s
@@ -2056,6 +2065,72 @@ def train_step_check(dev, cfg, tag: str) -> bool:
     return ok
 
 
+GRAPH_STEPS = 5  # replayed steps after the eager warm-up, in (g)
+
+
+def graph_steps(dev, cfg, card: str) -> bool:
+    """(g) The training step's CUDA graph (train/trainer.py) at the yml's
+    batch and chip size at full width: trainer.GRAPH_WARMUP eager steps,
+    then GRAPH_STEPS replayed ones, on one batch resident on the card, the
+    card drained before each step. Per step: eager or replayed, its host
+    ms inside the step's call, its device ms (CUDA events around the call)
+    and its loss; then the replay share. Passes when exactly the steps
+    after the warm-up replayed, every loss is finite, and a replayed
+    step's host ms (the median, the capturing step aside) is below an
+    eager step's."""
+    from sniper_tpu_torch.models.init import init_detector
+    from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train import trainer
+    from sniper_tpu_torch.train.optimizer import make_optimizer
+
+    model = init_detector(get_model(cfg), seed=0).to(dev)
+    opt, sched, _ = make_optimizer(cfg, 1000, model)
+    B, S = cfg.TRAIN.BATCH_IMAGES, cfg.TRAIN.CHIP_SIZE
+    step = trainer.make_train_step(
+        model, opt, sched, B, rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
+        pixel_means=cfg.network.PIXEL_MEANS)
+    batch, pri = step_batch(cfg, model, B, S)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    pri = tuple(p.to(dev) for p in pri)
+    rows = []
+    for k in range(trainer.GRAPH_WARMUP + GRAPH_STEPS):
+        torch.cuda.synchronize()
+        replays = trainer.GRAPH_REPLAYS
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        m = step(batch, pri)
+        host = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        torch.cuda.synchronize()
+        rows.append((trainer.GRAPH_REPLAYS > replays, host,
+                     ev[0].elapsed_time(ev[1]), float(m["loss"])))
+        print(f"train (g) step {k + 1}: "
+              f"{'replayed' if rows[-1][0] else 'eager'}"
+              f"{', its capture' if k == trainer.GRAPH_WARMUP else ''}"
+              f", host {host:.2f} ms, device {rows[-1][2]:.2f} ms, loss "
+              f"{rows[-1][3]:.5f}")
+    flags = [r[0] for r in rows]
+    eager = sorted(r[1] for r in rows if not r[0])
+    replayed = sorted(r[1] for r in rows[trainer.GRAPH_WARMUP + 1:])
+    dev_e = sorted(r[2] for r in rows if not r[0])
+    dev_r = sorted(r[2] for r in rows[trainer.GRAPH_WARMUP + 1:])
+    ok = (flags == [False] * trainer.GRAPH_WARMUP + [True] * GRAPH_STEPS
+          and all(math.isfinite(r[3]) for r in rows)
+          and replayed[len(replayed) // 2] < eager[len(eager) // 2])
+    print(f"train (g) {B} chips of {S}x{S}, the card drained before each "
+          f"step: replay share {sum(flags)} of {len(flags)} steps; median "
+          f"host ms in the step's call eager {eager[len(eager) // 2]:.2f}, "
+          f"replayed {replayed[len(replayed) // 2]:.2f} (the capturing "
+          f"step {rows[trainer.GRAPH_WARMUP][1]:.1f}); median device ms "
+          f"(events around the call) eager {dev_e[len(dev_e) // 2]:.2f}, "
+          f"replayed {dev_r[len(dev_r) // 2]:.2f} [{card}]; host clock and "
+          f"events, a smoke reading: {'PASS' if ok else 'FAIL'}")
+    del model, step
+    torch.cuda.empty_cache()
+    return ok
+
+
 def synthetic_backbone(model, path: str) -> dict:
     """An ImageNet-style R101 backbone as an MXNet .params file: seeded
     arrays under the trunk's MXNet names and layouts (convs N(0, 1/fan_in),
@@ -2151,31 +2226,81 @@ def loader_ms_per_batch(roidb, cfg, n=8) -> float:
     return ms
 
 
+@contextlib.contextmanager
+def traced_steps(traces: list, overhead: list):
+    """Trace every training step (train/trainer.TrainStep) taken inside the
+    block on its own: append its hand-kernel launches in its trace
+    (cuda.traced_call; a CUDA graph's replay runs no kernel wrapper, so
+    only a trace sees its launches) to ``traces``, and add to overhead[0]
+    the seconds the trace took outside the step."""
+    from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train import trainer
+
+    inner = trainer.TrainStep.__call__
+
+    def call(self, batch, priorities=None):
+        t0, inside = time.perf_counter(), []
+
+        def timed():
+            t = time.perf_counter()
+            out = inner(self, batch, priorities)
+            torch.cuda.synchronize()
+            inside.append(time.perf_counter() - t)
+            return out
+
+        metrics, launches = cuda.traced_call(timed)
+        traces.append(launches)
+        overhead[0] += time.perf_counter() - t0 - inside[0]
+        return metrics
+
+    trainer.TrainStep.__call__ = call
+    try:
+        yield
+    finally:
+        trainer.TrainStep.__call__ = inner
+
+
 def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
                    out_dir=None, every_step=(), idle=(), per_step=None,
-                   varying=(), positive_first=(), timed_steps=TIMED_STEPS):
+                   varying=(), positive_first=(), timed_steps=TIMED_STEPS,
+                   eager=None, after_step=None):
     """run_training for WARMUP_STEPS + ``timed_steps`` steps with the launch
-    counters zeroed just before and read after every step. Passes when the
-    losses are finite, every kernel of
-    ``every_step`` launched at every step, every other training kernel in
-    the timed steps unless it is in ``idle``, whose kernels must not launch
-    at all, each kernel of ``per_step`` exactly that many times in every
-    step, each metric of ``varying`` not the same at every step, and each
-    of ``positive_first`` above 0 at the first step.
-    Returns (ok, launches over the whole run, median ms per step)."""
+    counters zeroed just before and read after every step, and every step
+    traced on its own (traced_steps). The counters count the host's
+    launches: the eager steps' and the capture's of the step's CUDA graph
+    (train/trainer.py), not the replays'. Passes when the losses are
+    finite; the replayed steps' traces hold the eager steps' hand-kernel
+    launches (the most of each over the steps: cuda.most_launches), and
+    those are the kernels the host launched; every kernel of ``every_step``
+    launched at every step, every other training kernel in the timed steps
+    unless it is in ``idle``, whose kernels must not launch at all, and
+    each kernel of ``per_step`` exactly that many times in every step whose
+    wrappers ran; each metric of ``varying`` not the same at every step,
+    each of ``positive_first`` above 0 at the first step, and every step
+    after the trainer.GRAPH_WARMUP eager ones replayed the step's CUDA
+    graph, or, where ``eager`` names the condition that keeps the run
+    eager, no step did and the last step's reason starts with it.
+    ``after_step()`` runs after every step, the card synchronised. Returns
+    (ok, the host's launches over the whole run, median ms per step)."""
     from sniper_tpu_torch.main_train import run_training
     from sniper_tpu_torch.ops import cuda
+    from sniper_tpu_torch.train import trainer
 
     n_steps = WARMUP_STEPS + timed_steps
-    times, snaps, losses = [], [], []
-    t_last = [0.0]
+    times, snaps, losses, replayed, traces = [], [], [], [], []
+    t_last, overhead = [0.0], [0.0]
+    replays = [trainer.GRAPH_REPLAYS]
 
     def hook(step, metrics):
         torch.cuda.synchronize()
         now = time.perf_counter()
-        times.append((now - t_last[0]) * 1e3)
-        t_last[0] = now
+        times.append((now - t_last[0] - overhead[0]) * 1e3)
+        t_last[0], overhead[0] = now, 0.0
         snaps.append({k.name: k.launches for k in cuda.KERNELS})
+        replayed.append(trainer.GRAPH_REPLAYS - replays[0])
+        replays[0] = trainer.GRAPH_REPLAYS
+        if after_step is not None:
+            after_step()
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m)
         print(f"{tag} step {step}: " + ", ".join(
@@ -2185,26 +2310,45 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_last[0] = time.perf_counter()
-    res = run_training(cfg, model, loader, dev, out_dir=out_dir,
-                       log=lambda m: print(f"{tag} {m}"),
-                       max_steps=n_steps, step_hook=hook)
+    with traced_steps(traces, overhead):
+        res = run_training(cfg, model, loader, dev, out_dir=out_dir,
+                           log=lambda m: print(f"{tag} {m}"),
+                           max_steps=n_steps, step_hook=hook)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in cuda.KERNELS}
     timed = times[WARMUP_STEPS:]
-    base = snaps[WARMUP_STEPS - 1]
-    over_timed = {n: launches[n] - base[n] for n in launches}
-    each_step = all(snaps[i][n] > (snaps[i - 1][n] if i else 0)
-                    for i in range(len(snaps)) for n in every_step)
+    calls = [{n: c - (snaps[i - 1][n] if i else 0) for n, c in s.items()}
+             for i, s in enumerate(snaps)]
+    # the steps whose kernel wrappers ran: the eager ones, then the capture
+    first = replayed.index(1) if any(replayed) else len(calls)
+    hosted = calls[:first + 1]
+    most = cuda.most_launches(traces[:first])
+    graph = cuda.most_launches(traces[first:]) if any(replayed) else None
+    same = len(traces) == n_steps and graph in (None, most)
+    short = sum(t != most for t in traces)  # the profiler lost records
+    named = {n for n in most if most[n]} == {n for c in hosted for n in c
+                                            if c[n]}
+    each_step = all(c[n] > 0 and (graph is None or graph[n] > 0)
+                    for c in hosted for n in every_step)
+    never = all(launches[n] == 0 and not any(t[n] for t in traces)
+                for n in idle)
+    over_timed = {n: sum(t[n] for t in traces[WARMUP_STEPS:])
+                  for n in launches}
     finite = all(math.isfinite(v) for m in losses for v in m.values())
-    exact = all(snaps[i][n] - (snaps[i - 1][n] if i else 0) == c
-                for i in range(len(snaps))
-                for n, c in (per_step or {}).items())
+    exact = all(c[n] == v for c in hosted
+                for n, v in (per_step or {}).items())
     varies = all(len({m[k] for m in losses}) > 1 for k in varying)
     positive = all(losses[0][k] > 0 for k in positive_first)
+    reason = res["eager_reason"]
+    warm = trainer.GRAPH_WARMUP
+    engaged = (replayed == [0] * warm + [1] * (n_steps - warm)
+               if eager is None else
+               not any(replayed) and reason.startswith(eager))
     good = (res["step"] == n_steps and len(timed) == timed_steps and finite
-            and each_step and all(launches[n] == 0 for n in idle)
+            and same and named and each_step and never
             and all(over_timed[n] for n in TRAINING_KERNELS
-                    if n not in idle) and exact and varies and positive)
+                    if n not in idle) and exact and varies and positive
+            and engaged)
     srt = sorted(timed)
     med = srt[len(srt) // 2]
     bs = cfg.TRAIN.BATCH_IMAGES
@@ -2212,15 +2356,23 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
           f"{timed_steps} timed): median {med:.1f} ms per step (min "
           f"{srt[0]:.1f}, max {srt[-1]:.1f}), {bs * 1e3 / med:.1f} chips/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card}]; host clock around steps that end in a synchronize, "
-          f"synthetic images: a smoke reading, not a benchmark. Launches "
-          f"over the timed steps {over_timed}, over the whole run "
-          f"{launches}; {list(every_step)} every step {each_step}; "
-          f"{list(idle)} never launched {all(launches[n] == 0 for n in idle)}"
+          f"[{card}]; host clock around steps that end in a synchronize "
+          f"(each step traced, the traces taken off), synthetic images: a "
+          f"smoke reading, not a benchmark. Hand-kernel launches in the "
+          f"eager steps' traces (the most of each) {most}, in the replayed "
+          f"steps' {graph}, as expected {same} ({short} of {len(traces)} "
+          f"traces short of the eager most); host launches (the kernels' "
+          f"counters: the eager steps and the capture) over the whole run "
+          f"{launches}, the kernels the traces hold {named}; "
+          f"{list(every_step)} every step {each_step}; {list(idle)} never "
+          f"launched {never}"
           + (f"; per step exactly {per_step}: {exact}" if per_step else "")
           + (f"; {list(varying)} not constant: {varies}" if varying else "")
           + (f"; {list(positive_first)} above 0 at the first step: "
              f"{positive}" if positive_first else "")
+          + f"; steps replayed as a CUDA graph {sum(replayed)} of {n_steps}"
+          + (f" (eager: {reason})" if reason else "")
+          + f", as expected {engaged}"
           + f"; losses finite {finite}: {'PASS' if good else 'FAIL'}")
     return good, launches, med
 
@@ -2455,9 +2607,11 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
     params = dict(model.named_parameters())
     before = {k: params[k].detach().clone() for k in MASK_LEAVES}
     grad_norms: dict = {k: [] for k in MASK_LEAVES}
-    for k in MASK_LEAVES:
-        params[k].register_hook(
-            lambda g, k=k: grad_norms[k].append(g.detach().norm()))
+
+    def read_grads():  # a tensor hook would keep the step eager
+        for k in MASK_LEAVES:
+            grad_norms[k].append(params[k].grad.detach().norm())
+
     out_dir = os.path.join(mcfg.output_path, config_name(MASK_CONFIG),
                            mcfg.dataset.image_set)
     print(f"mask (m2) {MASK_CONFIG}: units {model.trunk.units}, "
@@ -2480,7 +2634,7 @@ def mask_training(dev, mcfg, tmp: str, prefix: str,
             dev, mcfg, model, loader, card, "mask (m2)", out_dir=out_dir,
             every_step=(cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name),
             idle=(cuda.ROI_PATCH.name,), per_step=per_step,
-            varying=("mask_loss",))
+            varying=("mask_loss",), after_step=read_grads)
     finally:
         loader.close()
     mined = sum(len(r.get("neg_chips", [])) for r in run_roidb)
@@ -2865,9 +3019,11 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
     model.to(dev)
     params = dict(model.named_parameters())
     grad_norms: dict = {k: [] for k in AF_LEAVES}
-    for k in AF_LEAVES:
-        params[k].register_hook(
-            lambda g, k=k: grad_norms[k].append(g.detach().norm()))
+
+    def read_grads():  # a tensor hook would keep the step eager
+        for k in AF_LEAVES:
+            grad_norms[k].append(params[k].grad.detach().norm())
+
     out_dir = os.path.join(acfg.output_path, config_name(AF_CONFIG),
                            acfg.dataset.image_set)
     print(f"autofocus (t2) {AF_CONFIG}: units {model.trunk.units}, "
@@ -2891,7 +3047,7 @@ def autofocus_training(dev, acfg, tmp: str, prefix: str,
             out_dir=out_dir,
             every_step=(cuda.POOL_BWD.name, cuda.DEFORM_IM2COL_BWD.name),
             idle=(cuda.ROI_PATCH.name,), per_step=per_step,
-            varying=("focus_loss",))
+            varying=("focus_loss",), after_step=read_grads)
     finally:
         loader.close()
     mined = sum(len(r.get("neg_chips", [])) for r in run_roidb)
@@ -3628,7 +3784,8 @@ def dp_training(dev, cfg, tmp: str, card: str) -> tuple[bool, dict]:
         try:
             good, got, med = timed_training(
                 dev, cfg, model, loader, card, f"dp (d2) {run}",
-                per_step=STEP_LAUNCHES, timed_steps=DP_TIMED_STEPS)
+                per_step=STEP_LAUNCHES, timed_steps=DP_TIMED_STEPS,
+                eager="a process group" if run == "NCCL" else None)
             good &= distributed.is_distributed() == (run == "NCCL")
         finally:
             loader.close()
@@ -3788,9 +3945,10 @@ def ohem_training(dev, cfg, tmp: str, prefix: str,
                   card: str) -> tuple[bool, dict]:
     """(o1) The flagship yml with TRAIN.ENABLE_OHEM: the one-step check of
     5 (a), then run_training from (r1)'s backbone with (r3)'s negative
-    chips, every step's launches exact, and the rois each chip kept (every
-    one at least BATCH_ROIS_OHEM: the random RPN's saturated proposals give
-    each chip more valid rois than that). Returns (ok, launches)."""
+    chips, every step's launches exact, and the rois each chip kept, read
+    after every step (every one at least BATCH_ROIS_OHEM: the random RPN's
+    saturated proposals give each chip more valid rois than that). Returns
+    (ok, launches)."""
     from sniper_tpu_torch.main_train import build_roidb, make_loader
     from sniper_tpu_torch.models import losses
 
@@ -3804,12 +3962,14 @@ def ohem_training(dev, cfg, tmp: str, prefix: str,
 
     roidb = build_roidb(ocfg, log, datasets=[SynthTrainDataset()])
     model = options_model(ocfg, log)
-    kept: list = []
+    kept: list = []  # each step's rois kept per chip
+    last: list = []  # the last ohem_select's count, on the card
     inner = losses.ohem_select
 
     def counting(*args):
         labels, weights = inner(*args)
-        kept.append((labels >= 0).sum(1))  # read after the run
+        # a replay runs no Python: it rewrites the count its capture made
+        last[:] = [(labels >= 0).sum(1)]
         return labels, weights
 
     print(f"options (o1) {CONFIG} with TRAIN.ENABLE_OHEM True: "
@@ -3821,7 +3981,8 @@ def ohem_training(dev, cfg, tmp: str, prefix: str,
     try:
         ok2, launches, _ = timed_training(
             dev, ocfg, model, loader, card, "options (o1)",
-            per_step=STEP_LAUNCHES, timed_steps=OPT_TIMED_STEPS)
+            per_step=STEP_LAUNCHES, timed_steps=OPT_TIMED_STEPS,
+            after_step=lambda: kept.append(last[0].clone()))
     finally:
         losses.ohem_select = inner
         loader.close()
@@ -3881,14 +4042,15 @@ def visualize_training(dev, cfg, tmp: str, prefix: str,
     visualization_freq VIS_FREQ over VIS_STEPS steps: the loader's chip
     renderings and the prediction dumps (pkl with the JAX payload's keys,
     jpg) read back; each dump's launches exactly one test forward's, and
-    the run's the steps' plus the dumps'. Returns (ok, launches)."""
+    the run's host launches the eager steps' and the capture's plus the
+    dumps'. Returns (ok, launches)."""
     import glob
     import pickle
 
     import cv2
 
     from sniper_tpu_torch.main_train import build_roidb, make_loader
-    from sniper_tpu_torch.train import vis_dump
+    from sniper_tpu_torch.train import trainer, vis_dump
 
     vcfg = options_cfg(cfg, tmp, prefix)
     vcfg.TRAIN.VISUALIZE = True
@@ -3928,7 +4090,10 @@ def visualize_training(dev, cfg, tmp: str, prefix: str,
         loader.close()
     steps = [d[0] for d in dumps]
     each = all(d[3] == FORWARD_LAUNCHES for d in dumps)
-    total = all(launches[n] == VIS_STEPS * STEP_LAUNCHES[n]
+    # the host launches the eager steps' and the capture's kernels, and
+    # timed_training holds each replay's trace to theirs
+    hosted = min(VIS_STEPS, trainer.GRAPH_WARMUP + 1)
+    total = all(launches[n] == hosted * STEP_LAUNCHES[n]
                 + len(dumps) * FORWARD_LAUNCHES[n] for n in launches)
     payloads_ok = True
     for _, path, _, _ in dumps:
@@ -3948,8 +4113,9 @@ def visualize_training(dev, cfg, tmp: str, prefix: str,
     print(f"options (o3) prediction dumps after steps {steps}: {ms} ms each "
           f"(host clock, synchronized, pkl and jpg written) [{card}]; "
           f"launches per dump {[d[3] for d in dumps]}, each one test "
-          f"forward's {FORWARD_LAUNCHES}: {each}; the run's launches "
-          f"{VIS_STEPS} steps' plus {len(dumps)} dumps': {total}; payloads "
+          f"forward's {FORWARD_LAUNCHES}: {each}; the run's host launches "
+          f"{hosted} steps' (the eager ones and the capture) plus "
+          f"{len(dumps)} dumps': {total}; payloads "
           f"with the keys {sorted(DUMP_KEYS)} and their jpg read back "
           f"{payloads_ok}; {len(chips)} chip renderings "
           f"({os.path.basename(chips[0]) if chips else None} ...) read back "
@@ -4427,6 +4593,7 @@ def train_phase(dev, cfg, mcfg, acfg, tmp: str,
 
     cfg = train_cfg(cfg)
     ok = train_step_check(dev, cfg, "train (a)")
+    ok &= graph_steps(dev, cfg, card)
     ds = SynthTrainDataset()
     rcfg, cfg = recipe_cfgs(cfg, tmp)
     ok_r1, prefix = pretrained_import(rcfg, tmp)
@@ -4507,7 +4674,10 @@ def main() -> int:
     # phase 11's box inference under POOL_KERNEL pallas for the patch
     # extraction, the one path that runs it; the recipe's phase 3 (thread
     # loader) for the two backward kernels, which only training runs. Every
-    # path's counts stand beside, the mask training's among them.
+    # path's counts stand beside, the mask training's among them. All are
+    # the kernels' counters, the host's launches: a training path's count
+    # its eager steps and its CUDA graph's capture, not its replays, whose
+    # traces timed_training holds to an eager step's.
     def main_path(name):
         if name == "roi_patch":
             return "inference (pallas)"

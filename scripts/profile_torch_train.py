@@ -7,11 +7,18 @@ flax init's zero offsets) through make_train_step on a synthetic batch that
 already lies on the device: BATCH_IMAGES uint8 chips of CHIP_SIZE with GT
 boxes and sparse RPN targets, and with the mask config (TRAIN.WITH_MASK)
 each GT's dense mask rasterized from the ellipse inscribed in its box.
-After warm-up steps it profiles a few steps with torch.profiler and prints
-the host-clock time per step, the device-busy time (sum of kernel times)
-and its share, the device time by kernel group (the five hand-written
-kernels, convolutions, GEMMs, BatchNorm, the optimizer, the rest), then the
-top kernels. The chip loader is left out: it runs on the host, in its own
+After warm-up steps it profiles a few eager steps (a no-op forward hook
+keeps the step eager: train/trainer.py) with torch.profiler and prints the
+host-clock time per step, the device-busy time (sum of kernel times) and
+its share, the device time by kernel group (the five hand-written kernels,
+convolutions, GEMMs, BatchNorm, the optimizer, the rest), then the top
+kernels. Then, the hook removed, the step captures its CUDA graph and
+replays it: the script profiles as many replayed steps and prints their
+time per step, device-busy time, the host ms inside one replayed step's
+call with the card drained before it, and the share of the steps taken
+that replayed (trainer.GRAPH_REPLAYS). The layer spans' split comes from
+the eager steps: a replay opens the one span ``graph``. The chip loader is
+left out: it runs on the host, in its own
 threads. With TRAIN.AUTO_FOCUS the batch also carries seeded FocusPixel
 labels; with TRAIN.ENABLE_OHEM (``--set TRAIN.ENABLE_OHEM True``) the step
 trains on the BATCH_ROIS_OHEM hardest rois per chip. Needs one CUDA
@@ -104,6 +111,31 @@ def synthetic_batch(cfg, dev, gen):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
+def profiled(step, batch, n):
+    """``n`` steps under torch.profiler: (host ms per step to a
+    synchronise, {kernel: device ms per step}, {group: launches per
+    step})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    per_kernel = collections.Counter()
+    launches = collections.Counter()
+    for e in prof.events():
+        # a user range (a program span) spans kernels: not one itself
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            per_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / n
+            launches[group_of(e.name)] += 1 / n
+    return wall, per_kernel, launches
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=3)
@@ -115,13 +147,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
 
-    from torch.profiler import ProfilerActivity, profile
-
     from sniper_tpu_torch.config import load_config
     from sniper_tpu_torch.models.init import init_detector
     from sniper_tpu_torch.models.registry import get_model
+    from sniper_tpu_torch.train import trainer
     from sniper_tpu_torch.train.optimizer import make_optimizer
-    from sniper_tpu_torch.train.trainer import make_train_step
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,36 +167,36 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}")
     model = init_detector(get_model(cfg), seed=0).to(dev)
     opt, sched, _ = make_optimizer(cfg, 1000, model)
-    step = make_train_step(
+    step = trainer.make_train_step(
         model, opt, sched, cfg.TRAIN.BATCH_IMAGES,
         rpn_batch_size=cfg.TRAIN.RPN_BATCH_SIZE,
         pixel_means=cfg.network.PIXEL_MEANS,
         generator=torch.Generator(device=dev).manual_seed(0),
         ohem_rois=ohem)
     batch = synthetic_batch(cfg, dev, torch.Generator().manual_seed(0))
-    for _ in range(args.warmup):
+    taken, replays = 0, trainer.GRAPH_REPLAYS
+    hook = model.register_forward_hook(lambda *a: None)  # keeps it eager
+    for _ in range(max(args.warmup, trainer.GRAPH_WARMUP - args.steps)):
         step(batch)
+        taken += 1
+    wall, per_kernel, launches = profiled(step, batch, args.steps)
+    taken += args.steps
+    hook.remove()
+    for _ in range(2):  # the capture, then one replay
+        step(batch)
+        taken += 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step(batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / args.steps
-    per_kernel = collections.Counter()
-    launches = collections.Counter()  # per step, by group
-    for e in prof.events():
-        # a user range (a program span) spans kernels: not one itself
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            per_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / args.steps
-            launches[group_of(e.name)] += 1 / args.steps
+    t0 = time.perf_counter()
+    step(batch)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    taken += 1
+    r_wall, r_kernel, _ = profiled(step, batch, args.steps)
+    taken += args.steps
     busy = sum(per_kernel.values())
     groups = collections.Counter()
     for name, ms in per_kernel.items():
         groups[group_of(name)] += ms
-    print(f"train step: {cfg.TRAIN.BATCH_IMAGES} chips of "
+    print(f"eager train step: {cfg.TRAIN.BATCH_IMAGES} chips of "
           f"{cfg.TRAIN.CHIP_SIZE}x{cfg.TRAIN.CHIP_SIZE}: {wall:.2f} ms/step "
           f"(host clock, profiler on), device busy {busy:.2f} ms "
           f"({busy / wall:.0%}), idle {max(0.0, 1 - busy / wall):.0%} "
@@ -176,6 +206,12 @@ def main():
               f"{launches[g]:5.0f} launches")
     for name, ms in per_kernel.most_common(12):
         print(f"    {ms:9.3f} ms  {name[:100]}")
+    r_busy = sum(r_kernel.values())
+    print(f"replayed steps: {trainer.GRAPH_REPLAYS - replays} of the "
+          f"{taken} taken; a replayed step {r_wall:.2f} ms/step (host "
+          f"clock, profiler on), device busy {r_busy:.2f} ms "
+          f"({r_busy / r_wall:.0%}), host {host_ms:.2f} ms inside one "
+          f"replayed step's call with the card drained before it [{card}]")
 
 
 if __name__ == "__main__":

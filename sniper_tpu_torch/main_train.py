@@ -213,7 +213,9 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
     last batch the loader assembled after every visualization_freq-th step
     (train/vis_dump.py; that batch may run ahead of the step by the
     prefetch depth, and the dump records its own sequence number). Returns
-    the last epoch's metric means (global) and the step count."""
+    the last epoch's metric means (global), the step count and why the
+    last step ran eagerly (None where it replayed the step's CUDA graph:
+    train/trainer.py)."""
     check_devices(cfg, device)
     rank, world = distributed.rank(), distributed.world_size()
     if rank != 0:
@@ -292,7 +294,8 @@ def run_training(cfg, model, loader, device, *, out_dir=None, log=print,
             log(f"saved checkpoint {path}")
         if max_steps is not None and step - start >= max_steps:
             break
-    return {"step": step, "means": means}
+    return {"step": step, "means": means,
+            "eager_reason": step_fn.eager_reason}
 
 
 def _tap(batches, last: list):

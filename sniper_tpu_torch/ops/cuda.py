@@ -71,43 +71,54 @@ _SIGNATURES = {
 @dataclass
 class Kernel:
     """One hand-written kernel: where it lives, what TPU kernel it
-    replaces, and how often the path launched it. ``launches`` is bumped
-    by the kernel's wrapper at each launch and nowhere else."""
+    replaces, the names of the device kernels a launch runs, and how often
+    the path launched it. ``launches`` is bumped by the kernel's wrapper at
+    each launch and nowhere else: a CUDA graph's replay runs no wrapper, so
+    it counts the graph's capture and not its replays, whose launches a
+    device trace holds under ``symbols`` (``traced_launches``)."""
 
     name: str
     source: str
     replaces: str
+    symbols: tuple[str, ...]
     launches: int = 0
 
 
 NMS = Kernel(
     "nms", "sniper_tpu_torch/csrc/nms.cu",
     "sniper_tpu/ops/pallas/nms.py:83",
+    ("nms_mask_kernel", "nms_scan_kernel"),
 )
 DEFORM_IM2COL = Kernel(
     "deform_im2col", "sniper_tpu_torch/csrc/deform_im2col.cu",
     "sniper_tpu/ops/deform.py:120",
+    ("deform_im2col_kernel",),
 )
 FUSED_POOL = Kernel(
     "fused_pool", "sniper_tpu_torch/csrc/fused_pool.cu",
     "sniper_tpu/ops/pallas/fused_pool.py:191",
+    ("pool_pass_kernel",),
 )
 DEFORM_IM2COL_BWD = Kernel(
     "deform_im2col_bwd", "sniper_tpu_torch/csrc/deform_im2col_bwd.cu",
     "sniper_tpu/ops/deform.py:153",
+    ("deform_im2col_bwd_kernel",),
 )
 POOL_BWD = Kernel(
     "fused_pool_bwd", "sniper_tpu_torch/csrc/fused_pool_bwd.cu",
     "sniper_tpu/ops/pallas/fused_pool.py:487",
+    ("pool_pass_bwd_kernel",),
 )
 ROI_PATCH = Kernel(
     "roi_patch", "sniper_tpu_torch/csrc/roi_patch.cu",
     "sniper_tpu/ops/pallas/roi_patch.py:101",
+    ("roi_patch_kernel",),
 )
 UNIT_EPILOGUE = Kernel(
     "unit_epilogue", "sniper_tpu_torch/csrc/unit_epilogue.cu",
     "sniper_tpu/models/resnet.py:84-106, sniper_tpu/models/resnext.py:56,"
     "142-154 (XLA-fused elementwise, no Pallas kernel)",
+    ("bn_unit_epilogue_kernel",),
 )
 KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD,
            ROI_PATCH, UNIT_EPILOGUE)
@@ -115,6 +126,59 @@ KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD,
 # BatchNorms, autograd recording): UNIT_EPILOGUE.launches over the sum of
 # the two is the share that engaged (ops/epilogue.py)
 UNFUSED_EPILOGUES = 0
+
+
+# torch's profiler loses kernel records (on an H100 a trace's first 1-45
+# kernels in about one trace in ten, and now and then one later): a trace's
+# count is a floor, so a count is read as the most over several traces.
+# TRACE_FILL kernels that count for nothing open a trace, then TRACE_LEAD_S
+# of idle host time, since the profiler also drops kernels that its mapping
+# of the card's clock puts before its start
+TRACE_FILL = 256
+TRACE_LEAD_S = 0.05
+
+
+def traced_call(fn):
+    """``fn()`` under torch.profiler, the card's activity only, to a
+    synchronise, after TRACE_FILL filler kernels and TRACE_LEAD_S: (its
+    result, the hand kernels' device launches in the trace, which the
+    profiler's lost records can only lower: ``traced_launches``)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fill = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_FILL):
+            fill.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_LEAD_S)
+        out = fn()
+        torch.cuda.synchronize()
+    return out, traced_launches(prof.events())
+
+
+def most_launches(counts: list) -> dict:
+    """Each hand kernel's most launches over ``counts``, the
+    ``traced_launches`` of several traces: a lost record lowers one
+    trace's count, a kernel dropped or doubled on a path moves all of
+    them."""
+    return {k.name: max((c[k.name] for c in counts), default=0)
+            for k in KERNELS}
+
+
+def traced_launches(events) -> dict:
+    """The hand kernels' device launches in a torch.profiler trace
+    (``prof.events()``): {kernel name: the device kernels whose name holds
+    one of its ``symbols``}."""
+    out = dict.fromkeys((k.name for k in KERNELS), 0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in KERNELS:
+            if any(s in e.name for s in k.symbols):
+                out[k.name] += 1
+    return out
 
 
 def _nvcc() -> str:
