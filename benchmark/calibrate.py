@@ -1,10 +1,15 @@
 """The readings that the limits of a cell are set from, on the card.
 
     python3 benchmark/calibrate.py --workload <name> --seeds 1,2,... \\
-        --control-seeds 101,102,103 [--seconds 3] [--out FILE]
+        --control-seeds 101,102,103 [--seconds 3] \\
+        [--plant stale_replay] [--out FILE]
 
 For each of ``--seeds``, one run of the cell as run.py makes it (set-up, a
 short window, the check against the reference) and its compared numbers.
+With ``--plant stale_replay`` those runs are of a faulty program: a replayed
+training step that copies no new batch into its graph's inputs
+(``_StepGraph.load`` does nothing), so that the compared replayed steps 2
+and 3 re-run batch 0.
 For each of ``--control-seeds``, the control: the reference with its trunk
 in fp8 (reference/model.py) put in the program's place on the same
 traffic, compared with the fp32 reference the same way; for training
@@ -143,8 +148,8 @@ def control_training(ctx, emit):
             ref_run = compare.reference_steps(
                 reference_model(config, dev), config["yml"], batches, pri,
                 weights, fixed, given=side[3])
-            emit(dict(kind=kind, **compare.compare_training(side, ref_run,
-                                                            *args),
+            emit(dict(kind=kind, **compare.with_replay(
+                compare.compare_training(side, ref_run, *args)),
                       look=compare.worst_leaves(side, ref_run)))
 
 
@@ -171,6 +176,8 @@ def main(argv=None):
     p.add_argument("--fp32-trunk", action="store_true",
                    help="the program with TRAIN.bf16 off: a witness of what "
                         "the trunk's bf16 alone moves")
+    p.add_argument("--plant", choices=("stale_replay",), default=None,
+                   help="a fault planted in the program for the seeds' runs")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("calibrate: no CUDA device")
@@ -193,12 +200,17 @@ def main(argv=None):
             out.write(line + "\n")
             out.flush()
 
+    if args.plant == "stale_replay":
+        from sniper_tpu_torch.train import trainer
+
+        trainer._StepGraph.load = lambda self, batch, priorities: None
     for s in filter(None, args.seeds.split(",")):
         t = time.time()
         with contextlib.redirect_stdout(sys.stderr):
             res, checks = bench.execute(cell, int(s), args.seconds, False,
                                         dev, t_start=t, peak=peak)
-        emit(dict(kind="program", seed=int(s), s=time.time() - t,
+        emit(dict(kind=f"fault_{args.plant}" if args.plant else "program",
+                  seed=int(s), s=time.time() - t,
                   look=res.get("look"),
                   metrics={k: v["value"] for k, v in res["metrics"].items()},
                   memory_peak_bytes=res["device"]["memory_peak_bytes"],

@@ -9,6 +9,11 @@ is found by name:
   names ``benchmark/drivers/<driver>.py``;
 - ``benchmark/limits/<workload>.json``: each compared number's limit;
 - ``benchmark/metrics/<metric>.py``: one reader per per-layer metric.
+
+A metric named ``<m>.<tag>`` that has no reader (per-layer) or driver
+value (end-to-end) of its own is ``<m>`` under an entry of its own, with
+its own bound and its own cells: one quantity split between cells
+(``metric_file``, ``e2e_value``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,23 @@ def load_module(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_file(name: str) -> Path:
+    """The reader of the per-layer metric ``name``: its own file, or that
+    of the metric it splits (module doc)."""
+    path = BENCH / "metrics" / f"{name}.py"
+    if path.is_file() or "." not in name:
+        return path
+    return metric_file(name.rsplit(".", 1)[0])
+
+
+def e2e_value(values: dict, name: str):
+    """The end-to-end metric ``name`` of a driver's ``values``: its own, or
+    that of the metric it splits (module doc)."""
+    if name in values or "." not in name:
+        return values[name]
+    return e2e_value(values, name.rsplit(".", 1)[0])
 
 
 def load_cell(workload: str) -> dict:

@@ -1,5 +1,7 @@
-"""The host's time in the training step's call, mean milliseconds over
-the window's steps."""
+"""The host's own work in the training step's call: its milliseconds,
+mean over steps taken after the window each with the card drained before
+it, so that the call never waits for room in the launch queue
+(drivers/train_step.py)."""
 
 from benchmark.core import readers
 

@@ -29,7 +29,18 @@ by itself at step 1 against the reference's own:
 - ``delta_gap``: the worst leaf's gap between the norms of each
   parameter's change over the three steps, over the larger of the
   reference leaf's norm and the median leaf's, among the leaves whose
-  reference gradient is at least a thousandth of the median leaf's.
+  reference gradient is at least a thousandth of the median leaf's;
+- ``replay_roi_miss``, ``replay_loss_gap``, ``replay_delta_gap``: the
+  same three of the steps that the window's path takes, replayed from a
+  CUDA graph (drivers/train_step.py), against a second reference run that
+  follows their own sample (two runs of the program part on near-tied
+  rois by rounding); for a side with no replayed steps, the control, its
+  own three again;
+- ``replay_label_gap``: ``label_gap`` of the replayed steps' samples, each
+  step's against that step's own GT boxes, over all three steps (for the
+  control, over its own three samples);
+- ``eager_in_replay`` (counted in drivers/train_step.py): the compared
+  replayed steps that ran eagerly on a CUDA card.
 
 The same gap of the first gradient as the optimizer got it
 (``worst_leaves``) is read and printed but not compared: neither the
@@ -143,31 +154,52 @@ def reference_steps(ref, cfg, batches, priorities, weights, fixed,
     return losses, grad1, delta, own1
 
 
-def sample_check(sample, own, gt_boxes, fg_thresh, iou_thresh):
-    """(roi_miss, label_gap) of the program's sampled (rois, labels) at
-    step 1 against the reference's own sample ``own`` and the batch's GT
-    boxes [B,G,5]."""
+def _mislabelled(sample, gt_boxes, fg_thresh):
+    """(wrong, taken): of the program's sampled (rois, labels) of one step,
+    the rois whose label is not the one their overlap with the batch's GT
+    boxes [B,G,5] gives, and all of them."""
     rois, labels = (t.cpu().numpy() for t in sample[:2])
-    r_rois, r_labels = (t.cpu().numpy() for t in own)
     gts = gt_boxes.cpu().numpy()
-    missed = total = wrong = taken = 0
+    wrong = taken = 0
     for i in range(rois.shape[0]):
         mine = rois[i, labels[i] >= 0, 1:].astype(np.float64)
-        ref_r = r_rois[i, r_labels[i] >= 0, 1:].astype(np.float64)
-        total += len(ref_r)
         if len(mine) == 0:
-            missed += len(ref_r)
             continue
-        if len(ref_r):
-            missed += int((ops.bbox_overlaps(ref_r, mine).max(1)
-                           < iou_thresh).sum())
         gt = gts[i, gts[i, :, 4] >= 0]
         iou = ops.bbox_overlaps(mine, gt[:, :4].astype(np.float64))
         best = iou.argmax(1)
         want = np.where(iou.max(1) >= fg_thresh, gt[best, 4], 0)
         wrong += int((want != labels[i, labels[i] >= 0]).sum())
         taken += len(mine)
+    return wrong, taken
+
+
+def sample_check(sample, own, gt_boxes, fg_thresh, iou_thresh):
+    """(roi_miss, label_gap) of the program's sampled (rois, labels) at
+    step 1 against the reference's own sample ``own`` and the batch's GT
+    boxes [B,G,5]."""
+    rois, labels = (t.cpu().numpy() for t in sample[:2])
+    r_rois, r_labels = (t.cpu().numpy() for t in own)
+    missed = total = 0
+    for i in range(rois.shape[0]):
+        mine = rois[i, labels[i] >= 0, 1:].astype(np.float64)
+        ref_r = r_rois[i, r_labels[i] >= 0, 1:].astype(np.float64)
+        total += len(ref_r)
+        if len(mine) == 0:
+            missed += len(ref_r)
+        elif len(ref_r):
+            missed += int((ops.bbox_overlaps(ref_r, mine).max(1)
+                           < iou_thresh).sum())
+    wrong, taken = _mislabelled(sample, gt_boxes, fg_thresh)
     return missed / max(total, 1), wrong / max(taken, 1)
+
+
+def steps_label_gap(samples, gt_boxes, fg_thresh):
+    """``label_gap`` over every step's sample, each against its own
+    batch's GT boxes (``gt_boxes``, one per step)."""
+    counts = [_mislabelled(s, g, fg_thresh)
+              for s, g in zip(samples, gt_boxes)]
+    return sum(w for w, _ in counts) / max(sum(t for _, t in counts), 1)
 
 
 def _norms(d):
@@ -177,11 +209,11 @@ def _norms(d):
 def compare_training(side, ref_run, gt_boxes, fg_thresh, iou_thresh):
     """``side`` is (losses, grad1, delta, the sample of each step) of the
     program (or the control), ``ref_run`` the reference's
-    ``reference_steps`` following that sample, ``gt_boxes`` step 1's.
-    Returns {number: value}."""
+    ``reference_steps`` following that sample, ``gt_boxes`` each step's.
+    Returns {number: value}; ``steps_label_gap`` is over all the steps."""
     losses, grad1, delta, samples = side
     r_losses, r_grad1, r_delta, own1 = ref_run
-    roi_miss, label_gap = sample_check(samples[0], own1, gt_boxes,
+    roi_miss, label_gap = sample_check(samples[0], own1, gt_boxes[0],
                                        fg_thresh, iou_thresh)
     loss_gap = max(abs(a - b) / max(abs(b), 1e-12)
                    for a, b in zip(losses, r_losses))
@@ -192,7 +224,20 @@ def compare_training(side, ref_run, gt_boxes, fg_thresh, iou_thresh):
     med_d = float(np.median([rd[k] for k in keep]))
     delta_gap = max(abs(pd[k] - rd[k]) / max(rd[k], med_d) for k in keep)
     return dict(roi_miss=roi_miss, label_gap=label_gap, loss_gap=loss_gap,
-                delta_gap=delta_gap)
+                delta_gap=delta_gap,
+                steps_label_gap=steps_label_gap(samples, gt_boxes,
+                                                fg_thresh))
+
+
+def with_replay(nums, replayed=None):
+    """``nums`` of the eager steps with the ``replay_*`` numbers of
+    ``replayed`` (the replayed steps' ``compare_training``), or of ``nums``
+    itself where there are none."""
+    r = nums if replayed is None else replayed
+    return dict(nums, replay_roi_miss=r["roi_miss"],
+                replay_label_gap=r["steps_label_gap"],
+                replay_loss_gap=r["loss_gap"],
+                replay_delta_gap=r["delta_gap"])
 
 
 def worst_leaves(side, ref_run, n=4):

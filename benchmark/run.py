@@ -138,13 +138,13 @@ def execute(cell, seed, seconds, trace, device, *, t_start=None, peak=None):
     if trace:
         metrics = {}
         for m in cell["per_layer"]:
-            reader = harness.load_module(
-                harness.BENCH / "metrics" / f"{m['name']}.py")
+            reader = harness.load_module(harness.metric_file(m["name"]))
             v = reader.read(rec)
             if harness.finite(v):
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     else:
-        metrics = {m["name"]: {"value": float(out["e2e"][m["name"]]),
+        metrics = {m["name"]: {"value": float(harness.e2e_value(out["e2e"],
+                                                                m["name"])),
                                "unit": m["unit"]}
                    for m in cell["end_to_end"]}
     checks = out["checks"]
@@ -152,7 +152,7 @@ def execute(cell, seed, seconds, trace, device, *, t_start=None, peak=None):
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-           "count": 1,
+           "count": int(cell["entry"]["chips"]),
            "memory_peak_bytes": int(rec.get("memory_peak_bytes", 0))}
     result = {"correct": bool(correct), "attempted": int(out["attempted"]),
               "failed": int(out["failed"]), "metrics": metrics,

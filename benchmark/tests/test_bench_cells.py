@@ -39,7 +39,7 @@ def test_spec_names_and_files():
     assert "setup_s" in e2e
     for m in SPEC["per_layer"]:
         assert m["moves"] in e2e
-        assert (harness.BENCH / "metrics" / f"{m['name']}.py").is_file()
+        assert harness.metric_file(m["name"]).is_file()
     layers = {m["layer"] for m in SPEC["per_layer"]}
     assert all("\n" not in x and len(x) <= 200 for x in layers)
 
@@ -163,3 +163,32 @@ def test_run_refuses_without_a_card(tmp_path):
     assert not torch.cuda.is_available()
     assert out.returncode != 0 and out.stdout.strip() == ""
     assert "no CUDA device" in out.stderr
+
+
+def test_a_split_metric_reads_as_the_metric_it_splits():
+    bench = harness.BENCH / "metrics"
+    assert harness.metric_file("dispatch_ms.infer") == \
+        bench / "dispatch_ms.infer.py"
+    assert harness.metric_file("dispatch_ms.infer.r101_pyramid") == \
+        bench / "dispatch_ms.infer.py"
+    assert harness.metric_file("infer_mfu.a.b") == bench / "infer_mfu.py"
+    values = {"infer_img_per_s": 90.0, "infer_img_per_s.x": 7.0}
+    assert harness.e2e_value(values, "infer_img_per_s.r101_pyramid") == 90.0
+    assert harness.e2e_value(values, "infer_img_per_s.x") == 7.0
+    with pytest.raises(KeyError):
+        harness.e2e_value(values, "train_chips_per_s.r101_train")
+    # the flagship's throughput is split from the other pyramids'
+    spec = {m["name"]: m for m in SPEC["end_to_end"]}
+    split = spec["infer_img_per_s.r101_pyramid"]
+    assert split["workloads"] == ["r101_pyramid"]
+    assert "r101_pyramid" not in spec["infer_img_per_s"]["workloads"]
+
+
+@pytest.mark.parametrize("chips", [1, 4])
+def test_result_line_counts_the_cells_cards(chips):
+    run = _load_run()
+    cell = tiny.cell("r101_serve")
+    cell["entry"] = dict(cell["entry"], chips=chips)
+    res, _ = run.execute(cell, 2**31 + 13, 0.3, False, torch.device("cpu"),
+                         t_start=time.time(), peak=989e12)
+    assert res["device"]["count"] == chips

@@ -17,7 +17,9 @@ from benchmark.core import harness
 
 FP32_LIMITS = {"score_gap": 1e-4, "box_gap": 1e-4, "roi_miss": 0.0,
                "nms_iou": 0.7, "label_gap": 0.0, "loss_gap": 1e-5,
-               "delta_gap": 1e-3}
+               "delta_gap": 1e-3, "replay_roi_miss": 0.0,
+               "replay_label_gap": 0.0, "replay_loss_gap": 1e-5,
+               "replay_delta_gap": 1e-3, "eager_in_replay": 0}
 
 
 def run_module():

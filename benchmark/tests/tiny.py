@@ -40,7 +40,7 @@ def cell(workload: str, config: str | None = None) -> dict:
                  warmup_rounds=1, traced_rounds=1)
     else:
         t.update(chip=64, batch=2, n_batches=4, max_gts=8, max_box=40,
-                 min_box=12, traced_steps=2,
+                 min_box=12, traced_steps=2, drained_steps=2,
                  tiers=[{"scale": 1.0, "valid_range": [0.0, 64.0]}])
     return c
 
