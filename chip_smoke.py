@@ -1418,7 +1418,6 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
               "flipped": False} for i in range(N_IMAGES)]
     for k in cuda.KERNELS:
         k.launches = 0
-    cuda.UNFUSED_EPILOGUES = 0
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         stats = run_detection(cfg, model, None, roidb, Detections(81),
@@ -1428,17 +1427,14 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
     launches = {k.name: k.launches
                 for k in (cuda.NMS, cuda.DEFORM_IM2COL, cuda.FUSED_POOL,
                           cuda.UNIT_EPILOGUE)}
-    share = engagement()
     good = (stats["detections"] > 0 and all(launches.values())
-            and share == 1.0
             and launches[cuda.UNIT_EPILOGUE.name]
             == EPILOGUES_FORWARD * launches[cuda.NMS.name])
     print(f"e2e (b) run_detection (cv2 canvases, injected image loader, "
           f"counting dataset) over {N_IMAGES} synthetic {IM_W}x{IM_H} "
           f"images: {stats}, launches {launches} (unit epilogues "
-          f"{EPILOGUES_FORWARD} a batch), unit epilogues fused "
-          f"{100 * share:.1f}%, {wall:.2f} s wall including first-call "
-          f"set-up: {'PASS' if good else 'FAIL'}")
+          f"{EPILOGUES_FORWARD} a batch), {wall:.2f} s wall including "
+          f"first-call set-up: {'PASS' if good else 'FAIL'}")
     ok &= good
 
     # (c) per-scale forward times at the shipped batch sizes
@@ -1497,15 +1493,6 @@ INFERENCE_KERNELS = ("nms", "deform_im2col", "fused_pool", "unit_epilogue")
 EPILOGUES_FORWARD = 1 + 3 * 33
 EPILOGUES_STEP = 1 + 3 * 3
 
-
-def engagement() -> float:
-    """The share of the trunk's unit epilogues that ran fused since the
-    counters were zeroed (1.0 where none ran at all)."""
-    from sniper_tpu_torch.ops import cuda
-
-    fused = cuda.UNIT_EPILOGUE.launches
-    total = fused + cuda.UNFUSED_EPILOGUES
-    return fused / total if total else 1.0
 TRAINING_KERNELS = ("nms", "deform_im2col", "fused_pool", "deform_im2col_bwd",
                     "fused_pool_bwd")
 
@@ -2095,7 +2082,6 @@ def graph_steps(dev, cfg, card: str) -> bool:
     rows = []
     for k in range(trainer.GRAPH_WARMUP + GRAPH_STEPS):
         torch.cuda.synchronize()
-        replays = trainer.GRAPH_REPLAYS
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         t0 = time.perf_counter()
@@ -2103,7 +2089,7 @@ def graph_steps(dev, cfg, card: str) -> bool:
         host = (time.perf_counter() - t0) * 1e3
         ev[1].record()
         torch.cuda.synchronize()
-        rows.append((trainer.GRAPH_REPLAYS > replays, host,
+        rows.append((step.eager_reason is None, host,
                      ev[0].elapsed_time(ev[1]), float(m["loss"])))
         print(f"train (g) step {k + 1}: "
               f"{'replayed' if rows[-1][0] else 'eager'}"
@@ -2227,12 +2213,13 @@ def loader_ms_per_batch(roidb, cfg, n=8) -> float:
 
 
 @contextlib.contextmanager
-def traced_steps(traces: list, overhead: list):
+def traced_steps(traces: list, overhead: list, replayed: list):
     """Trace every training step (train/trainer.TrainStep) taken inside the
     block on its own: append its hand-kernel launches in its trace
     (cuda.traced_call; a CUDA graph's replay runs no kernel wrapper, so
-    only a trace sees its launches) to ``traces``, and add to overhead[0]
-    the seconds the trace took outside the step."""
+    only a trace sees its launches) to ``traces`` and whether it replayed
+    (``eager_reason`` None) to ``replayed``, and add to overhead[0] the
+    seconds the trace took outside the step."""
     from sniper_tpu_torch.ops import cuda
     from sniper_tpu_torch.train import trainer
 
@@ -2250,6 +2237,7 @@ def traced_steps(traces: list, overhead: list):
 
         metrics, launches = cuda.traced_call(timed)
         traces.append(launches)
+        replayed.append(self.eager_reason is None)
         overhead[0] += time.perf_counter() - t0 - inside[0]
         return metrics
 
@@ -2289,7 +2277,6 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
     n_steps = WARMUP_STEPS + timed_steps
     times, snaps, losses, replayed, traces = [], [], [], [], []
     t_last, overhead = [0.0], [0.0]
-    replays = [trainer.GRAPH_REPLAYS]
 
     def hook(step, metrics):
         torch.cuda.synchronize()
@@ -2297,8 +2284,6 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
         times.append((now - t_last[0] - overhead[0]) * 1e3)
         t_last[0], overhead[0] = now, 0.0
         snaps.append({k.name: k.launches for k in cuda.KERNELS})
-        replayed.append(trainer.GRAPH_REPLAYS - replays[0])
-        replays[0] = trainer.GRAPH_REPLAYS
         if after_step is not None:
             after_step()
         m = {k: float(v) for k, v in metrics.items()}
@@ -2310,7 +2295,7 @@ def timed_training(dev, cfg, model, loader, card: str, tag: str, *,
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_last[0] = time.perf_counter()
-    with traced_steps(traces, overhead):
+    with traced_steps(traces, overhead, replayed):
         res = run_training(cfg, model, loader, dev, out_dir=out_dir,
                            log=lambda m: print(f"{tag} {m}"),
                            max_steps=n_steps, step_hook=hook)

@@ -11,8 +11,9 @@ convolutions, GEMMs, the rest), then the top kernels by device time, then
 per layer of the program (its spans, utils/profiler.span: trunk, rpn,
 head, the mask branch inside head) the host time, the device time of the
 work launched inside it, its launches and the device's idle time while the
-host was inside it (benchmark/core/spans.py), and the share of the trunk's
-unit epilogues that ran fused (ops/epilogue.py). TF32 is off, as in
+host was inside it (benchmark/core/spans.py), and the unit epilogue's
+launches per batch (ops/epilogue.py: 1 + 3 a unit of R101 or X101 where
+every epilogue runs as the kernel). TF32 is off, as in
 chip_smoke.py. Needs one CUDA device.
 
     python3 scripts/profile_torch_infer.py [--reps 3] [--cfg configs/sniper_res101_e2e_mask.yml]
@@ -100,7 +101,7 @@ def main():
 
         fwd()
         torch.cuda.synchronize()
-        cuda.UNIT_EPILOGUE.launches = cuda.UNFUSED_EPILOGUES = 0
+        cuda.UNIT_EPILOGUE.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -146,11 +147,8 @@ def main():
                                  key=lambda kv: -kv[1]):
                 print(f"    {g:32s} {sec * 1e3 / args.reps:9.3f} ms")
         print(f"  launches per batch: {t['launches'] / args.reps:.0f}")
-        fused = cuda.UNIT_EPILOGUE.launches
-        total = fused + cuda.UNFUSED_EPILOGUES
-        print(f"  unit epilogues per batch: {fused / args.reps:.0f} fused, "
-              f"{cuda.UNFUSED_EPILOGUES / args.reps:.0f} unfused "
-              f"({100 * fused / max(total, 1):.1f}% fused)")
+        print(f"  unit epilogue launches per batch: "
+              f"{cuda.UNIT_EPILOGUE.launches / args.reps:.0f}")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ kernels. Then, the hook removed, the step captures its CUDA graph and
 replays it: the script profiles as many replayed steps and prints their
 time per step, device-busy time, the host ms inside one replayed step's
 call with the card drained before it, and the share of the steps taken
-that replayed (trainer.GRAPH_REPLAYS). The layer spans' split comes from
+that replayed (``eager_reason`` None). The layer spans' split comes from
 the eager steps: a replay opens the one span ``graph``. The chip loader is
 left out: it runs on the host, in its own
 threads. With TRAIN.AUTO_FOCUS the batch also carries seeded FocusPixel
@@ -174,24 +174,25 @@ def main():
         generator=torch.Generator(device=dev).manual_seed(0),
         ohem_rois=ohem)
     batch = synthetic_batch(cfg, dev, torch.Generator().manual_seed(0))
-    taken, replays = 0, trainer.GRAPH_REPLAYS
+    replayed = []  # per step taken: whether it replayed
+
+    def counted(b):
+        m = step(b)
+        replayed.append(step.eager_reason is None)
+        return m
+
     hook = model.register_forward_hook(lambda *a: None)  # keeps it eager
     for _ in range(max(args.warmup, trainer.GRAPH_WARMUP - args.steps)):
-        step(batch)
-        taken += 1
-    wall, per_kernel, launches = profiled(step, batch, args.steps)
-    taken += args.steps
+        counted(batch)
+    wall, per_kernel, launches = profiled(counted, batch, args.steps)
     hook.remove()
     for _ in range(2):  # the capture, then one replay
-        step(batch)
-        taken += 1
+        counted(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(batch)
+    counted(batch)
     host_ms = (time.perf_counter() - t0) * 1e3
-    taken += 1
-    r_wall, r_kernel, _ = profiled(step, batch, args.steps)
-    taken += args.steps
+    r_wall, r_kernel, _ = profiled(counted, batch, args.steps)
     busy = sum(per_kernel.values())
     groups = collections.Counter()
     for name, ms in per_kernel.items():
@@ -207,8 +208,8 @@ def main():
     for name, ms in per_kernel.most_common(12):
         print(f"    {ms:9.3f} ms  {name[:100]}")
     r_busy = sum(r_kernel.values())
-    print(f"replayed steps: {trainer.GRAPH_REPLAYS - replays} of the "
-          f"{taken} taken; a replayed step {r_wall:.2f} ms/step (host "
+    print(f"replayed steps: {sum(replayed)} of the {len(replayed)} taken; "
+          f"a replayed step {r_wall:.2f} ms/step (host "
           f"clock, profiler on), device busy {r_busy:.2f} ms "
           f"({r_busy / r_wall:.0%}), host {host_ms:.2f} ms inside one "
           f"replayed step's call with the card drained before it [{card}]")

@@ -82,6 +82,12 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    @property
+    def use_running_average(self) -> bool:
+        """Whether the module normalizes with its running statistics (the
+        unit epilogue's kernel takes only those: ops/epilogue.py)."""
+        return True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                          self.bias, training=False, eps=self.eps)
@@ -101,6 +107,10 @@ class TrainBatchNorm(FrozenBatchNorm):
         super().__init__(num_features, **kw)
         self.momentum = momentum
         self.mode = "sync"  # one of BN_MODES; the detector sets it
+
+    @property
+    def use_running_average(self) -> bool:
+        return not self.training
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:

@@ -16,10 +16,11 @@ follow the flax tree (``stage1_unit1.conv1``, ``stage4_unit1.offset``,
   stay frozen, as in the JAX trunk (``fix_bn``). A ``stats`` list, when
   given, collects each deformable unit's max |offset| (the
   ``dcn_offset_max`` telemetry, resnet.py:32-47).
-- At inference on the card, each BatchNorm and its ReLU run as one unit
-  epilogue (ops/epilogue.py), and a unit hands its ``[h, sc]`` to the next,
-  whose epilogue forms the residual sum with its bn1; the sum is rounded
-  where the unfused unit rounds it, and C4 and C5 are still whole tensors.
+- Each BatchNorm runs with its ReLU as one unit epilogue (ops/epilogue.py:
+  one kernel at inference on the card, the modules elsewhere), and a unit
+  hands its ``[h, sc]`` to the next, whose first epilogue forms the
+  residual sum with its bn1; the sum is rounded once, as the module chain
+  rounds it, and C4 and C5 are still whole tensors.
 
 Tensors are NCHW; the detector feeds them in ``channels_last`` memory
 format, so the NHWC view the deformable conv needs is free.
@@ -46,15 +47,6 @@ def conv(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = None if mod.bias is None else mod.bias.to(x.dtype)
     return F.conv2d(x, mod.weight.to(x.dtype), bias, mod.stride, mod.padding,
                     mod.dilation, mod.groups)
-
-
-def stem_bn_relu(h: torch.Tensor, bn0, dtype) -> torch.Tensor:
-    """The stem's ``relu(bn0(h))`` on its fp32 conv output, cast to the
-    compute dtype first; one unit epilogue where it engages."""
-    if epilogue.engages(h, bn0):
-        return epilogue.bn_relu(h, bn0)
-    epilogue.count_unfused(h, 1)
-    return F.relu(bn0(h.to(dtype)), inplace=True)
 
 
 def _conv(cin, cout, k, stride=1, dilation=1, bias=False):
@@ -97,31 +89,17 @@ class PreActBottleneck(nn.Module):
     def pair(self, x, stats: list | None = None) -> list:
         """[h, sc], whose sum is the unit's output. ``x`` is the unit's
         input or the previous unit's [h, sc], which this unit empties once
-        it holds their sum, so that the two are freed then; where the unit
-        epilogue engages (ops/epilogue.py), that sum is formed in one pass
-        with this unit's bn1 and ReLU, and bn2 and bn3 each run with their
-        ReLU."""
-        parts = x if isinstance(x, list) else None
-        first = parts[0] if parts else x
-        fused = epilogue.engages(first, self.bn1, self.bn2, self.bn3)
-        if not fused:
-            epilogue.count_unfused(first, 3)
-            if parts:
-                x = parts[0] + parts[1]
-            act1 = F.relu(self.bn1(x), inplace=True)
-        elif parts:
+        it holds their sum, so that the two are freed then; that sum is
+        formed in one unit epilogue (ops/epilogue.py) with this unit's bn1
+        and ReLU, and bn2 and bn3 each run with their ReLU in another."""
+        if isinstance(x, list):
+            parts = x
             x, act1 = epilogue.sum_bn_relu(*parts, self.bn1,
                                            keep_sum=self.sc is None)
+            parts.clear()
         else:
             act1 = epilogue.bn_relu(x, self.bn1)
-        del first
-        if parts:
-            parts.clear()
-        h = conv(self.conv1, act1)
-        if fused:
-            act2 = epilogue.bn_relu(h, self.bn2)
-        else:
-            act2 = F.relu(self.bn2(h), inplace=True)
+        act2 = epilogue.bn_relu(conv(self.conv1, act1), self.bn2)
         if self.deform:
             offsets = conv(self.offset, act2.float())
             if stats is not None:
@@ -133,11 +111,7 @@ class PreActBottleneck(nn.Module):
             ).permute(0, 3, 1, 2).to(self.dtype)
         else:
             h = conv(self.conv2, act2)
-        if fused:
-            act3 = epilogue.bn_relu(h, self.bn3)
-        else:
-            act3 = F.relu(self.bn3(h), inplace=True)
-        h = conv(self.conv3, act3)
+        h = conv(self.conv3, epilogue.bn_relu(h, self.bn3))
         sc = x.to(self.dtype) if self.sc is None else conv(self.sc, act1)
         return [h, sc]
 
@@ -190,7 +164,7 @@ class ResNetTrunk(nn.Module):
                          for p in m.parameters())
         with torch.no_grad() if frozen else contextlib.nullcontext():
             h = conv(self.conv0, self.bn_data(x.float()))
-            h = stem_bn_relu(h, self.bn0, self.dtype)
+            h = epilogue.bn_relu(h, self.bn0)
             h = F.max_pool2d(h, 3, stride=2, padding=1)
             # each unit hands its [h, sc] to the next, which sums them
             for j in range(self.units[0]):

@@ -23,10 +23,10 @@ convert.py maps one to one.
   (``fix_bn``), the others train (``TrainBatchNorm``). A ``stats`` list,
   when given, collects each deformable unit's max |offset| (the
   ``dcn_offset_max`` telemetry).
-- At inference on the card, bn1 and bn2 each run with their ReLU as one
-  unit epilogue (ops/epilogue.py), and bn3, the shortcut (with ``sc_bn``),
-  the sum and the last ReLU as another, rounded where the unfused unit
-  rounds.
+- bn1 and bn2 each run with their ReLU as one unit epilogue
+  (ops/epilogue.py: one kernel at inference on the card, the modules
+  elsewhere), and bn3, the shortcut (with ``sc_bn``), the sum and the last
+  ReLU as another, rounded where the module chain rounds.
 
 Tensors are NCHW; the detector feeds them in ``channels_last`` memory
 format.
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sniper_tpu_torch.models.norm import FrozenBatchNorm, TrainBatchNorm
-from sniper_tpu_torch.models.resnet import conv, stem_bn_relu
+from sniper_tpu_torch.models.resnet import conv
 from sniper_tpu_torch.ops import epilogue
 from sniper_tpu_torch.ops.deform import deformable_conv
 
@@ -76,13 +76,7 @@ class ResNeXtUnit(nn.Module):
             self.sc = None
 
     def forward(self, x: torch.Tensor, stats: list | None = None):
-        bns = (self.bn1, self.bn2, self.bn3) + (
-            () if self.sc is None else (self.sc_bn,))
-        fused = epilogue.engages(x, *bns)
-        if not fused:
-            epilogue.count_unfused(x, 3)
-        h = conv(self.conv1, x.to(self.dtype))
-        h = epilogue.bn_relu(h, self.bn1) if fused else F.relu(self.bn1(h))
+        h = epilogue.bn_relu(conv(self.conv1, x.to(self.dtype)), self.bn1)
         w2 = self.conv2_weight.to(self.dtype)
         if self.deform:
             offsets = conv(self.offset, h.float())
@@ -95,19 +89,11 @@ class ResNeXtUnit(nn.Module):
             ).permute(0, 3, 1, 2).to(self.dtype)
         else:
             h = F.conv2d(h, w2, None, self.stride, 1, 1, self.num_groups)
-        h = epilogue.bn_relu(h, self.bn2) if fused else F.relu(self.bn2(h))
-        h = conv(self.conv3, h)
-        if fused:  # bn3, the shortcut's BatchNorm, the sum and the ReLU
-            if self.sc is None:
-                return epilogue.bn_add_relu(h, self.bn3, x)
-            return epilogue.bn_add_relu(h, self.bn3, conv(self.sc, x),
-                                        self.sc_bn)
-        h = self.bn3(h)
+        h = conv(self.conv3, epilogue.bn_relu(h, self.bn2))
+        # bn3, the shortcut's BatchNorm, the sum and the ReLU
         if self.sc is None:
-            sc = x.float()
-        else:
-            sc = self.sc_bn(conv(self.sc, x.to(self.dtype)))
-        return F.relu(h + sc).to(self.dtype)
+            return epilogue.bn_add_relu(h, self.bn3, x)
+        return epilogue.bn_add_relu(h, self.bn3, conv(self.sc, x), self.sc_bn)
 
 
 class ResNeXtTrunk(nn.Module):
@@ -138,7 +124,7 @@ class ResNeXtTrunk(nn.Module):
         """x [B,3,H,W] fp32, pixel-mean-subtracted. Returns (c4, c5) in the
         compute dtype; ``stats`` collects the deformable units' max
         |offset|."""
-        h = stem_bn_relu(conv(self.conv0, x.float()), self.bn0, self.dtype)
+        h = epilogue.bn_relu(conv(self.conv0, x.float()), self.bn0)
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         c4 = None
         for i in range(4):

@@ -122,10 +122,6 @@ UNIT_EPILOGUE = Kernel(
 )
 KERNELS = (NMS, DEFORM_IM2COL, FUSED_POOL, DEFORM_IM2COL_BWD, POOL_BWD,
            ROI_PATCH, UNIT_EPILOGUE)
-# the trunk's unit epilogues that ran unfused on a CUDA tensor (training-mode
-# BatchNorms, autograd recording): UNIT_EPILOGUE.launches over the sum of
-# the two is the share that engaged (ops/epilogue.py)
-UNFUSED_EPILOGUES = 0
 
 
 # torch's profiler loses kernel records (on an H100 a trace's first 1-45

@@ -1,31 +1,30 @@
 """The trunk's unit epilogue: a frozen BatchNorm, the ReLU and the residual
 sum between two convs of a unit, in one pass (``csrc/unit_epilogue.cu``).
 
-Three forms, each the chain of modules it replaces with the roundings where
-that chain rounds (``affine`` is the BatchNorm from its running statistics,
-computed in fp32 and rounded to bf16, as ``FrozenBatchNorm`` does):
+Three forms, which the trunks call for every BatchNorm (models/resnet.py,
+models/resnext.py). Each is the chain of modules it replaces, with the
+roundings where that chain rounds (the BatchNorm modules compute in fp32
+and round to their dtype):
 
-- ``bn_relu(a, bn)``: ``relu(bn(bf16(a)))``, a unit's inner BatchNorm and
-  ReLU, or the stem's ``bn0`` on its fp32 conv output.
-- ``sum_bn_relu(h, sc, bn, keep_sum)``: ``x = h + sc`` in fp32 rounded once,
-  and ``relu(bn(x))``: a pre-activation unit's residual sum fused with the
-  next unit's ``bn1``. ``x`` is returned only with ``keep_sum`` (the next
-  unit's identity shortcut reads it).
+- ``bn_relu(a, bn)``: ``relu(bn(a))``, ``a`` cast to bn's dtype first: a
+  unit's inner BatchNorm and ReLU, or the stem's ``bn0`` on its fp32 conv
+  output.
+- ``sum_bn_relu(h, sc, bn, keep_sum)``: ``x = h + sc``, rounded once, and
+  ``relu(bn(x))``: a pre-activation unit's residual sum with the next
+  unit's ``bn1``. ``x`` is returned only with ``keep_sum`` (the next unit's
+  identity shortcut reads it).
 - ``bn_add_relu(h, bn, s, sc_bn)``: ``relu(bn(h) + s)``, with the sum in
-  fp32 rounded once: a ResNeXt unit's tail, ``s`` its bf16 input (the
-  identity) or ``sc_bn``'s output (the projection).
+  fp32 rounded once: a ResNeXt unit's tail, ``s`` its input (the identity,
+  summed in fp32) or ``sc_bn(s)`` (the projection).
 
-Each form's plain version computes the BatchNorm with ``F.batch_norm``, as
-the module does; the kernel computes the same fp32 formula
-(``w * (v - mean) * rsqrt(var + eps) + bias``). A CPU tensor takes the
-plain version, a CUDA one the kernel (bf16, channels_last, C a multiple of
-8) or an error.
-
-``engages(x, *bns)`` is where the trunk takes the fused path: on the card,
-with nothing for autograd to record, BatchNorms on running statistics
-producing bf16, and a channels_last input. Elsewhere, the training-mode
-BatchNorms above all, the trunk runs its unfused chain and counts it in
-``cuda.UNFUSED_EPILOGUES`` if the tensor is on the card.
+Each form decides for itself: it runs the kernel where ``engages`` holds
+for its input and BatchNorms (on the card, with nothing for autograd to
+record, BatchNorms on running statistics producing bf16, and a
+channels_last input), and its plain version, the module chain, everywhere
+else: on the CPU, in training (batch statistics and their collectives),
+in fp32. The plain version is also the kernel's reference: the kernel
+computes the BatchNorm module's fp32 formula from the running statistics
+(``w * (v - mean) * rsqrt(var + eps) + bias``).
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from sniper_tpu_torch.models.norm import TrainBatchNorm
 from sniper_tpu_torch.ops import cuda
 
 BF16 = torch.bfloat16
@@ -44,44 +42,33 @@ FORM_BN_RELU, FORM_SUM_BN_RELU, FORM_BN_ADD_RELU = 1, 2, 3
 
 def applies(x: torch.Tensor, *bns) -> bool:
     """Every condition of ``engages`` but the device: autograd records
-    nothing, each BatchNorm uses its running statistics and produces bf16,
-    and ``x`` (bf16, or the stem's fp32) is channels_last."""
+    nothing, each BatchNorm uses its running statistics
+    (``use_running_average``, models/norm.py) and produces bf16, and ``x``
+    (bf16, or the stem's fp32) is channels_last."""
     return (not torch.is_grad_enabled()
             and x.dtype in (BF16, torch.float32)
             and x.is_contiguous(memory_format=CHANNELS_LAST)
-            and all(bn.dtype == BF16
-                    and not (bn.training and isinstance(bn, TrainBatchNorm))
+            and all(bn.dtype == BF16 and bn.use_running_average
                     for bn in bns))
 
 
 def engages(x: torch.Tensor, *bns) -> bool:
-    """Whether a unit whose input is ``x`` runs its epilogues fused."""
+    """Whether a form on ``x`` with ``bns`` runs the kernel."""
     return x.is_cuda and applies(x, *bns)
 
 
-def count_unfused(x: torch.Tensor, sites: int) -> None:
-    """Count ``sites`` epilogues that took the unfused chain on the card."""
-    if x.is_cuda:
-        cuda.UNFUSED_EPILOGUES += sites
-
-
-def _affine(bn, a: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(a, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, eps=bn.eps).to(BF16)
-
-
 def bn_relu_plain(a, bn):
-    return F.relu(_affine(bn, a.to(BF16)))
+    return F.relu(bn(a.to(bn.dtype)), inplace=True)
 
 
 def sum_bn_relu_plain(h, sc, bn, keep_sum):
     x = h + sc
-    return (x if keep_sum else None), F.relu(_affine(bn, x))
+    return (x if keep_sum else None), F.relu(bn(x), inplace=True)
 
 
 def bn_add_relu_plain(h, bn, s, sc_bn=None):
-    s = s.float() if sc_bn is None else _affine(sc_bn, s)
-    return F.relu(_affine(bn, h) + s).to(BF16)
+    s = s.float() if sc_bn is None else sc_bn(s)
+    return F.relu(bn(h) + s).to(bn.dtype)
 
 
 # The wrapper runs once per epilogue, so on the host it has to cost less
@@ -140,8 +127,9 @@ def _empty(like: torch.Tensor) -> torch.Tensor:
 
 
 def bn_relu(a: torch.Tensor, bn) -> torch.Tensor:
-    """``relu(bn(bf16(a)))`` in bf16; ``a`` bf16 or fp32 [N, C, H, W]."""
-    if not a.is_cuda:
+    """``relu(bn(a))`` in bn's dtype; ``a`` [N, C, H, W], bf16 or fp32 for
+    the kernel."""
+    if not engages(a, bn):
         return bn_relu_plain(a, bn)
     act = _empty(a)
     _launch(FORM_BN_RELU, a, None, act, None, bn)
@@ -149,9 +137,9 @@ def bn_relu(a: torch.Tensor, bn) -> torch.Tensor:
 
 
 def sum_bn_relu(h: torch.Tensor, sc: torch.Tensor, bn, keep_sum: bool):
-    """``(x, relu(bn(x)))`` with ``x = h + sc`` in bf16; x is None unless
+    """``(x, relu(bn(x)))`` with ``x = h + sc``; x is None unless
     ``keep_sum``."""
-    if not h.is_cuda:
+    if not engages(h, bn):
         return sum_bn_relu_plain(h, sc, bn, keep_sum)
     x = _empty(h) if keep_sum else None
     act = _empty(h)
@@ -161,9 +149,10 @@ def sum_bn_relu(h: torch.Tensor, sc: torch.Tensor, bn, keep_sum: bool):
 
 def bn_add_relu(h: torch.Tensor, bn, s: torch.Tensor,
                 sc_bn=None) -> torch.Tensor:
-    """``relu(bn(h) + s)`` in bf16, ``s`` the identity or, with ``sc_bn``,
-    ``sc_bn(s)``."""
-    if not h.is_cuda:
+    """``relu(bn(h) + s)`` in bn's dtype, ``s`` the identity or, with
+    ``sc_bn``, ``sc_bn(s)``."""
+    bns = (bn,) if sc_bn is None else (bn, sc_bn)
+    if not engages(h, *bns):
         return bn_add_relu_plain(h, bn, s, sc_bn)
     out = _empty(h)
     _launch(FORM_BN_ADD_RELU, h, s, out, None, bn, sc_bn)

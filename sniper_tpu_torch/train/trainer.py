@@ -60,9 +60,9 @@ A replayed step:
   overwrite them;
 - registers the sampler's ``generator`` with the graph (without
   priorities), so that each replay draws anew;
-- counts itself in GRAPH_REPLAYS. It runs no Python, so the hand
-  kernels' own counters (``Kernel.launches``, ``cuda.UNFUSED_EPILOGUES``)
-  count its capture and not its replays; a device trace holds a replay's
+- has ``eager_reason`` None, as the capturing step has. It runs no
+  Python, so the hand kernels' own counters (``Kernel.launches``) count
+  its capture and not its replays; a device trace holds a replay's
   launches (``cuda.traced_launches``);
 - runs inside the span ``graph``: the layer spans inside it do not open,
   and their split comes from the eager steps.
@@ -88,9 +88,6 @@ from sniper_tpu_torch.utils.profiler import span
 
 # eager steps of a batch signature before the step captures it
 GRAPH_WARMUP = 3
-# steps taken by replaying a captured graph (the capturing step's included);
-# over the steps taken, the share that engaged
-GRAPH_REPLAYS = 0
 
 
 def eager_reason(on_cuda: bool, in_group: bool, hooked: bool,
@@ -263,7 +260,6 @@ class TrainStep:
             self.scheduler.step()
 
     def _replay(self, sig, batch, priorities):
-        global GRAPH_REPLAYS
         g = self.graphs.get(sig)
         fresh = g is None
         if fresh:
@@ -284,7 +280,6 @@ class TrainStep:
                 g.load(batch, priorities)
             g.graph.replay()
             metrics = {k: v.clone() for k, v in g.metrics.items()}
-        GRAPH_REPLAYS += 1
         self._update()
         return metrics
 

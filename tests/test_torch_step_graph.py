@@ -19,11 +19,11 @@ each from the same weights. The replayed run agrees with the first eager
 run to within GAP_MULT times the eager runs' widest distance from one
 another plus GAP_FLOOR, in the losses of every step, SGD's momentum
 buffers, the BatchNorms' running statistics and the parameters after the
-last step (X2 and P3 sum with atomics, so eager runs differ); its replays
-count 5 in GRAPH_REPLAYS, its replayed steps' traces hold the hand-kernel
-launches of its eager steps' (the most of each over the steps: the
-profiler can lose records), and the kernels' counters count the eager
-steps and the capture and not the replays. From one saved state after
+last step (X2 and P3 sum with atomics, so eager runs differ); 5 of its
+steps replay (``eager_reason`` None), its replayed steps' traces hold the
+hand-kernel launches of its eager steps' (the most of each over the
+steps: the profiler can lose records), and the kernels' counters count
+the eager steps and the capture and not the replays. From one saved state after
 that run and one batch, one replayed step's gradients agree with one
 eager step's to within GAP_MULT times two eager steps' distance plus
 GAP_FLOOR. Then a batch of another signature (GT rows padded to 8, not 6) warms up for 3
@@ -237,10 +237,9 @@ def _state(model, opt):
 def test_cpu_step_unchanged():
     """make_train_step on the CPU takes the same three steps, bit for bit,
     as the eager step it replaced; none of them replays."""
-    replays = trainer.GRAPH_REPLAYS
     model, opt, got, step = _tiny_run(trainer.make_train_step)
     ref_model, ref_opt, want, _ = _tiny_run(_old_step)
-    assert trainer.GRAPH_REPLAYS == replays and not step.graphs
+    assert step.eager_reason is not None and not step.graphs
     assert step.eager_reason.startswith("the batch is not on a CUDA")
     assert list(step.eager_steps.values()) == [3]
     for m, w in zip(got, want):
@@ -536,10 +535,9 @@ def _card_runs(cfg, dev, get_model):
         out[run] = (*got[:3], None, *got[4:])  # the step object freed
         del got
         torch.cuda.empty_cache()
-    r0 = trainer.GRAPH_REPLAYS
     out["graph"] = _run(cfg, base, dev, inputs, steps=steps, eager=False,
                         traced=True)
-    out["replays"] = trainer.GRAPH_REPLAYS - r0
+    out["replays"] = sum(r is None for r in out["graph"][4])
     # one step from one saved state and batch: eager, replayed, eager
     step = out["graph"][3]
     saved = _saved(step.model, step.optimizer)

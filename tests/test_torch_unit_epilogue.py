@@ -1,15 +1,19 @@
 """The trunk's unit epilogue (ops/epilogue.py, csrc/unit_epilogue.cu).
 
-On the CPU, in bf16: each form's plain version equals the module chain it
-replaces, bit for bit; a unit (pre-activation and ResNeXt, identity and
-projection shortcuts, C5's deformable units) and the R101 and X101 trunks'
-(c4, c5) give the same bits through the fused path (``engages`` patched to
-``applies``, so that the restructured code runs with the plain versions) as
-through the unfused one; ``engages`` takes the fused path only on the card,
-with autograd off, BatchNorms on running statistics that produce bf16 and a
-channels_last input. On the card (``cuda``): the kernel against its plain
-version, within one bf16 ulp.
+On the CPU, in bf16: each form, where the kernel does not engage, equals
+the module chain it replaces, bit for bit, a training-mode BatchNorm's
+gradients and running statistics included; a unit (pre-activation and
+ResNeXt, identity and projection shortcuts, C5's deformable units) and the
+R101 and X101 trunks' (c4, c5) give the same bits through the forms' kernel
+branches (``engages`` patched to ``applies``, the launch standing in by
+the plain versions: ``_cpu_launch``) as through their module chains;
+``engages`` picks the kernel only on the card, with autograd off,
+BatchNorms on running statistics that produce bf16 and a channels_last
+input, and each form asks it once. On the card (``cuda``): the kernel
+against its plain version, within one bf16 ulp.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -54,10 +58,25 @@ def _bn(rng, c, cls=FrozenBatchNorm):
     return _randomize(cls(c, dtype=BF16), rng)
 
 
-def _fused(monkeypatch):
-    """Run the trunk's fused path on the CPU: the predicate without its
-    device test, the forms through their plain versions."""
-    monkeypatch.setattr(epilogue, "engages", epilogue.applies)
+def _cpu_launch(form, a, b, out, out2, bn1, bn2=None):
+    """The kernel's launch on the CPU: its outputs from the plain
+    versions."""
+    if form == epilogue.FORM_BN_RELU:
+        out.copy_(epilogue.bn_relu_plain(a, bn1))
+    elif form == epilogue.FORM_SUM_BN_RELU:
+        x, act = epilogue.sum_bn_relu_plain(a, b, bn1, out is not None)
+        if out is not None:
+            out.copy_(x)
+        out2.copy_(act)
+    else:
+        out.copy_(epilogue.bn_add_relu_plain(a, bn1, b, bn2))
+
+
+def _fused(monkeypatch, engages=epilogue.applies):
+    """Run the forms' kernel branches on the CPU: the predicate without
+    its device test, the launch through the plain versions."""
+    monkeypatch.setattr(epilogue, "engages", engages)
+    monkeypatch.setattr(epilogue, "_launch", _cpu_launch)
 
 
 def _unfused(monkeypatch):
@@ -66,33 +85,81 @@ def _unfused(monkeypatch):
 
 # --- the forms' plain versions against the chains they replace -----------
 
+def _chain_and_form(rng, train, inputs, chain, form, bns=1):
+    """``chain`` and ``form`` on the same inputs, each with its own copy of
+    ``bns`` BatchNorms (TrainBatchNorms in training mode with ``train``):
+    both outputs bit for bit, and in training also the inputs' and the
+    BatchNorms' gradients and their running statistics. Returns the
+    form's outputs."""
+    made = [_bn(rng, 16, TrainBatchNorm if train else FrozenBatchNorm)
+            for _ in range(bns)]
+    if train:
+        made = [bn.train() for bn in made]
+    runs = []
+    for fn in (chain, form):
+        ins = [t.detach().clone().requires_grad_(train) for t in inputs]
+        mods = copy.deepcopy(made)
+        with torch.set_grad_enabled(train):
+            out = fn(*ins, *mods)
+        outs = [o for o in (out if isinstance(out, tuple) else (out,))
+                if o is not None]
+        if train:
+            sum(o.float().square().sum() for o in outs).backward()
+        runs.append((outs, ins, mods))
+    (want, w_in, w_bn), (got, g_in, g_bn) = runs
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if train:
+        for g, w in zip(g_in, w_in):
+            assert torch.equal(g.grad, w.grad)
+        for g, w in zip(g_bn, w_bn):
+            for name in ("weight", "bias"):
+                assert torch.equal(getattr(g, name).grad,
+                                   getattr(w, name).grad)
+            for name in ("running_mean", "running_var"):
+                assert torch.equal(getattr(g, name), getattr(w, name))
+    return got
+
+
+@pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
-def test_bn_relu_plain_is_the_chain(rng, dtype):
+def test_bn_relu_plain_is_the_chain(rng, dtype, train):
     a = _bf16(rng, 2, 16, 5, 7).to(dtype)
-    bn = _bn(rng, 16)
-    want = F.relu(bn(a.to(BF16)), inplace=True)
-    assert torch.equal(epilogue.bn_relu(a, bn), want)
+    _chain_and_form(rng, train, [a],
+                    lambda a, bn: F.relu(bn(a.to(BF16)), inplace=True),
+                    epilogue.bn_relu)
 
 
+@pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("keep_sum", [True, False])
-def test_sum_bn_relu_plain_is_the_chain(rng, keep_sum):
+def test_sum_bn_relu_plain_is_the_chain(rng, keep_sum, train):
     h, sc = _bf16(rng, 2, 16, 5, 7), _bf16(rng, 2, 16, 5, 7)
-    bn = _bn(rng, 16)
-    x, act = epilogue.sum_bn_relu(h, sc, bn, keep_sum)
-    want = h + sc
-    assert torch.equal(act, F.relu(bn(want), inplace=True))
-    assert (x is None) if not keep_sum else torch.equal(x, want)
+
+    def chain(h, sc, bn):
+        x = h + sc
+        return (x if keep_sum else None), F.relu(bn(x), inplace=True)
+
+    got = _chain_and_form(
+        rng, train, [h, sc], chain,
+        lambda h, sc, bn: epilogue.sum_bn_relu(h, sc, bn, keep_sum))
+    assert len(got) == (2 if keep_sum else 1)
 
 
+@pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("projection", [False, True])
-def test_bn_add_relu_plain_is_the_chain(rng, projection):
+def test_bn_add_relu_plain_is_the_chain(rng, projection, train):
     h, s = _bf16(rng, 2, 16, 5, 7), _bf16(rng, 2, 16, 5, 7)
-    bn = _bn(rng, 16)
-    sc_bn = _bn(rng, 16) if projection else None
-    want = F.relu(bn(h) + (sc_bn(s) if projection else s.float()))
-    got = epilogue.bn_add_relu(h, bn, s, sc_bn)
-    assert got.dtype == BF16
-    assert torch.equal(got, want.to(BF16))
+
+    def chain(h, s, bn, sc_bn=None):
+        sc = s.float() if sc_bn is None else sc_bn(s)
+        return F.relu(bn(h) + sc).to(BF16)
+
+    got = _chain_and_form(
+        rng, train, [h, s], chain,
+        lambda h, s, bn, sc_bn=None: epilogue.bn_add_relu(h, bn, s, sc_bn),
+        bns=2 if projection else 1)
+    assert got[0].dtype == BF16
 
 
 # --- units and trunks: the fused path against the unfused one ------------
@@ -132,9 +199,9 @@ def _unit_out(unit, x, pair):
     (name, pair) for name in sorted(UNITS)
     for pair in ((False, True) if name.startswith("preact") else (False,))])
 def test_unit_fused_path_is_bit_for_bit(rng, monkeypatch, name, pair):
-    """A unit through the epilogue's forms equals the unfused unit; a
-    pre-activation unit also from the previous unit's [h, sc], and as its
-    own [h, sc]."""
+    """A unit through the forms' kernel branches equals the unit through
+    their module chains; a pre-activation unit also from the previous
+    unit's [h, sc], and as its own [h, sc]."""
     torch.manual_seed(0)
     unit = _randomize(UNITS[name](), rng)
     cin = unit.conv1.in_channels
@@ -159,8 +226,9 @@ TRUNKS = {
 
 @pytest.mark.parametrize("name", sorted(TRUNKS))
 def test_trunk_fused_path_is_bit_for_bit(rng, monkeypatch, name):
-    """The trunk's (c4, c5) with every unit epilogue through the fused code
-    (R101's units handing [h, sc] to the next) equal the unfused trunk's."""
+    """The trunk's (c4, c5) with every unit epilogue through the forms'
+    kernel branches (R101's units handing [h, sc] to the next) equal the
+    trunk's through their module chains."""
     torch.manual_seed(0)
     trunk = _randomize(TRUNKS[name](), rng)
     x = torch.from_numpy(rng.randn(2, 3, 64, 80).astype(np.float32) * 50)
@@ -218,24 +286,25 @@ def test_engagement(rng, case, mode):
 
 
 def test_training_trunk_takes_the_unfused_path(rng, monkeypatch):
-    """A training step's trunk: with autograd recording, nothing engages
-    but the frozen stem and stage 1, which R101 runs without autograd."""
+    """A training step's trunk: with autograd recording, no form engages
+    but the frozen stem's and stage 1's, which R101 runs without
+    autograd; each form asks once."""
     calls = []
-    real = epilogue.applies
 
     def spy(x, *bns):
-        calls.append(real(x, *bns))
+        calls.append(epilogue.applies(x, *bns))
         return calls[-1]
 
-    monkeypatch.setattr(epilogue, "engages", spy)
+    _fused(monkeypatch, spy)
     trunk = _randomize(TRUNKS["r101"](), rng).train()
     for m in trunk._early():  # FIXED_PARAMS: the stem and stage 1
         m.requires_grad_(False)
     x = torch.from_numpy(rng.randn(2, 3, 64, 80).astype(np.float32))
     c4, c5 = trunk(x.contiguous(memory_format=torch.channels_last))
     assert c5.requires_grad
-    # the stem and stage 1's unit engage; the 6 units of stages 2-4 do not
-    assert calls == [True, True] + [False] * 6
+    # the stem's form and stage 1's unit's three engage; the three forms of
+    # each of the 6 units of stages 2-4 do not
+    assert calls == [True] * 4 + [False] * 18
 
 
 # --- on the card ---------------------------------------------------------
@@ -286,8 +355,8 @@ def test_kernel_matches_plain_on_the_card(rng, shape):
 @pytest.mark.cuda
 def test_trunk_engagement_on_the_card(rng):
     """A tiny R101 trunk on the card: at inference every unit epilogue runs
-    fused (1 + 3 a unit) and bit for bit the unfused trunk; in training
-    with autograd recording none does, and each counts as unfused."""
+    as the kernel (1 + 3 a unit launches) and bit for bit the module
+    chains; in training with autograd recording none does."""
     from sniper_tpu_torch.ops import cuda
 
     dev = cuda_or_skip()
@@ -296,21 +365,18 @@ def test_trunk_engagement_on_the_card(rng):
     x = x.to(dev).contiguous(memory_format=torch.channels_last)
     n_units = sum(trunk.units)
 
-    def counts():
-        return cuda.UNIT_EPILOGUE.launches, cuda.UNFUSED_EPILOGUES
-
-    cuda.UNIT_EPILOGUE.launches = cuda.UNFUSED_EPILOGUES = 0
+    cuda.UNIT_EPILOGUE.launches = 0
     with torch.inference_mode(), torch.backends.cudnn.flags(
             enabled=True, deterministic=True):
         got = trunk(x)
-        fused = counts()
+        fused = cuda.UNIT_EPILOGUE.launches
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(epilogue, "engages", lambda *a: False)
             want = trunk(x)
-    assert fused == (1 + 3 * n_units, 0)
+    assert fused == 1 + 3 * n_units
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    cuda.UNIT_EPILOGUE.launches = cuda.UNFUSED_EPILOGUES = 0
+    cuda.UNIT_EPILOGUE.launches = 0
     trunk.train()
     trunk(x)
-    assert counts() == (0, 1 + 3 * n_units)
+    assert cuda.UNIT_EPILOGUE.launches == 0
