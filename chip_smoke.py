@@ -39,9 +39,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    (a) the kernel path against the plain path on a small input, (b) the
    port's run_detection over a few synthetic 640x480 images, with the
    kernels' launch counters zeroed just before and read just after (every
-   unit epilogue fused, EPILOGUES_FORWARD a batch), (c)
-   per-scale forward times on the host clock: a smoke reading (median and
-   spread over E2E_REPS passes), not a benchmark.
+   unit epilogue fused, EPILOGUES_FORWARD a counted forward: the counters
+   count the eager calls and each signature's capture of its CUDA graph,
+   main_test.make_forward, and not the replays, which run no kernel
+   wrapper), (c) per-scale forward times on the host clock: a smoke
+   reading (median and spread over E2E_REPS passes), not a benchmark, and
+   each scale's replayed call against its eager one (a no-op forward hook
+   keeps it eager) by the hand kernels' launches in their device traces
+   (``replay_check``).
 4. Mask-branch inference of configs/sniper_res101_e2e_mask.yml at full
    width and depth with seeded random weights, its 14x14 pool on the fused
    pool kernels (4 pool launches per batch, none of the patch extraction):
@@ -50,7 +55,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    synthetic images of phase 3, counters zeroed just before and read just
    after, with the aggregated masks of one image pasted and RLE-encoded, (c)
    per-scale forward times (median and spread over MASK_REPS passes), img/s
-   and peak memory: a smoke reading; (d) one scale-0 batch under
+   and peak memory: a smoke reading, and phase 3 (c)'s replay check; (d)
+   one scale-0 batch (a signature's first call, so eager) under
    utils/profiler.device_trace: the ``sniper/mask`` span's device and host
    ms and launches (benchmark/core/spans.table), and the mask branch's roi
    counter (models/detector.MASK_ROIS), which must read B x N.
@@ -124,10 +130,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    (z1) X101 inference: (a) the kernel path against the plain path on a
    small input (phase 3 (a)'s bounds), (b) run_detection at the flagship
    scales and batches, counters zeroed just before and read just after,
-   per batch exactly X1 3, NMS 1, pool 2, and none of X2, the pool's
-   backward and the patch extraction, (c) per-scale ms per batch (median
-   and min-max over ZOO_REPS passes), img/s, peak memory and the trunk's
-   share of one batch's forward device time; (z2) X101 training: the
+   per counted forward (phase 3 (b)) exactly X1 3, NMS 1, pool 2, and none
+   of X2, the pool's backward and the patch extraction, (c) per-scale ms
+   per batch (median and min-max over ZOO_REPS passes), img/s, peak memory,
+   the trunk's share of one batch's forward device time and phase 3 (c)'s
+   replay check; (z2) X101 training: the
    one-step check of 5 (a) (the C5 grouped conv2_weight and offset among
    the leaves), a synthetic X101 backbone written from mapping_rows and
    imported by load_pretrained (which first raises under the yml's
@@ -273,6 +280,38 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+REPLAY_TRACES = 3  # traces of a replayed and of an eager call each
+
+
+def replay_check(fwd, model, data, im_info) -> tuple[bool, str]:
+    """A make_forward signature's replayed call against its eager one (a
+    no-op forward hook keeps it eager), each traced REPLAY_TRACES times on
+    its own (cuda.traced_call): a replay runs no kernel wrapper, so only a
+    trace sees its launches. The hand kernels' most launches over each's
+    traces (the profiler can lose a record) must agree, and every replayed
+    call must have replayed. Returns (ok, the reading)."""
+    from sniper_tpu_torch.ops import cuda
+
+    fwd(data, im_info)  # the signature's capture, where it has none yet
+    replayed, eager, reasons = [], [], []
+    for _ in range(REPLAY_TRACES):
+        replayed.append(cuda.traced_call(lambda: fwd(data, im_info))[1])
+        reasons.append(fwd.eager_reason)
+        h = model.register_forward_hook(lambda *a: None)
+        try:
+            eager.append(cuda.traced_call(lambda: fwd(data, im_info))[1])
+        finally:
+            h.remove()
+    r, e = cuda.most_launches(replayed), cuda.most_launches(eager)
+    good = (r == e and any(e.values())
+            and all(x is None for x in reasons))
+    return good, (f"replayed call's hand-kernel launches (most of "
+                  f"{REPLAY_TRACES} traces) {r}, the eager call's {e}, "
+                  f"every replayed call replayed "
+                  f"{all(x is None for x in reasons)}: "
+                  f"{'PASS' if good else 'FAIL'}")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -1433,8 +1472,9 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
     print(f"e2e (b) run_detection (cv2 canvases, injected image loader, "
           f"counting dataset) over {N_IMAGES} synthetic {IM_W}x{IM_H} "
           f"images: {stats}, launches {launches} (unit epilogues "
-          f"{EPILOGUES_FORWARD} a batch), {wall:.2f} s wall including "
-          f"first-call set-up: {'PASS' if good else 'FAIL'}")
+          f"{EPILOGUES_FORWARD} a counted forward: the eager calls and the "
+          f"captures, not the replays), {wall:.2f} s wall including "
+          f"first-call set-up and captures: {'PASS' if good else 'FAIL'}")
     ok &= good
 
     # (c) per-scale forward times at the shipped batch sizes
@@ -1465,13 +1505,15 @@ def e2e_phase(dev, cfg, card: str) -> tuple[bool, dict]:
         per_rep.sort()
         ms = per_rep[len(per_rep) // 2]
         hw = batches[0]["data"].shape[1:3]
+        replayed, reading = replay_check(fwd, model, batches[0]["data"],
+                                         batches[0]["im_info"])
         print(f"e2e (c) scale {s}: canvas {hw[0]}x{hw[1]}, batch {bs}, "
               f"{n} rois/img: median {ms:.2f} ms/batch (min {per_rep[0]:.2f}, "
               f"max {per_rep[-1]:.2f} over {E2E_REPS} passes of "
               f"{len(batches)} batches), {bs * 1e3 / ms:.1f} img/s "
               f"[{card}]; shapes and finiteness "
-              f"{'PASS' if shapes_ok else 'FAIL'}")
-        ok &= shapes_ok
+              f"{'PASS' if shapes_ok else 'FAIL'}; {reading}")
+        ok &= shapes_ok and replayed
         ms_per_image += ms / bs
     print(f"e2e (c) three-scale pyramid: {ms_per_image:.2f} ms/img, "
           f"{1e3 / ms_per_image:.1f} img/s (forward only, sum of the "
@@ -1613,8 +1655,8 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda.KERNELS}
-    # per batch: one NMS call, the box head's two pool passes and the mask
-    # branch's two
+    # per counted forward (the eager calls and the captures): one NMS call,
+    # the box head's two pool passes and the mask branch's two
     batches = launches[cuda.NMS.name]
     good = (stats["bbox"]["detections"] > 0 and stats["segm"]["masks"] > 0
             and all(launches[n] > 0 for n in INFERENCE_KERNELS)
@@ -1623,7 +1665,8 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
     print(f"mask (b) run_detection with masks over {N_IMAGES} synthetic "
           f"{IM_W}x{IM_H} images: {stats}; launches of the six kernels "
           f"{launches} (the three of inference must be > 0, the pool 4 per "
-          f"batch over {batches} batches, the patch extraction 0; the pool "
+          f"counted forward over {batches} eager calls and captures, the "
+          f"patch extraction 0; the pool "
           f"and DCN backward kernels run only in training, phase 5), "
           f"{wall:.2f} s wall including first-call set-up: "
           f"{'PASS' if good else 'FAIL'}")
@@ -1655,13 +1698,15 @@ def mask_phase(dev, mcfg, card: str) -> tuple[bool, dict]:
         per_rep.sort()
         ms = per_rep[len(per_rep) // 2]
         hw = batches[0]["data"].shape[1:3]
+        replayed, reading = replay_check(fwd, model, batches[0]["data"],
+                                         batches[0]["im_info"])
         print(f"mask (c) scale {s}: canvas {hw[0]}x{hw[1]}, batch {bs}, "
               f"{n} rois/img: median {ms:.2f} ms/batch (min "
               f"{per_rep[0]:.2f}, max {per_rep[-1]:.2f} over {MASK_REPS} "
               f"passes of {len(batches)} batches), {bs * 1e3 / ms:.1f} img/s "
               f"[{card}]; mask_prob shape, range and finiteness "
-              f"{'PASS' if shapes_ok else 'FAIL'}")
-        ok &= shapes_ok
+              f"{'PASS' if shapes_ok else 'FAIL'}; {reading}")
+        ok &= shapes_ok and replayed
         ms_per_image += ms / bs
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"mask (c) three-scale pyramid with masks: {ms_per_image:.2f} "
@@ -2924,9 +2969,10 @@ def autofocus_inference(dev, acfg, amcfg, card: str) -> tuple[bool, dict]:
           + "; ".join(f"after scale {c['scale']}: {sum(c['chips'])} "
                       f"({c['pct']:.1f}% of the next scale's pixels)"
                       for c in chips)
-          + f"; launches {launches} over {batches} batches (NMS 1, im2col 3, "
-          f"pool 2 per batch; P5 0), {wall:.2f} s wall including first-call "
-          f"set-up: {'PASS' if good else 'FAIL'}")
+          + f"; launches {launches} over {batches} counted forwards (the "
+          f"eager calls and the captures; NMS 1, im2col 3, pool 2 each; P5 "
+          f"0), {wall:.2f} s wall including first-call set-up and captures: "
+          f"{'PASS' if good else 'FAIL'}")
     ok &= good
 
     # (c) planted maps against the full pyramid, same scales and batches
@@ -3121,10 +3167,12 @@ def zoo_inference(dev, zcfg, tag: str, card: str,
     weights: (a) the kernel path against the plain path on a small input,
     phase 3 (a)'s bounds; (b) run_detection over phase 3's synthetic
     images, counters zeroed just before and read just after, each kernel
-    launched ``per_batch`` times per batch; (c) per-scale ms per batch
-    (median and min-max over ZOO_REPS host-clocked passes), img/s, peak
-    memory, and the trunk's share of the forward's device time (CUDA
-    events on one batch). Returns (ok, (b)'s launches)."""
+    launched ``per_batch`` times per counted forward (the eager calls and
+    the captures: one NMS call each), at most one a batch; (c) per-scale
+    ms per batch (median and min-max over ZOO_REPS host-clocked passes),
+    img/s, peak memory, the trunk's share of the forward's device time
+    (CUDA events on one batch) and ``replay_check``. Returns (ok, (b)'s
+    launches)."""
     from sniper_tpu_torch.data.test_loader import (
         TestChipIterator,
         init_inference_crops,
@@ -3221,26 +3269,32 @@ def zoo_inference(dev, zcfg, tag: str, card: str,
                                3)
             fwd_ms = time_ms(lambda: model(x0, info0, post_nms_top_n=n), 3)
         hw = batches[0]["data"].shape[1:3]
+        replayed, reading = replay_check(fwd, model, batches[0]["data"],
+                                         batches[0]["im_info"])
         print(f"{tag} (c) scale {s}: canvas {hw[0]}x{hw[1]}, batch {bs}, {n} "
               f"rois/img: median {ms:.2f} ms/batch (min {per_rep[0]:.2f}, max "
               f"{per_rep[-1]:.2f} over {ZOO_REPS} passes of {len(batches)} "
               f"batches), {bs * 1e3 / ms:.1f} img/s [{card}]; device time of "
               f"one batch's forward {fwd_ms:.2f} ms, its trunk {trunk_ms:.2f} "
               f"ms ({100 * trunk_ms / fwd_ms:.1f}%); shapes and finiteness "
-              f"{'PASS' if shapes_ok else 'FAIL'}")
-        ok &= shapes_ok
+              f"{'PASS' if shapes_ok else 'FAIL'}; {reading}")
+        ok &= shapes_ok and replayed
         ms_per_image += ms / bs
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{tag} (c) three-scale pyramid: {ms_per_image:.2f} ms/img, "
           f"{1e3 / ms_per_image:.1f} img/s, peak memory {peak:.2f} GiB "
           f"(forward only, sum of the scales' medians, random weights; a "
           f"smoke reading) [{card}]")
-    exact = all(launches[k] == c * n_batches for k, c in per_batch.items())
+    counted = launches[cuda.NMS.name]
+    exact = (0 < counted <= n_batches
+             and all(launches[k] == c * counted for k, c in per_batch.items()))
     good = stats["detections"] > 0 and exact
     print(f"{tag} (b) run_detection over {N_IMAGES} synthetic {IM_W}x{IM_H} "
-          f"images: {stats}, launches {launches} over {n_batches} batches, "
-          f"per batch exactly {per_batch}: {exact}; {wall:.2f} s wall "
-          f"including first-call set-up: {'PASS' if good else 'FAIL'}")
+          f"images: {stats}, launches {launches} over {counted} counted "
+          f"forwards (the eager calls and the captures) of {n_batches} "
+          f"batches, per counted forward exactly {per_batch}: {exact}; "
+          f"{wall:.2f} s wall including first-call set-up and captures: "
+          f"{'PASS' if good else 'FAIL'}")
     ok &= good
     del model
     torch.cuda.empty_cache()

@@ -239,7 +239,10 @@ def bench_inference(cfg, model, *, device, peak: float, batches=None,
                        [sp["scale"]] * sp["batch"]))
     for sp, (fwd, data, info, _, _) in zip(specs, scales):
         print(f"warmup {tuple(data.shape)} ...", file=sys.stderr, flush=True)
-        fwd(data, info)
+        # the second call captures the scale's CUDA graph on a card
+        # (main_test.make_forward), so that no capture falls in the rounds
+        for _ in range(2):
+            fwd(data, info)
         bench_autofocus.synchronize(device)
 
     def dispatch_round():

@@ -33,12 +33,46 @@ training's negative-chip mining reads.
 device, as in the JAX CLI) serves data-parallel: each batch splits along
 dim 0 over eval replicas on the cards 0..N-1 (N replicas on the CPU), and
 every scale's TEST.BATCH_IMAGES must then be a multiple of N.
+
+On one CUDA card the forward of ``make_forward`` replays a CUDA graph, so
+that the host no longer launches each batch's kernels one by one (R101's
+~650 a batch). ``device_normalize`` and the detector's inference forward
+are captured once per input signature (``forward_signature``: the data's
+shape, dtype and device, im_info's shape and dtype; the post-NMS count is
+the forward's own), on the signature's second call, and every later call
+of that signature copies its batch into the graph's static inputs and
+replays it. A call runs eagerly where ``eager_reason`` finds something
+against a replay: the forward's device not a CUDA card, several replicas
+(the batch splits and joins), a hook on the model's modules or a global
+one (a replay runs no Python, so no hook would fire), or the signature's
+first call (cuDNN's first calls, the anchors' cache, the means, the
+allocator). A capture that fails raises; nothing falls back to eager.
+
+A replayed call:
+
+- copies ``data`` and ``im_info`` into the graph's static inputs (a host
+  batch through pinned memory, outside the graph) and returns clones of
+  the captured outputs, which the next replay leaves alone;
+- shares one memory pool with the forward's other graphs: the replays run
+  one at a time on one stream, and each one's outputs are cloned before
+  the next one runs;
+- sets ``models/detector.MASK_ROIS`` to the count its capture left (the
+  same B x N rois the graph's mask branch runs on);
+- runs no kernel wrapper, so the hand kernels' counters
+  (``Kernel.launches``) count the eager calls and the captures and not the
+  replays, whose launches a device trace holds
+  (``ops/cuda.traced_launches``);
+- runs inside the span ``graph``: the layer spans ``trunk``, ``rpn``,
+  ``head`` and ``mask`` open in eager and capturing calls only; a no-op
+  hook on the model keeps the forward eager where the layers' split is
+  wanted.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
 import pickle
 
@@ -51,10 +85,139 @@ from sniper_tpu_torch.data.test_loader import (
     init_inference_crops,
 )
 from sniper_tpu_torch.infer.tester import Tester, device_normalize
+from sniper_tpu_torch.models import detector
 from sniper_tpu_torch.parallel.mesh import replicate
+from sniper_tpu_torch.train.trainer import _hooked
+from sniper_tpu_torch.utils.profiler import span
 
 
-def make_forward(model, state, devices, pixel_means, post_nms_top_n=None):
+def forward_signature(data: torch.Tensor, im_info: torch.Tensor) -> tuple:
+    """What a captured forward is specific to (module doc): the data's
+    shape, dtype and device, and im_info's shape and dtype."""
+    return (tuple(data.shape), data.dtype, data.device,
+            tuple(im_info.shape), im_info.dtype)
+
+
+def eager_reason(on_cuda: bool, replicas: int, hooked: bool,
+                 seen: bool) -> str | None:
+    """Why a forward call runs eagerly, or None where it replays its input
+    signature's graph, capturing it first where it has none (module doc):
+    ``on_cuda``, the forward runs on a CUDA device; ``replicas``, how many
+    the batch splits over; ``hooked``, the model has hooks; ``seen``, an
+    earlier call had the input signature."""
+    if not on_cuda:
+        return "the forward's device is not a CUDA device"
+    if replicas > 1:
+        return f"{replicas} replicas (the batch splits and joins)"
+    if hooked:
+        return "hooks on the model"
+    if not seen:
+        return "the first call of the input signature"
+    return None
+
+
+class _ForwardGraph:
+    """One input signature's ``device_normalize`` and detector forward as
+    a CUDA graph: its static inputs, its outputs and the mask roi count
+    (``detector.MASK_ROIS``) that its capture left."""
+
+    def __init__(self, run, data, im_info, device, pool):
+        self.data = torch.empty(data.shape, dtype=data.dtype, device=device)
+        self.im_info = torch.empty(im_info.shape, dtype=im_info.dtype,
+                                   device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the Tester's prefetch thread keeps assembling host
+        # batches while the forward captures
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.outputs = run(self.data, self.im_info)
+        self.mask_rois = detector.MASK_ROIS
+
+    def load(self, data, im_info):
+        self.data.copy_(data, non_blocking=True)
+        self.im_info.copy_(im_info)
+
+    def replay(self, data, im_info) -> dict:
+        self.load(data, im_info)
+        self.graph.replay()
+        detector.MASK_ROIS = self.mask_rois
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+
+class Forward:
+    """The forward of ``make_forward``: ``forward(data, im_info) -> the
+    detector's outputs``. ``graphs`` maps each captured input signature to
+    its graph; ``eager_reason`` is why the last call ran eagerly (None
+    where it replayed, the capturing call's included)."""
+
+    def __init__(self, replicas, devices, pixel_means, post_nms_top_n):
+        self.replicas, self.devices = replicas, devices
+        self.pixel_means, self.post_nms_top_n = pixel_means, post_nms_top_n
+        # listed once: walking the tree costs the host more than the check
+        self.modules = list(replicas[0].modules())
+        self.graphs: dict = {}
+        self.seen: set = set()
+        self.pool = None  # the graphs' memory pool, made at the first capture
+        self.eager_reason: str | None = None
+
+    def _run(self, replica, device, data, im_info):
+        cuda = device.type == "cuda"
+        # the kernels launch on the current card's stream
+        with torch.cuda.device(device) if cuda else contextlib.nullcontext():
+            if cuda and not data.is_cuda:
+                data = data.pin_memory()
+            data = data.to(device, non_blocking=True)
+            im_info = im_info.to(device)
+            data = device_normalize(data, im_info, self.pixel_means)
+            return replica(data, im_info, post_nms_top_n=self.post_nms_top_n)
+
+    @torch.inference_mode()
+    def __call__(self, data, im_info):
+        data = torch.as_tensor(data)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32)
+        n = len(self.replicas)
+        sig = forward_signature(data, im_info)
+        self.eager_reason = eager_reason(
+            self.devices[0].type == "cuda", n, _hooked(self.modules),
+            sig in self.seen)
+        if self.eager_reason is None:
+            return self._replay(sig, data, im_info)
+        self.seen.add(sig)
+        if n == 1:
+            return self._run(self.replicas[0], self.devices[0], data, im_info)
+        if data.shape[0] % n:
+            raise ValueError(
+                f"test batch {data.shape[0]} not divisible by {n} devices "
+                "(set TEST.BATCH_IMAGES to a multiple of "
+                "parallel.num_devices)")
+        outs = [self._run(r, d, x, i) for r, d, x, i in zip(
+            self.replicas, self.devices, data.chunk(n), im_info.chunk(n))]
+        joined = {k: torch.cat([o[k].to(self.devices[0]) for o in outs])
+                  for k in outs[0]}
+        # each replica numbers its images from 0
+        shard = data.shape[0] // n
+        first = torch.arange(0, data.shape[0], shard, device=self.devices[0])
+        joined["rois"][..., 0] += first.repeat_interleave(shard)[:, None]
+        return joined
+
+    def _replay(self, sig, data, im_info):
+        device = self.devices[0]
+        if not data.is_cuda:
+            data = data.pin_memory()
+        with torch.cuda.device(device):
+            g = self.graphs.get(sig)
+            if g is None:
+                if self.pool is None:
+                    self.pool = torch.cuda.graph_pool_handle()
+                g = self.graphs[sig] = _ForwardGraph(
+                    functools.partial(self._run, self.replicas[0], device),
+                    data, im_info, device, self.pool)
+            with span("graph"):
+                return g.replay(data, im_info)
+
+
+def make_forward(model, state, devices, pixel_means,
+                 post_nms_top_n=None) -> Forward:
     """Inference forward on ``devices``: one device, or a list of them with
     one eval replica each (parallel/mesh.replicate; several may name the
     same device). ``state`` (a state_dict, or None when ``model`` already
@@ -65,50 +228,18 @@ def make_forward(model, state, devices, pixel_means, post_nms_top_n=None):
     equal shards (ValueError when it does not divide), each replica runs
     its shard, and the outputs are joined on the first device, the rois'
     batch-index column made global (each replica numbers its images from
-    0), as main_test.py:94-130. Returns the detector's output dict of
-    device tensors (launches are asynchronous: the Tester copies them to
-    the host one batch later)."""
+    0), as main_test.py:94-130. Returns the ``Forward``, whose call
+    returns the detector's output dict of device tensors (launches are
+    asynchronous: the Tester copies them to the host one batch later). On
+    one CUDA card a signature's calls after its first replay a CUDA graph
+    (module doc)."""
     if state is not None:
         model.load_state_dict(state)
     if not isinstance(devices, (list, tuple)):
         devices = [devices]
     devices = [torch.device(d) for d in devices]
-    replicas = replicate(model, devices)
-
-    def run(replica, device, data, im_info):
-        cuda = device.type == "cuda"
-        # the kernels launch on the current card's stream
-        with torch.cuda.device(device) if cuda else contextlib.nullcontext():
-            if cuda and not data.is_cuda:
-                data = data.pin_memory()
-            data = data.to(device, non_blocking=True)
-            im_info = im_info.to(device)
-            data = device_normalize(data, im_info, pixel_means)
-            return replica(data, im_info, post_nms_top_n=post_nms_top_n)
-
-    @torch.inference_mode()
-    def forward(data, im_info):
-        data = torch.as_tensor(data)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32)
-        n = len(replicas)
-        if n == 1:
-            return run(replicas[0], devices[0], data, im_info)
-        if data.shape[0] % n:
-            raise ValueError(
-                f"test batch {data.shape[0]} not divisible by {n} devices "
-                "(set TEST.BATCH_IMAGES to a multiple of "
-                "parallel.num_devices)")
-        outs = [run(r, d, x, i) for r, d, x, i in zip(
-            replicas, devices, data.chunk(n), im_info.chunk(n))]
-        joined = {k: torch.cat([o[k].to(devices[0]) for o in outs])
-                  for k in outs[0]}
-        # each replica numbers its images from 0
-        shard = data.shape[0] // n
-        first = torch.arange(0, data.shape[0], shard, device=devices[0])
-        joined["rois"][..., 0] += first.repeat_interleave(shard)[:, None]
-        return joined
-
-    return forward
+    return Forward(replicate(model, devices), devices, pixel_means,
+                   post_nms_top_n)
 
 
 def _test_num_devices(cfg) -> int:
